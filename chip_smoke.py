@@ -6,13 +6,19 @@
 Phases, each of which asserts:
   1. the card, the versions, and the build of every CUDA kernel from csrc/;
   2. each kernel against its plain torch version on the card, at the NMS
-     shapes of the serving and eval paths (equal outputs required), timed;
+     shapes of the serving and eval paths (equal outputs required): the keep
+     on sorted candidates (the tile walk) and on unsorted ones (the argmax
+     loop), under both rules; timed on the sorted ones, the main path's;
   3. the serving path at full width: YOLOv6-S (configs/yolov6s.py, 80
      classes, deploy) serving 32 uint8 images of 640x640 in fp32 through
-     ``make_end2end_fn``; the NMS kernel must be launched and find detections,
-     the plain keep must agree on the same predictions, and the CPU decode of
-     two of the images must agree with the CUDA decode;
-  4. times of the bf16 serving function, with CUDA events.
+     ``make_end2end_fn``; the NMS kernel must be launched, take the tile walk
+     in every image and find detections; the default keep must equal the
+     plain emit-once keep and ``'pallas'`` the plain loop on the same
+     predictions, and the CPU decode of two of the images must agree with
+     the CUDA decode;
+  4. times of the bf16 serving function, with CUDA events;
+  5. a torch.profiler trace of the bf16 serving function: kernel time by
+     name and the device's idle share.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 and when there is no CUDA device.
@@ -65,8 +71,13 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int, warmup: int = 2, queue_ahead: bool = False) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls.
+
+    ``queue_ahead`` first puts a spin kernel of about 10 ms on the stream, so
+    that the host has queued every call before the first one starts: the
+    events then time the device's work alone, not the host's launch rate
+    (for a kernel shorter than its wrapper's host time)."""
     import torch
 
     for _ in range(warmup):
@@ -74,6 +85,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -101,17 +114,53 @@ def clustered_candidates(seed: int, B: int, K: int, device, n_cls: int = 80):
             torch.tensor(scores, dtype=torch.float32, device=device))
 
 
+def sort_candidates(boxes, scores):
+    """The candidates in the selection stage's order: scores descending, ties
+    in index order (a stable sort)."""
+    import torch
+
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    return torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous(), scores
+
+
+def keep_bytes(boxes, scores, idx, valid) -> int:
+    """Each input read once, each output written once (idx, valid, and the
+    kernel's path and tiles per image)."""
+    B = scores.shape[0]
+    return boxes.numel() * 4 + scores.numel() * 4 + idx.numel() * 4 + valid.numel() + 5 * B
+
+
+def keep_work_sorted(boxes, scores, idx, valid, tile: int):
+    """(bytes, operations) the keep needs for these inputs once their order is
+    known (scores sorted descending, every kept box distinct, as under the
+    default rule): each input byte read once; per candidate up to the last one
+    visited, 17 operations of IoU and test per kept box ahead of it, and 17
+    per pair of candidates within one tile of ``tile``. The last candidate
+    visited is the one kept in the last row, or the last positive one when
+    the rows do not fill."""
+    import torch
+
+    n_pos = (scores > 0).sum(1)
+    last = torch.where(valid[:, -1], idx[:, -1].long(), n_pos - 1)  # [B]
+    ahead = ((last[:, None] - idx.long()).clamp(min=0) * valid).sum()
+    n = last + 1
+    full, rem = n // tile, n % tile
+    pairs = (full * (tile * (tile - 1) // 2) + rem * (rem - 1) // 2).sum()
+    return keep_bytes(boxes, scores, idx, valid), int(17 * (ahead + pairs))
+
+
 def keep_work(boxes, scores, idx, valid, iou_thres):
-    """(bytes, operations) the greedy keep needs for these inputs: each input
-    read once and each output written once; per step run, one compare per
-    candidate for the argmax and 17 operations of IoU and test per candidate
-    still alive. A step runs for each valid row, plus one that finds nothing
-    alive when the loop ends early."""
+    """(bytes, operations) the greedy keep needs for these inputs in any
+    order (the argmax loop's count): each input read once and each output
+    written once; per step run, one compare per candidate for the argmax and
+    17 operations of IoU and test per candidate still alive. A step runs for
+    each valid row, plus one that finds nothing alive when the loop ends
+    early."""
     import torch
 
     B, K = scores.shape
     md = idx.shape[1]
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + idx.numel() * 4 + valid.numel()
+    nbytes = keep_bytes(boxes, scores, idx, valid)
     kept = torch.gather(boxes, 1, idx.long()[..., None].expand(-1, -1, 4))  # [B, md, 4]
     iw = (torch.minimum(kept[..., None, 2], boxes[:, None, :, 2])
           - torch.maximum(kept[..., None, 0], boxes[:, None, :, 0])).clamp(min=0)
@@ -185,7 +234,8 @@ def profile_serve(fn, card: str, calls: int = 3) -> None:
     log(f"[5] profile of {calls} bf16 serve calls: window {window_us / calls:.1f} us/call, "
         f"kernels {busy_us / calls:.1f} us/call, device idle {1 - busy_us / window_us:.3f} "
         f"of the window [{card}]")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:12] + [e for e in ranked[12:] if "greedy_nms" in e.key]:
         log(f"[5]   {e.self_device_time_total / calls:9.1f} us/call "
             f"{e.count // calls:4d}x  {e.key[:90]}")
 
@@ -204,7 +254,7 @@ def main() -> int:
     from yolov6_tpu_torch.models.yolo import build_model
     from yolov6_tpu_torch.ops import nms as nms_mod
     from yolov6_tpu_torch.ops.cuda import build
-    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
     from yolov6_tpu_torch.utils.config import Config
 
     dev = torch.device("cuda")
@@ -223,21 +273,43 @@ def main() -> int:
     # ---- 2. kernel vs plain at the keep shapes of the serving and eval paths
     keep_rows = {}
     for i, (name, B, K, md, iou) in enumerate(KEEP_SHAPES):
-        boxes, scores = clustered_candidates(10 + i, B, K, dev)
+        unsorted = clustered_candidates(10 + i, B, K, dev)
+        inputs = {"sorted": sort_candidates(*unsorted), "unsorted": unsorted}
+        for order, (boxes, scores) in inputs.items():
+            for emit_once in (True, False):
+                idx_k, valid_k = greedy_nms(boxes, scores, md, iou, emit_once=emit_once)
+                idx_p, valid_p = greedy_nms_plain(boxes, scores, md, iou, emit_once=emit_once)
+                torch.cuda.synchronize()
+                what = f"{name}, {order}, emit_once={emit_once}"
+                assert torch.equal(valid_k, valid_p), f"{what}: valid differs from the plain keep"
+                assert torch.equal(idx_k, idx_p), f"{what}: idx differs from the plain keep"
+                assert (greedy_nms.last_path == int(order == "sorted")).all(), \
+                    f"{what}: wrong path {greedy_nms.last_path.tolist()}"
+                n_valid = int(valid_k.sum())
+                assert n_valid > B * md // 2, f"{what}: only {n_valid} kept, the chain is too short"
+        # times on the sorted candidates under the default rule, the main path's
+        boxes, scores = inputs["sorted"]
         idx_k, valid_k = greedy_nms(boxes, scores, md, iou)
-        idx_p, valid_p = greedy_nms_plain(boxes, scores, md, iou)
         torch.cuda.synchronize()
-        assert torch.equal(valid_k, valid_p), f"{name}: valid differs from the plain keep"
-        assert torch.equal(idx_k, idx_p), f"{name}: idx differs from the plain keep"
-        n_valid = int(valid_k.sum())
-        assert n_valid > B * md // 2, f"{name}: only {n_valid} kept, the chain is too short"
-        ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20)
+        tiles = float(greedy_nms.last_tiles.float().mean())
+        ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20, queue_ahead=True)
+        # one row: the scores pass, then the first tile with a single resolve step
+        one_row_ms = cuda_ms(lambda: greedy_nms(boxes, scores, 1, iou), iters=20, queue_ahead=True)
+        call_ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20)
+        argmax_ms = cuda_ms(lambda: greedy_nms(*unsorted, md, iou), iters=20, queue_ahead=True)
         plain_ms = cuda_ms(lambda: greedy_nms_plain(boxes, scores, md, iou), iters=3, warmup=1)
-        b_ms, b_by = bound_ms(*keep_work(boxes, scores, idx_k, valid_k, iou))
-        keep_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        log(f"[2] greedy_nms {name} B={B} K={K} max_det={md} iou={iou}: equal to plain, "
-            f"{n_valid} kept; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
+        b_ms, b_by = bound_ms(*keep_work_sorted(boxes, scores, idx_k, valid_k, TILE))
+        any_ms, any_by = bound_ms(*keep_work(boxes, scores, idx_k, valid_k, iou))
+        keep_rows[name] = dict(ms=ms, one_row_ms=one_row_ms, call_ms=call_ms,
+                               argmax_ms=argmax_ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, any_order_bound_ms=any_ms,
+                               any_order_bound_by=any_by, tiles_visited=tiles)
+        log(f"[2] greedy_nms {name} B={B} K={K} max_det={md} iou={iou}: equal to plain on "
+            f"sorted and unsorted candidates under both rules, {int(valid_k.sum())} kept; "
+            f"sorted (tile walk, {tiles:.2f} tiles/image): kernel {ms:.4f} ms (with max_det 1 "
+            f"{one_row_ms:.4f} ms), per call {call_ms:.4f} ms; unsorted (argmax loop) {argmax_ms:.4f} ms; plain "
+            f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms ({b_by}; in any order {any_ms:.5f} ms, "
+            f"{any_by}) [{card}]")
 
     # ---- 3. the serving path at full width, fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -256,12 +328,16 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = greedy_nms.launches
     assert main_launches > 0, "serving did not launch the NMS kernel"
+    main_path = greedy_nms.last_path.tolist()
+    main_tiles = float(greedy_nms.last_tiles.float().mean())
+    assert main_path == [1] * BATCH, f"serving: not every image took the tile walk: {main_path}"
     assert num_dets.shape == (BATCH, 1) and boxes.shape == (BATCH, SERVE["max_det"], 4)
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     total = int(num_dets.sum())
     assert total > 0, "serving found no detections"
     log(f"[3] served YOLOv6-S ({n_params / 1e6:.2f} M params) b{BATCH}@{IMG} fp32: "
-        f"{total} detections, {main_launches} NMS kernel launch(es)")
+        f"{total} detections, {main_launches} NMS kernel launch(es), the tile walk in all "
+        f"{BATCH} images, {main_tiles:.2f} tiles/image")
 
     def forward_decode(x_uint8, m, half):
         x = x_uint8.permute(0, 3, 1, 2).to(torch.bfloat16 if half else torch.float32)
@@ -272,20 +348,30 @@ def main() -> int:
 
     cpu_model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    def plain_emit_once(preds, conf_thres, iou_thres, max_det, max_nms=30000,
+                        multi_label=False):
+        cands = nms_mod._select_candidates(preds, conf_thres, max_nms, multi_label, False, None)
+        return nms_mod._keep_and_gather(cands, greedy_nms_plain, True, max_det, iou_thres)
+
     with torch.inference_mode():
         preds = forward_decode(images, model, half=False)
-        dets_k, valid_k = nms_mod.non_max_suppression(preds, **SERVE)
-        dets_p, valid_p = nms_mod.non_max_suppression(preds, **SERVE, method="loop")
-        assert torch.equal(valid_k, valid_p) and torch.equal(dets_k, dets_p), \
-            "serving: kernel keep differs from the plain keep"
-        assert torch.equal(valid_k.sum(1, keepdim=True, dtype=torch.int32), num_dets), \
-            "serving: serve() differs from forward + decode + NMS"
-        ev_k, ev_valid_k = nms_mod.non_max_suppression(preds, **EVAL)
-        ev_p, ev_valid_p = nms_mod.non_max_suppression(preds, **EVAL, method="loop")
-        assert torch.equal(ev_valid_k, ev_valid_p) and torch.equal(ev_k, ev_p), \
-            "eval protocol: kernel keep differs from the plain keep"
-        log(f"[3] same predictions through the plain keep: identical at the serving "
-            f"setting and at the eval protocol ({int(ev_valid_k.sum())} detections)")
+        counts = {}
+        for setting, kw in (("serving", SERVE), ("eval protocol", EVAL)):
+            dets_k, valid_k = nms_mod.non_max_suppression(preds, **kw)
+            dets_p, valid_p = plain_emit_once(preds, **kw)
+            assert torch.equal(valid_k, valid_p) and torch.equal(dets_k, dets_p), \
+                f"{setting}: the default keep differs from the plain emit-once keep"
+            pal_k, pal_valid_k = nms_mod.non_max_suppression(preds, **kw, method="pallas")
+            pal_p, pal_valid_p = nms_mod.non_max_suppression(preds, **kw, method="loop")
+            assert torch.equal(pal_valid_k, pal_valid_p) and torch.equal(pal_k, pal_p), \
+                f"{setting}: 'pallas' differs from the plain loop"
+            counts[setting] = (int(valid_k.sum()), int(pal_valid_k.sum()))
+            if setting == "serving":
+                assert torch.equal(valid_k.sum(1, keepdim=True, dtype=torch.int32), num_dets), \
+                    "serving: serve() differs from forward + decode + NMS"
+        log(f"[3] same predictions through the plain keeps: the default equal to the plain "
+            f"emit-once keep, 'pallas' equal to 'loop', at the serving setting and at the "
+            f"eval protocol ((default, pallas) detections: {counts})")
 
         # two of the images on the CPU, fp32
         cpu_serve = make_end2end_fn(cpu_model, **SERVE, with_preprocess=True, half=False,
@@ -308,17 +394,27 @@ def main() -> int:
             preds, SERVE["conf_thres"], 30000, False, False, None)
         nms_boxes, cand_scores = nms_boxes.contiguous(), cand_scores.contiguous()
         md, iou = SERVE["max_det"], SERVE["iou_thres"]
-        idx_k, valid_k = greedy_nms(nms_boxes, cand_scores, md, iou)
-        idx_p, valid_p = greedy_nms_plain(nms_boxes, cand_scores, md, iou)
-        assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p)
-        max_abs_err = float((idx_k - idx_p).abs().max())
-        main_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
+        max_abs_err = 0.0
+        for emit_once in (False, True):  # the default rule last: its outputs are used below
+            idx_k, valid_k = greedy_nms(nms_boxes, cand_scores, md, iou, emit_once=emit_once)
+            idx_p, valid_p = greedy_nms_plain(nms_boxes, cand_scores, md, iou,
+                                              emit_once=emit_once)
+            assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p), \
+                f"served candidates, emit_once={emit_once}: the kernel differs from plain"
+            assert (greedy_nms.last_path == 1).all()
+            max_abs_err = max(max_abs_err, float((idx_k - idx_p).abs().max()))
+        main_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20,
+                          queue_ahead=True)
+        main_call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
         main_plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, cand_scores, md, iou),
                                 iters=3, warmup=1)
-        main_bound, main_by = bound_ms(*keep_work(nms_boxes, cand_scores, idx_k, valid_k, iou))
+        main_bound, main_by = bound_ms(*keep_work_sorted(nms_boxes, cand_scores, idx_k, valid_k,
+                                                         TILE))
+        any_bound, any_by = bound_ms(*keep_work(nms_boxes, cand_scores, idx_k, valid_k, iou))
         log(f"[3] greedy_nms on the served candidates B={BATCH} K={nms_boxes.shape[1]} "
-            f"max_det={md}: kernel {main_ms:.4f} ms, plain {main_plain_ms:.3f} ms, "
-            f"bound {main_bound:.5f} ms ({main_by}) [{card}]")
+            f"max_det={md}, both rules equal to plain: kernel {main_ms:.4f} ms, per call "
+            f"{main_call_ms:.4f} ms, plain {main_plain_ms:.3f} ms, bound {main_bound:.5f} ms "
+            f"({main_by}; in any order {any_bound:.5f} ms, {any_by}) [{card}]")
 
     # ---- 4. times: bf16 serving at b32@640
     torch.backends.cudnn.allow_tf32 = True
@@ -344,10 +440,14 @@ def main() -> int:
         "launches": main_launches,
         "matches_plain": True,
         "max_abs_err": max_abs_err,
+        "path": main_path[0],
+        "tiles_visited": main_tiles,
         "ms": main_ms,
+        "call_ms": main_call_ms,
         "plain_ms": main_plain_ms,
         "bound_ms": main_bound,
         "bound_by": main_by,
+        "any_order_bound_ms": any_bound,
         "library_ms": None,
         "shape": f"B={BATCH} K={nms_boxes.shape[1]} max_det={md}",
         "shapes": {name: dict(B=B, K=K, max_det=m, **keep_rows[name])

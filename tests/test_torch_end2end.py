@@ -40,11 +40,9 @@ def models():
     return jmodel, variables, model
 
 
-def test_serve_matches_jax(models):
-    """uint8 BGR NHWC images in, detections out, fp32: the same detections.
-    Boxes within rtol 1e-4 / atol 1e-3 px, scores within 1e-5 (the convs sum
-    in other orders); counts and classes equal."""
-    jmodel, variables, model = models
+def _serve_both(jmodel, variables, model):
+    """Serve the same images through JAX and the port, fp32; check that the
+    detections are the same and return the JAX side's."""
     images = np.random.default_rng(6).integers(0, 256, (2, IMG, IMG, 3), dtype=np.uint8)
     kw = dict(conf_thres=0.25, iou_thres=0.45, max_det=100, with_preprocess=True, half=False)
     want = [np.asarray(a) for a in jax_make_end2end_fn(jmodel, variables, **kw)(jnp.asarray(images))]
@@ -58,6 +56,34 @@ def test_serve_matches_jax(models):
     np.testing.assert_array_equal(cls_t, cls_j)
     np.testing.assert_allclose(boxes_t, boxes_j, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(scores_t, scores_j, rtol=0, atol=1e-5)
+    return want
+
+
+def test_serve_matches_jax(models):
+    """uint8 BGR NHWC images in, detections out, fp32: the same detections.
+    Boxes within rtol 1e-4 / atol 1e-3 px, scores within 1e-5 (the convs sum
+    in other orders); counts and classes equal."""
+    _serve_both(*models)
+
+
+def test_serve_matches_jax_with_inverted_boxes(models):
+    """The stride-8 level's box regression negated, so its decoded boxes are
+    inverted (x2 < x1), as the raw no-DFL regression can give. Such a box
+    never suppresses itself: the serve must emit each one once, as the JAX
+    serve's default keep does, at the same tolerances."""
+    jmodel, variables, _ = models
+
+    def negate_level0(path, leaf):
+        names = [getattr(p, "key", str(p)) for p in path]
+        return -leaf if names[-2:] == ["reg_preds.0", "bias"] else leaf
+
+    inverted = jax.tree_util.tree_map_with_path(negate_level0, variables)
+    model = build_model(small_s_config(Config), num_classes=NC, device="cpu")
+    model.load_state_dict(state_dict_from_jax(inverted), strict=True)
+    num_j, boxes_j, _, _ = _serve_both(jmodel, inverted, model)
+    rows = np.arange(boxes_j.shape[1])[None] < num_j
+    assert ((boxes_j[..., 2] < boxes_j[..., 0]) & rows).sum() > 2
+    assert ((boxes_j[..., 2] > boxes_j[..., 0]) & rows).sum() > 2
 
 
 def test_serve_half_on_cpu(models):

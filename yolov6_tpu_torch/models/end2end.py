@@ -24,7 +24,10 @@ def make_end2end_fn(
     which must already sit on ``device``.
 
     ``with_preprocess`` folds BGR->RGB and /255 into the function.
-    ``half`` runs the model in bf16 (autocast); decode and NMS run in fp32."""
+    ``half`` runs the model in bf16 (autocast); decode and NMS run in fp32.
+    NMS keeps with the default method, as the JAX serve does: the CUDA
+    kernel's tile walk on a CUDA tensor, under the rule that emits each box
+    at most once (the JAX ``'tiled'`` keep; ops/nms.py)."""
     device = resolve_device(device)
     model_device = next(model.parameters()).device
     if model_device.type != device.type:

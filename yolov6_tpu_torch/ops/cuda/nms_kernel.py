@@ -1,14 +1,25 @@
 """Greedy NMS keep: the CUDA kernel's wrapper and its plain torch version.
 
-The kernel (csrc/nms_kernel.cu) replaces the Pallas TPU kernel
-yolov6_tpu/ops/pallas/nms_kernel.py::_nms_kernel. See the source for what
-bounds it on the H100 and how its design answers that.
+The kernel (csrc/nms_kernel.cu) replaces two TPU-side keeps of the JAX
+package: the Pallas kernel yolov6_tpu/ops/pallas/nms_kernel.py::_nms_kernel
+and, under the default rule, yolov6_tpu/ops/nms.py::_tiled_keep with
+_emit_topk_kept. See the source for what bounds it on the H100 and how its
+design answers that.
 
 Both versions take ``boxes [B, K, 4]`` (xyxy, class offset applied) and
 ``scores [B, K]`` (0 below conf), and return ``idx [B, max_det] int32`` (the
 candidate kept at each step, 0 on an invalid row) and ``valid [B, max_det]
 bool``. The 128-lane rows of the TPU kernel are a VMEM layout; the caller
 gathers boxes and classes by ``idx``.
+
+The rule (``emit_once``) decides what happens to a kept box whose IoU with
+itself is not above the threshold (zero area, or inverted):
+
+  - ``emit_once=True``, the default rule of the JAX package's default keep
+    (``'tiled'``) and of upstream's ``torchvision.ops.nms``: every kept box
+    leaves the alive set, so each box is emitted at most once;
+  - ``emit_once=False``, the Pallas rule (``_nms_kernel`` and the JAX
+    ``'loop'``): such a box stays the argmax and fills every remaining row.
 """
 
 from __future__ import annotations
@@ -18,14 +29,19 @@ import ctypes
 import torch
 
 # dynamic shared memory a block may use on sm_90 (232,448 bytes), less the
-# kernel's static reduction scratch
-MAX_K = (232448 - 1024) // 4
+# kernel's static scratch
+SMEM_LIMIT = 232448 - 1024
+# the argmax loop keeps one float per candidate in shared memory
+MAX_K = SMEM_LIMIT // 4
+TILE = 128  # candidates per tile of the kernel's tile walk (kTile in the source)
 
 
 def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
-                     iou_thres: float):
+                     iou_thres: float, emit_once: bool = True):
     """The batched torch loop of yolov6_tpu/ops/nms.py:70-91, with the same
-    IoU expression. The reference for the kernel, and the keep on the CPU."""
+    IoU expression, under either rule. The reference for the kernel, and the
+    keep on the CPU. On candidates sorted by descending score (ties in index
+    order), ``emit_once=True`` equals ``_tiled_keep`` + ``_emit_topk_kept``."""
     B = boxes.shape[0]
     x1, y1, x2, y2 = boxes.unbind(-1)
     areas = (x2 - x1) * (y2 - y1)
@@ -43,6 +59,8 @@ def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
         inter = iw * ih
         iou = inter / (areas[rows, cur][:, None] + areas - inter + 1e-12)
         alive &= ~((iou > iou_thres) & ok[:, None])
+        if emit_once:
+            alive[rows, cur] = False
         idx[:, i] = torch.where(ok, cur, 0).to(torch.int32)
         valid[:, i] = ok
     return idx, valid
@@ -55,18 +73,24 @@ def _lib():
     fn = lib.yolov6_greedy_nms
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.yolov6_greedy_nms_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.yolov6_greedy_nms_smem_bytes.restype = ctypes.c_int
         lib.yolov6_cuda_error_string.argtypes = [ctypes.c_int]
         lib.yolov6_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
-               iou_thres: float):
+               iou_thres: float, emit_once: bool = True):
     """Greedy NMS keep: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor. Counts kernel launches in ``greedy_nms.launches``."""
+    for a CPU tensor. Counts kernel launches in ``greedy_nms.launches``; each
+    launch leaves, in ``greedy_nms.last_path`` and ``greedy_nms.last_tiles``,
+    [B] device tensors of the path each image took (1: the tile walk over
+    sorted candidates, 0: the argmax loop) and the tiles it visited, to be
+    read after a synchronise."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"need boxes [B,K,4] and scores [B,K], got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
@@ -78,26 +102,35 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
     if B < 1 or K < 1 or max_det < 1:
         raise ValueError(f"empty NMS problem: B={B}, K={K}, max_det={max_det}")
     if boxes.device.type == "cpu":
-        return greedy_nms_plain(boxes, scores, max_det, iou_thres)
+        return greedy_nms_plain(boxes, scores, max_det, iou_thres, emit_once)
     if boxes.device.type != "cuda":
         raise ValueError(f"no NMS kernel for device {boxes.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
-    if K > MAX_K:
-        raise ValueError(f"K={K} candidates exceed the kernel's shared-memory limit {MAX_K}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned (the kernel reads them as float4)")
     lib = _lib()
+    smem = lib.yolov6_greedy_nms_smem_bytes(K, max_det)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K={K}, max_det={max_det} need {smem} bytes of shared memory, "
+                         f"more than the kernel's {SMEM_LIMIT} (K <= {MAX_K}, and 20 bytes "
+                         f"a kept box for min(K, max_det))")
     idx = torch.empty((B, max_det), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((B, max_det), dtype=torch.bool, device=boxes.device)
+    path = torch.empty((B,), dtype=torch.uint8, device=boxes.device)
+    tiles = torch.empty((B,), dtype=torch.int32, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.yolov6_greedy_nms(boxes.data_ptr(), scores.data_ptr(), B, K, max_det,
-                                    float(iou_thres), idx.data_ptr(), valid.data_ptr(),
-                                    stream)
+                                    float(iou_thres), int(bool(emit_once)), idx.data_ptr(),
+                                    valid.data_ptr(), path.data_ptr(), tiles.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: "
                            f"{lib.yolov6_cuda_error_string(err).decode()}")
     greedy_nms.launches += 1
+    greedy_nms.last_path, greedy_nms.last_tiles = path, tiles
     return idx, valid
 
 
 greedy_nms.launches = 0
+greedy_nms.last_path = greedy_nms.last_tiles = None

@@ -8,8 +8,20 @@ Every step keeps static shapes, as in the JAX package:
      stable descending sort, as ``lax.top_k`` orders them).
   3. class offset: boxes shifted by class * MAX_WH so one IoU geometry does
      per-class NMS.
-  4. the greedy keep (ops/cuda/nms_kernel.py): the CUDA kernel on a CUDA
-     tensor, the plain torch loop on a CPU tensor.
+  4. the greedy keep (ops/cuda/nms_kernel.py), chosen by ``method``:
+
+     | method            | rule                    | CUDA tensor | CPU tensor |
+     | ----------------- | ----------------------- | ----------- | ---------- |
+     | None, ``'tiled'`` | emit once (JAX default) | the kernel  | plain loop |
+     | ``'pallas'``      | the Pallas rule         | the kernel  | plain loop |
+     | ``'loop'``        | the Pallas rule         | plain loop  | plain loop |
+
+     Under the default rule, as in the JAX package's default ``'tiled'``
+     keep (``_tiled_keep`` + ``_emit_topk_kept``), every box is emitted at
+     most once. Under the Pallas rule (``pallas_greedy_nms``, the JAX
+     ``'loop'``), a kept box whose IoU with itself is not above the threshold
+     (zero area, or inverted) fills every remaining row. ``'perclass'`` is
+     not ported.
 
 Outputs are ``dets [b, max_det, 6]`` (xyxy, conf, cls) with invalid rows
 zeroed, and ``valid [b, max_det]``. The JAX package's TPU levers
@@ -27,6 +39,13 @@ from yolov6_tpu_torch.ops.boxes import xywh2xyxy
 from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
 
 MAX_WH = 4096  # reference: utils/nms.py:54
+# method -> (keep, emit_once); see the module doc
+_KEEPS = {
+    None: (greedy_nms, True),
+    "tiled": (greedy_nms, True),
+    "pallas": (greedy_nms, False),
+    "loop": (greedy_nms_plain, False),
+}
 
 
 def _topk(vals: torch.Tensor, k: int):
@@ -119,20 +138,27 @@ def non_max_suppression(
 
     Returns ``(dets [b, max_det, 6] as xyxy/conf/cls, valid [b, max_det])``.
     ``class_mask`` is an optional [nc] 0/1 vector (the reference's
-    ``classes`` filter). ``method``: None keeps with ``greedy_nms`` (the CUDA
-    kernel on a CUDA tensor, the JAX ``'pallas'`` path; the plain loop on a
-    CPU tensor); ``'loop'`` keeps with the plain torch loop on any device
-    (the JAX ``'loop'`` path, the kernel's reference)."""
-    if method in ("tiled", "perclass"):
+    ``classes`` filter). ``method`` picks the keep and its rule (module doc):
+    None and ``'tiled'`` give the JAX package's default output, ``'pallas'``
+    and ``'loop'`` that of its ``'pallas'`` and ``'loop'`` keeps."""
+    if method == "perclass":
         raise NotImplementedError(f"NMS method {method!r} is not ported yet")
-    if method not in (None, "loop"):
+    if method not in _KEEPS:
         raise ValueError(f"unknown NMS method {method!r}")
-    cand_boxes, nms_boxes, scores, cls_idx = _select_candidates(
+    keep, emit_once = _KEEPS[method]
+    candidates = _select_candidates(
         prediction.float(), conf_thres, max_nms, multi_label, agnostic, class_mask,
         anchor_topc, row_select,
     )
-    keep = greedy_nms_plain if method == "loop" else greedy_nms
-    idx, valid = keep(nms_boxes.contiguous(), scores.contiguous(), max_det, iou_thres)
+    return _keep_and_gather(candidates, keep, emit_once, max_det, iou_thres)
+
+
+def _keep_and_gather(candidates, keep, emit_once: bool, max_det: int, iou_thres: float):
+    """Run ``keep`` under the rule ``emit_once`` on the output of
+    ``_select_candidates`` and gather ``(dets, valid)`` by its indices."""
+    cand_boxes, nms_boxes, scores, cls_idx = candidates
+    idx, valid = keep(nms_boxes.contiguous(), scores.contiguous(), max_det, iou_thres,
+                      emit_once=emit_once)
     idx = idx.long()
     dets = torch.cat([
         _gather_rows(cand_boxes, idx),
