@@ -12,10 +12,10 @@ Phases, each of which asserts:
   3. the serving path at full width: YOLOv6-S (configs/yolov6s.py, 80
      classes, deploy) serving 32 uint8 images of 640x640 in fp32 through
      ``make_end2end_fn``; the NMS kernel must be launched, take the tile walk
-     in every image and find detections; the default keep must equal the
-     plain emit-once keep and ``'pallas'`` the plain loop on the same
-     predictions, and the CPU decode of two of the images must agree with
-     the CUDA decode;
+     in every image (at the serving setting and at the eval protocol) and find
+     detections; the default keep must equal the plain emit-once keep and
+     ``'pallas'`` the plain loop on the same predictions, and the CPU decode
+     of two of the images must agree with the CUDA decode;
   4. times of the bf16 serving function, with CUDA events;
   5. a torch.profiler trace of the bf16 serving function: kernel time by
      name and the device's idle share.
@@ -123,21 +123,15 @@ def sort_candidates(boxes, scores):
     return torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous(), scores
 
 
-def keep_bytes(boxes, scores, idx, valid) -> int:
-    """Each input read once, each output written once (idx, valid, and the
-    kernel's path and tiles per image)."""
-    B = scores.shape[0]
-    return boxes.numel() * 4 + scores.numel() * 4 + idx.numel() * 4 + valid.numel() + 5 * B
-
-
 def keep_work_sorted(boxes, scores, idx, valid, tile: int):
     """(bytes, operations) the keep needs for these inputs once their order is
     known (scores sorted descending, every kept box distinct, as under the
-    default rule): each input byte read once; per candidate up to the last one
-    visited, 17 operations of IoU and test per kept box ahead of it, and 17
-    per pair of candidates within one tile of ``tile``. The last candidate
-    visited is the one kept in the last row, or the last positive one when
-    the rows do not fill."""
+    default rule). Bytes: every score, which the check of the order reads,
+    the boxes up to the last candidate visited, and the outputs. Operations:
+    per candidate up to the last one visited, 17 of IoU and test per kept box
+    ahead of it, and 17 per pair of candidates within one tile of ``tile``.
+    The last candidate visited is the one kept in the last row, or the last
+    positive one when the rows do not fill."""
     import torch
 
     n_pos = (scores > 0).sum(1)
@@ -146,7 +140,10 @@ def keep_work_sorted(boxes, scores, idx, valid, tile: int):
     n = last + 1
     full, rem = n // tile, n % tile
     pairs = (full * (tile * (tile - 1) // 2) + rem * (rem - 1) // 2).sum()
-    return keep_bytes(boxes, scores, idx, valid), int(17 * (ahead + pairs))
+    B = scores.shape[0]
+    nbytes = (scores.numel() * 4 + int(n.sum()) * 16 + idx.numel() * 4 + valid.numel()
+              + 5 * B)
+    return nbytes, int(17 * (ahead + pairs))
 
 
 def keep_work(boxes, scores, idx, valid, iou_thres):
@@ -160,7 +157,8 @@ def keep_work(boxes, scores, idx, valid, iou_thres):
 
     B, K = scores.shape
     md = idx.shape[1]
-    nbytes = keep_bytes(boxes, scores, idx, valid)
+    # idx, valid, and the kernel's path and tiles per image
+    nbytes = boxes.numel() * 4 + scores.numel() * 4 + idx.numel() * 4 + valid.numel() + 5 * B
     kept = torch.gather(boxes, 1, idx.long()[..., None].expand(-1, -1, 4))  # [B, md, 4]
     iw = (torch.minimum(kept[..., None, 2], boxes[:, None, :, 2])
           - torch.maximum(kept[..., None, 0], boxes[:, None, :, 0])).clamp(min=0)
@@ -355,9 +353,13 @@ def main() -> int:
 
     with torch.inference_mode():
         preds = forward_decode(images, model, half=False)
-        counts = {}
+        counts, walk_tiles = {}, {}
         for setting, kw in (("serving", SERVE), ("eval protocol", EVAL)):
             dets_k, valid_k = nms_mod.non_max_suppression(preds, **kw)
+            torch.cuda.synchronize()
+            paths = greedy_nms.last_path.tolist()
+            assert paths == [1] * BATCH, f"{setting}: not every image took the tile walk: {paths}"
+            walk_tiles[setting] = float(greedy_nms.last_tiles.float().mean())
             dets_p, valid_p = plain_emit_once(preds, **kw)
             assert torch.equal(valid_k, valid_p) and torch.equal(dets_k, dets_p), \
                 f"{setting}: the default keep differs from the plain emit-once keep"
@@ -371,7 +373,8 @@ def main() -> int:
                     "serving: serve() differs from forward + decode + NMS"
         log(f"[3] same predictions through the plain keeps: the default equal to the plain "
             f"emit-once keep, 'pallas' equal to 'loop', at the serving setting and at the "
-            f"eval protocol ((default, pallas) detections: {counts})")
+            f"eval protocol ((default, pallas) detections: {counts}); the default keep took "
+            f"the tile walk in every image of both (tiles/image: {walk_tiles})")
 
         # two of the images on the CPU, fp32
         cpu_serve = make_end2end_fn(cpu_model, **SERVE, with_preprocess=True, half=False,

@@ -54,7 +54,9 @@
 // scan, a warp-shuffle argmax with the lower index winning ties, a
 // cross-warp reduction, then a strided IoU pass over the alive boxes read
 // from global memory (L2). Its time is about max_det times the latency of
-// one step. It stops early once nothing is alive.
+// one step. It stops early once nothing is alive. No caller in the package
+// reaches it, since non_max_suppression always hands over sorted candidates;
+// it serves direct callers of greedy_nms with candidates in another order.
 //
 // Both paths use one block of 1024 threads per image, so only B of the 132
 // SMs have work; splitting an image over a cluster of blocks is the next
@@ -442,19 +444,26 @@ int yolov6_greedy_nms_smem_bytes(int K, int max_det) {
   return 4 * K > walk ? 4 * K : walk;
 }
 
+// Lets launches on the current device take up to max_bytes of dynamic
+// shared memory. Call once per device before its first launch; returns the
+// CUDA error code.
+int yolov6_greedy_nms_init(int max_bytes) {
+  return (int)cudaFuncSetAttribute(greedy_nms_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+}
+
 // boxes [B, K, 4] (16-byte aligned) and scores [B, K] fp32, contiguous;
 // idx [B, max_det] int32, valid [B, max_det] bytes, path [B] bytes (1 for
 // the tile walk, 0 for the argmax loop) and tiles [B] int32 (tiles the walk
 // visited) are written. emit_once != 0 selects the default rule, 0 the
-// Pallas rule. Launches on `stream` and returns the CUDA error code of the
-// launch (0 on success); it does not synchronise.
+// Pallas rule. Needs yolov6_greedy_nms_init on this device first, with at
+// least yolov6_greedy_nms_smem_bytes(K, max_det). Launches on `stream` and
+// returns the CUDA error code of the launch (0 on success); it does not
+// synchronise.
 int yolov6_greedy_nms(const void* boxes, const void* scores, int B, int K, int max_det,
                       float iou_thres, int emit_once, void* idx, void* valid, void* path,
                       void* tiles, void* stream) {
   const int smem = yolov6_greedy_nms_smem_bytes(K, max_det);
-  cudaError_t err =
-      cudaFuncSetAttribute(greedy_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   greedy_nms_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const float4*)boxes, (const float*)scores, K, max_det, iou_thres, emit_once,
       (int32_t*)idx, (uint8_t*)valid, (uint8_t*)path, (int32_t*)tiles);

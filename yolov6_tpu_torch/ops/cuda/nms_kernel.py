@@ -25,6 +25,7 @@ itself is not above the threshold (zero area, or inverted):
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -78,9 +79,27 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.yolov6_greedy_nms_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.yolov6_greedy_nms_smem_bytes.restype = ctypes.c_int
+        lib.yolov6_greedy_nms_init.argtypes = [ctypes.c_int]
+        lib.yolov6_greedy_nms_init.restype = ctypes.c_int
         lib.yolov6_cuda_error_string.argtypes = [ctypes.c_int]
         lib.yolov6_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(K: int, max_det: int) -> int:
+    return _lib().yolov6_greedy_nms_smem_bytes(K, max_det)
+
+
+@functools.lru_cache(maxsize=None)
+def _init_device(index: int) -> None:
+    """Allow launches on device ``index`` up to SMEM_LIMIT of dynamic shared
+    memory, once per device (the caller has made it current)."""
+    lib = _lib()
+    err = lib.yolov6_greedy_nms_init(SMEM_LIMIT)
+    if err != 0:
+        raise RuntimeError(f"greedy_nms: setting the shared-memory limit failed: "
+                           f"{lib.yolov6_cuda_error_string(err).decode()}")
 
 
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
@@ -109,17 +128,22 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
         raise ValueError("boxes and scores must be contiguous")
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (the kernel reads them as float4)")
-    lib = _lib()
-    smem = lib.yolov6_greedy_nms_smem_bytes(K, max_det)
+    smem = _smem_bytes(K, max_det)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K={K}, max_det={max_det} need {smem} bytes of shared memory, "
                          f"more than the kernel's {SMEM_LIMIT} (K <= {MAX_K}, and 20 bytes "
                          f"a kept box for min(K, max_det))")
-    idx = torch.empty((B, max_det), dtype=torch.int32, device=boxes.device)
-    valid = torch.empty((B, max_det), dtype=torch.bool, device=boxes.device)
-    path = torch.empty((B,), dtype=torch.uint8, device=boxes.device)
-    tiles = torch.empty((B,), dtype=torch.int32, device=boxes.device)
+    # one allocation for the four outputs: idx and tiles (int32) first, then
+    # valid and path (bytes)
+    n = B * max_det
+    out = torch.empty(5 * (n + B), dtype=torch.uint8, device=boxes.device)
+    idx = out[:4 * n].view(torch.int32).view(B, max_det)
+    tiles = out[4 * n:4 * (n + B)].view(torch.int32)
+    valid = out[4 * (n + B):4 * (n + B) + n].view(torch.bool).view(B, max_det)
+    path = out[4 * (n + B) + n:]
+    lib = _lib()
     with torch.cuda.device(boxes.device):
+        _init_device(torch.cuda.current_device())
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.yolov6_greedy_nms(boxes.data_ptr(), scores.data_ptr(), B, K, max_det,
                                     float(iou_thres), int(bool(emit_once)), idx.data_ptr(),
