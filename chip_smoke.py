@@ -18,15 +18,29 @@ Phases, each of which asserts:
      of two of the images must agree with the CUDA decode;
   4. times of the bf16 serving function, with CUDA events;
   5. a torch.profiler trace of the bf16 serving function: kernel time by
-     name and the device's idle share.
+     name and the device's idle share;
+  6. the training step at full width: YOLOv6-S in its train form (BN,
+     RepVGG's three branches), 80 classes, b32@640 in bf16 with the bench's
+     data and solver (accumulation branch, warmup 10 steps); 3 warm-up
+     steps, 20 timed with CUDA events, one more split into forward, loss
+     (with the assignment), backward and optimizer+EMA, peak memory, the
+     losses, the applied and held steps, and a torch.profiler window over 3
+     steps; every loss must be finite and both kinds of step must occur;
+  7. the fold: the trained model and its EMA folded into the deploy graph
+     (``fold_to_deploy``, loaded with strict=True), whose fp32 forward must
+     equal the train model's eval-mode forward; then the folded model serves
+     b32@640 through ``make_end2end_fn``, and the NMS kernel must take the
+     tile walk in every image.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 and when there is no CUDA device.
 
-The weights are random, from seeds: torch's default init, then every conv
-re-drawn He-normal so activations stay O(1) through the full depth, and the
-head's class and box predictions (zero weights at init, which would give
-every anchor the same score) spread as in the CPU tests.
+The serving weights are random, from seeds: torch's default init, then
+every conv re-drawn He-normal so activations stay O(1) through the full
+depth, and the head's class and box predictions (zero weights at init, which
+would give every anchor the same score) spread as in the CPU tests. The
+train model's convs are drawn He-normal by a generator on the card; its BNs
+and its head's prior-probability init are as built.
 """
 
 from __future__ import annotations
@@ -57,6 +71,16 @@ KEEP_SHAPES = [
 # orders through ~40 layers
 DECODE_BOX_TOL = dict(rtol=1e-4, atol=1e-2)  # pixels
 DECODE_SCORE_TOL = dict(rtol=0.0, atol=1e-4)
+# the train phase: the JAX bench's train cell (bench.py:236-256)
+TRAIN = dict(max_labels=32, labels=4, epoch=100, epochs=300, warmup_stepnum=10,
+             max_stepnum=1000, warmup_steps=3, timed_steps=20, profiled_steps=3)
+# the folded deploy graph against the train graph's eval forward, fp32, TF32
+# off: max |diff| over a head map at most this share of the map's max |value|
+# (an H100 read 3.6e-6 after 27 steps)
+FOLD_REL_TOL = 1e-4
+# serving the folded trained model: a low conf, so that the walk has work
+# while the trained scores are still near the head's prior (0.01)
+FOLD_SERVE = dict(conf_thres=0.001, iou_thres=0.65, max_det=300)
 
 
 def log(msg: str) -> None:
@@ -206,8 +230,9 @@ def randomize_weights(model, seed: int) -> None:
             p.copy_(new.to(p.device))
 
 
-def profile_serve(fn, card: str, calls: int = 3) -> None:
-    """Where the device time of ``calls`` serving calls goes: kernel time by
+def profile_calls(fn, card: str, calls: int = 3, tag: str = "[5]",
+                  what: str = "bf16 serve calls", unit: str = "call") -> None:
+    """Where the device time of ``calls`` calls of ``fn`` goes: kernel time by
     name from torch.profiler, and the device's idle share of the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -227,15 +252,197 @@ def profile_serve(fn, card: str, calls: int = 3) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        log(f"[5] profile: the profiler saw no device time; breakdown not measured [{card}]")
+        log(f"{tag} profile: the profiler saw no device time; breakdown not measured [{card}]")
         return
-    log(f"[5] profile of {calls} bf16 serve calls: window {window_us / calls:.1f} us/call, "
-        f"kernels {busy_us / calls:.1f} us/call, device idle {1 - busy_us / window_us:.3f} "
+    log(f"{tag} profile of {calls} {what}: window {window_us / calls:.1f} us/{unit}, "
+        f"kernels {busy_us / calls:.1f} us/{unit}, device idle {1 - busy_us / window_us:.3f} "
         f"of the window [{card}]")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in ranked[:12] + [e for e in ranked[12:] if "greedy_nms" in e.key]:
-        log(f"[5]   {e.self_device_time_total / calls:9.1f} us/call "
+        log(f"{tag}   {e.self_device_time_total / calls:9.1f} us/{unit} "
             f"{e.count // calls:4d}x  {e.key[:90]}")
+
+def init_train_weights(model, gen) -> None:
+    """He-normal convs drawn by ``gen`` (a generator on the card); BNs and the
+    head's prior-probability init stay as built."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 4 and ".cls_preds." not in name and ".reg_preds." not in name:
+                fan_in = p[0].numel() if "upsample_transpose" not in name else p.shape[0] * 4
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
+                        * math.sqrt(2.0 / fan_in))
+
+
+def bench_batch(batch: int, img: int, max_labels: int, labels: int, dev):
+    """The JAX bench's train data (bench.py:246-251): uint8 images, and
+    ``labels`` boxes an image with classes in 0..79 and cxcywh in U(0.2, 0.6),
+    the other rows -1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 255, (batch, img, img, 3), np.uint8)
+    targets = np.full((batch, max_labels, 5), -1.0, np.float32)
+    targets[:, :labels, 0] = rng.integers(0, NUM_CLASSES, (batch, labels))
+    targets[:, :labels, 1:] = rng.uniform(0.2, 0.6, (batch, labels, 4))
+    return torch.from_numpy(images).to(dev), torch.from_numpy(targets).to(dev)
+
+
+def time_step_phases(step, images, targets, epoch):
+    """One step with CUDA events between its phases: (forward with the input
+    preparation, loss with the assignment, backward, optimizer+EMA) in ms."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    compute_loss = step.compute_loss
+
+    def timed_loss(*args):
+        ev[1].record()
+        out = compute_loss(*args)
+        ev[2].record()
+        return out
+
+    update = step._update
+
+    def timed_update(*args):
+        ev[3].record()
+        update(*args)
+        ev[4].record()
+
+    step.compute_loss, step._update = timed_loss, timed_update
+    try:
+        ev[0].record()
+        step(images, targets, epoch)
+    finally:
+        step.compute_loss = compute_loss
+        del step._update
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def train_phase(cfg, dev, card: str):
+    """Phase 6: the S training step at b32@640 in bf16; returns the step."""
+    import torch
+
+    from yolov6_tpu_torch.core.train_step import make_train_step
+    from yolov6_tpu_torch.losses.loss import ComputeLoss
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
+
+    t = TRAIN
+    model = build_model(cfg, num_classes=NUM_CLASSES, deploy=False, device=dev)
+    init_train_weights(model, torch.Generator(device=dev).manual_seed(0))
+    head, sol = cfg.model.head, cfg.solver
+    loss_fn = ComputeLoss(num_classes=NUM_CLASSES, ori_img_size=IMG, warmup_epoch=0,
+                          use_dfl=head.use_dfl, reg_max=head.reg_max, iou_type=head.iou_type)
+    solver = scale_hyperparams_for_batch(dict(
+        lr0=sol.lr0, lrf=sol.lrf, momentum=sol.momentum, weight_decay=sol.weight_decay,
+        warmup_epochs=sol.warmup_epochs, warmup_momentum=sol.warmup_momentum,
+        warmup_bias_lr=sol.warmup_bias_lr, lr_scheduler="Cosine"), BATCH)
+    step = make_train_step(model, loss_fn, solver, t["max_stepnum"], t["epochs"], BATCH,
+                           t["warmup_stepnum"], (IMG, IMG), half=True, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    images, targets = bench_batch(BATCH, IMG, t["max_labels"], t["labels"], dev)
+    epoch = t["epoch"]
+
+    losses, applied = [], []
+
+    def one_step():
+        before = step.ema_updates.clone()
+        loss, comp = step(images, targets, epoch)
+        losses.append(torch.cat([loss[None], comp]))
+        applied.append(step.ema_updates - before)
+
+    for _ in range(t["warmup_steps"]):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(t["timed_steps"]):
+        one_step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / t["timed_steps"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    split = time_step_phases(step, images, targets, epoch)
+    applied_all = torch.stack(applied).tolist()
+    rows = torch.stack(losses).tolist()
+    n_applied = sum(applied_all)
+    n_held = len(applied_all) - n_applied
+    log(f"[6] trained YOLOv6-S ({n_params / 1e6:.2f} M params, train form) b{BATCH}@{IMG} bf16: "
+        f"{t['warmup_steps']} + {t['timed_steps']} steps, {step_ms:.3f} ms/step = "
+        f"{BATCH / step_ms * 1e3:.1f} imgs/s [{card}]")
+    log(f"[6] one step split: forward {split[0]:.3f} ms, loss with assignment {split[1]:.3f} ms, "
+        f"backward {split[2]:.3f} ms, optimizer+EMA {split[3]:.3f} ms (sum {sum(split):.3f}) "
+        f"[{card}]")
+    log(f"[6] peak memory allocated {peak_gib:.2f} GiB over the timed steps; "
+        f"{n_applied} steps applied, {n_held} held; loss [total, iou, dfl, cls] first "
+        f"{[round(x, 5) for x in rows[0]]}, last {[round(x, 5) for x in rows[-1]]}")
+    assert all(math.isfinite(x) for row in rows for x in row), f"a loss is not finite: {rows}"
+    assert n_applied > 0 and n_held > 0, f"applied {n_applied}, held {n_held}"
+    assert int(step.step) == len(rows) + 1
+    profile_calls(lambda: step(images, targets, epoch), card, calls=t["profiled_steps"],
+                  tag="[6]", what="bf16 train steps", unit="step")
+    torch.cuda.synchronize()
+    return step
+
+
+def fold_and_serve_phase(cfg, step, images, dev, card: str) -> int:
+    """Phase 7: fold the trained model and its EMA into the deploy graph,
+    hold each against its train form's eval forward in fp32, and serve the
+    folded model; returns the NMS kernel's launches in that serve."""
+    import torch
+
+    from yolov6_tpu_torch.layers.reparam import fold_to_deploy
+    from yolov6_tpu_torch.models.end2end import make_end2end_fn
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = images[:2].permute(0, 3, 1, 2).float().contiguous() / 255.0
+    deployed = {}
+    for name, train_model in (("model", step.model), ("ema", step.ema)):
+        deploy = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device=dev)
+        deploy.load_state_dict(fold_to_deploy(train_model.state_dict()), strict=True)
+        was_training = train_model.training
+        train_model.eval()
+        with torch.no_grad():
+            want, _ = train_model(x)
+            got, _ = deploy(x)
+        train_model.train(was_training)
+        worst = 0.0
+        for key in ("cls", "reg"):
+            for g, w in zip(got[key], want[key]):
+                rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                worst = max(worst, rel)
+        log(f"[7] folded {name}: deploy fp32 forward vs train-form eval forward on 2 images, "
+            f"max |diff| / max |value| over the head maps {worst:.3e} (tolerance {FOLD_REL_TOL})")
+        assert worst <= FOLD_REL_TOL, f"folded {name} differs from its train form: {worst}"
+        deployed[name] = deploy
+    torch.backends.cudnn.allow_tf32 = True
+
+    serve = make_end2end_fn(deployed["model"], **FOLD_SERVE, with_preprocess=True, half=True,
+                            device=dev)
+    greedy_nms.launches = 0
+    num_dets, boxes, scores, _ = serve(images)
+    torch.cuda.synchronize()
+    launches = greedy_nms.launches
+    paths = greedy_nms.last_path.tolist()
+    tiles = float(greedy_nms.last_tiles.float().mean())
+    assert launches > 0, "serving the folded model did not launch the NMS kernel"
+    assert paths == [1] * BATCH, f"folded serve: not every image took the tile walk: {paths}"
+    assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+    total = int(num_dets.sum())
+    assert total > 0, "serving the folded trained model found no detections"
+    log(f"[7] served the folded trained YOLOv6-S b{BATCH}@{IMG} bf16 at {FOLD_SERVE}: {total} "
+        f"detections, {launches} NMS kernel launch(es), the tile walk in all {BATCH} images, "
+        f"{tiles:.2f} tiles/image; max score {float(scores.max()):.4f}")
+    return launches
 
 
 def main() -> int:
@@ -433,7 +640,15 @@ def main() -> int:
         f"{BATCH / sv_ms * 1e3:.1f} imgs/s [{card}]")
     log(f"[4] greedy_nms at the serving shape {keep_rows['serving']['ms']:.4f} ms, at the "
         f"eval-protocol shape {keep_rows['eval_protocol']['ms']:.4f} ms [{card}]")
-    profile_serve(lambda: serve16(images), card)
+    profile_calls(lambda: serve16(images), card)
+
+    # ---- 6. the training step at full width, bf16 (no kernel of this repo on its path)
+    greedy_nms.launches = 0
+    step = train_phase(cfg, dev, card)
+    train_launches = greedy_nms.launches
+
+    # ---- 7. fold the trained model into the deploy graph and serve it
+    fold_launches = fold_and_serve_phase(cfg, step, images, dev, card)
 
     kernels = [{
         "name": "greedy_nms",
@@ -441,6 +656,8 @@ def main() -> int:
         "source": "yolov6_tpu_torch/ops/cuda/csrc/nms_kernel.cu",
         "replaces": "yolov6_tpu/ops/pallas/nms_kernel.py:27",
         "launches": main_launches,
+        "launches_by_path": {"serve": main_launches, "train": train_launches,
+                             "serve_folded_trained": fold_launches},
         "matches_plain": True,
         "max_abs_err": max_abs_err,
         "path": main_path[0],

@@ -1,15 +1,21 @@
-"""The port's CUDA kernels on the card. Every test here needs an NVIDIA GPU
-and skips without one; none imports JAX, so they run where JAX is absent:
+"""The port on the card: its CUDA kernels, and its training step against the
+same step on the CPU. Every test here needs an NVIDIA GPU and skips without
+one; none imports JAX, so they run where JAX is absent:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from yolov6_tpu_torch.core.train_step import make_train_step
+from yolov6_tpu_torch.losses.loss import ComputeLoss
+from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.ops.cuda.nms_kernel import MAX_K, TILE, greedy_nms, greedy_nms_plain
+from yolov6_tpu_torch.utils.config import Config
 
-from torch_port_utils import clustered_candidates
+from torch_port_utils import clustered_candidates, small_s_config
 
 
 @pytest.fixture
@@ -103,3 +109,36 @@ def test_kernel_wrapper_rejects(cuda_device, bad):
     max_det = 12000 if bad == "too_many_rows" else 10
     with pytest.raises(ValueError):
         greedy_nms(boxes, scores, max_det, 0.5)
+
+
+@pytest.mark.cuda
+def test_fp32_train_step_matches_cpu(cuda_device):
+    """Two fp32 steps (TF32 off) of the small S graph on the card and on the
+    CPU from the same weights and data (batch_size 32, no warmup: apply,
+    hold): finite, and the losses equal at rtol 1e-3."""
+    torch.manual_seed(0)
+    cpu_model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cpu")
+    cuda_model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cuda")
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    targets = np.zeros((2, 8, 5), np.float32)
+    targets[:, :, 0] = -1
+    targets[0, :2] = [[0, 0.3, 0.35, 0.4, 0.5], [2, 0.7, 0.6, 0.3, 0.35]]
+    targets[1, :1] = [[1, 0.4, 0.6, 0.6, 0.5]]
+    solver = dict(lr0=0.01, lrf=0.01, momentum=0.937, weight_decay=0.0005,
+                  warmup_momentum=0.8, warmup_bias_lr=0.1)
+    loss_kw = dict(num_classes=3, ori_img_size=64, warmup_epoch=0, use_dfl=False, reg_max=0)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses = {}
+        for device, model in (("cpu", cpu_model), ("cuda", cuda_model)):
+            step = make_train_step(model, ComputeLoss(**loss_kw), solver, 100, 10, 32, 0,
+                                   (64, 64), half=False, device=device)
+            losses[device] = [step(images, targets, 10)[0].item() for _ in range(2)]
+            assert int(step.ema_updates) == 1 and int(step.accum_count) == 1
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.isfinite(losses["cuda"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)

@@ -25,7 +25,9 @@ def random_jax_variables(shapes, seed: int):
     Conv kernels are He-normal, so activations stay O(1) through the deep
     graph. The head's class and box predictions, zero-initialised in the
     model, get small weights; their biases are spread so scores differ per
-    class and box distances stay positive."""
+    class and box distances stay positive. BN gammas (train variables) lie
+    in [0.4, 0.8] and running variances in [0.5, 1.5], so that eval-mode
+    activations also stay O(1) through RepVGG's three summed branches."""
     import jax
 
     rng = np.random.default_rng(seed)
@@ -40,6 +42,10 @@ def random_jax_variables(shapes, seed: int):
             if owner.startswith(("cls_preds", "reg_preds")):
                 std = 0.3 / np.sqrt(fan_in)
             return (rng.standard_normal(shape) * std).astype(np.float32)
+        if names[-1] == "scale":
+            return rng.uniform(0.4, 0.8, shape).astype(np.float32)
+        if names[-1] == "var":
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
         if owner.startswith("cls_preds"):
             return rng.uniform(-4.0, 1.0, shape).astype(np.float32)
         if owner.startswith("reg_preds"):

@@ -20,17 +20,18 @@ class EfficientRep(nn.Module):
 
     def __init__(self, channels_list: Sequence[int], num_repeats: Sequence[int],
                  block=RepVGGBlock, fuse_P2: bool = False, cspsppf: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, deploy: bool = True):
         super().__init__()
         if not cspsppf or block is not RepVGGBlock:
             raise NotImplementedError("only the RepVGG backbone with cspsppf is ported")
         ch, nr = channels_list, num_repeats
         self.fuse_P2 = fuse_P2
-        self.stem = block(in_channels, ch[0], 3, 2)
+        self.stem = block(in_channels, ch[0], 3, 2, deploy=deploy)
         for i in (1, 2, 3, 4):
-            parts = [block(ch[i - 1], ch[i], 3, 2), RepBlock(ch[i], ch[i], n=nr[i], block=block)]
+            parts = [block(ch[i - 1], ch[i], 3, 2, deploy=deploy),
+                     RepBlock(ch[i], ch[i], n=nr[i], block=block, deploy=deploy)]
             if i == 4:
-                parts.append(SimCSPSPPF(ch[4], ch[4]))
+                parts.append(SimCSPSPPF(ch[4], ch[4], deploy=deploy))
             setattr(self, f"ERBlock_{i + 1}", nn.Sequential(*parts))
 
     def forward(self, x):

@@ -1,5 +1,6 @@
 """Efficient decoupled head, anchor-free, without DFL
-(port of yolov6_tpu/models/effidehead.py:31-125)."""
+(port of yolov6_tpu/models/effidehead.py:31-125): the head, the train-branch
+flattening and the eval decode."""
 
 from __future__ import annotations
 
@@ -20,16 +21,16 @@ class Detect(nn.Module):
     """Decoupled head over the neck's levels (JAX: effidehead.py:31-75).
 
     ``forward`` returns ``{"cls": [b, nc, h, w] logits, "reg": [b, 4, h, w]}``
-    per level, in NCHW."""
+    per level, in NCHW. ``deploy=False`` gives the stems and convs their BN."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
-                 num_anchors: int = 1, reg_max: int = 0):
+                 num_anchors: int = 1, reg_max: int = 0, deploy: bool = True):
         super().__init__()
         self.num_classes = num_classes
         self.strides = (8, 16, 32) if len(in_channels) == 3 else (8, 16, 32, 64)
-        self.stems = nn.ModuleList(ConvBNSiLU(c, c, 1, 1) for c in in_channels)
-        self.cls_convs = nn.ModuleList(ConvBNSiLU(c, c, 3, 1) for c in in_channels)
-        self.reg_convs = nn.ModuleList(ConvBNSiLU(c, c, 3, 1) for c in in_channels)
+        self.stems = nn.ModuleList(ConvBNSiLU(c, c, 1, 1, deploy) for c in in_channels)
+        self.cls_convs = nn.ModuleList(ConvBNSiLU(c, c, 3, 1, deploy) for c in in_channels)
+        self.reg_convs = nn.ModuleList(ConvBNSiLU(c, c, 3, 1, deploy) for c in in_channels)
         self.cls_preds = nn.ModuleList(nn.Conv2d(c, num_classes * num_anchors, 1)
                                        for c in in_channels)
         self.reg_preds = nn.ModuleList(nn.Conv2d(c, 4 * (reg_max + num_anchors), 1)
@@ -59,17 +60,25 @@ def _flatten_nhwc(m: torch.Tensor) -> torch.Tensor:
     return m.permute(0, 2, 3, 1).reshape(b, -1, c).float()
 
 
+def flatten_head_outputs(outputs: dict):
+    """Train branch (JAX: effidehead.py:78-83): sigmoid class scores
+    ``[b, A, nc]`` and raw box distances ``[b, A, 4]``, fp32, the levels
+    concatenated in row-major (h, w) anchor order."""
+    cls_scores = torch.cat([torch.sigmoid(_flatten_nhwc(c)) for c in outputs["cls"]], 1)
+    reg_dists = torch.cat([_flatten_nhwc(r) for r in outputs["reg"]], 1)
+    return cls_scores, reg_dists
+
+
 def decode_eval(outputs: dict, num_classes: int, strides: Sequence[int]) -> torch.Tensor:
     """Eval decode (JAX: effidehead.py:96-125), always in fp32: returns
     ``[b, A, 5+nc]`` rows ``[cx, cy, w, h, 1.0 (obj), class scores...]`` in
     input-image pixels, anchors level by level in row-major (h, w) order."""
     feats_hw = [tuple(c.shape[2:4]) for c in outputs["cls"]]
-    cls_scores = torch.cat([torch.sigmoid(_flatten_nhwc(c)) for c in outputs["cls"]], 1)
-    reg_dists = torch.cat([_flatten_nhwc(r) for r in outputs["reg"]], 1)
+    cls_scores, reg_dists = flatten_head_outputs(outputs)
     if cls_scores.shape[-1] != num_classes:
         raise ValueError(f"head has {cls_scores.shape[-1]} classes, expected {num_classes}")
     anchor_points, stride_tensor = generate_anchors(
-        feats_hw, strides, device=cls_scores.device
+        feats_hw, strides, is_eval=True, device=cls_scores.device
     )
     pred_bboxes = dist2bbox(reg_dists, anchor_points[None], box_format="xywh") * stride_tensor[None]
     obj = torch.ones_like(pred_bboxes[..., :1])

@@ -19,19 +19,19 @@ class RepBiFPANNeck(nn.Module):
     ``[pan_out2, pan_out1, pan_out0]`` (P3..P5)."""
 
     def __init__(self, channels_list: Sequence[int], num_repeats: Sequence[int],
-                 block=RepVGGBlock):
+                 block=RepVGGBlock, deploy: bool = True):
         super().__init__()
-        ch, nr = channels_list, num_repeats
-        self.reduce_layer0 = ConvBNReLU(ch[4], ch[5], 1, 1)
-        self.Bifusion0 = BiFusion((ch[3], ch[2]), ch[5])
-        self.Rep_p4 = RepBlock(ch[5], ch[5], nr[5], block)
-        self.reduce_layer1 = ConvBNReLU(ch[5], ch[6], 1, 1)
-        self.Bifusion1 = BiFusion((ch[2], ch[1]), ch[6])
-        self.Rep_p3 = RepBlock(ch[6], ch[6], nr[6], block)
-        self.downsample2 = ConvBNReLU(ch[6], ch[7], 3, 2)
-        self.Rep_n3 = RepBlock(ch[7] + ch[6], ch[8], nr[7], block)
-        self.downsample1 = ConvBNReLU(ch[8], ch[9], 3, 2)
-        self.Rep_n4 = RepBlock(ch[9] + ch[5], ch[10], nr[8], block)
+        ch, nr, d = channels_list, num_repeats, deploy
+        self.reduce_layer0 = ConvBNReLU(ch[4], ch[5], 1, 1, deploy=d)
+        self.Bifusion0 = BiFusion((ch[3], ch[2]), ch[5], deploy=d)
+        self.Rep_p4 = RepBlock(ch[5], ch[5], nr[5], block, deploy=d)
+        self.reduce_layer1 = ConvBNReLU(ch[5], ch[6], 1, 1, deploy=d)
+        self.Bifusion1 = BiFusion((ch[2], ch[1]), ch[6], deploy=d)
+        self.Rep_p3 = RepBlock(ch[6], ch[6], nr[6], block, deploy=d)
+        self.downsample2 = ConvBNReLU(ch[6], ch[7], 3, 2, deploy=d)
+        self.Rep_n3 = RepBlock(ch[7] + ch[6], ch[8], nr[7], block, deploy=d)
+        self.downsample1 = ConvBNReLU(ch[8], ch[9], 3, 2, deploy=d)
+        self.Rep_n4 = RepBlock(ch[9] + ch[5], ch[10], nr[8], block, deploy=d)
 
     def forward(self, inputs):
         x3, x2, x1, x0 = inputs

@@ -1,5 +1,6 @@
 """Detector assembly (port of yolov6_tpu/models/yolo.py:29-166), P5 non-lite
-rep graph (EfficientRep + RepBiFPANNeck + Detect without DFL), deploy form."""
+rep graph (EfficientRep + RepBiFPANNeck + Detect without DFL), in the deploy
+or the train form."""
 
 from __future__ import annotations
 
@@ -45,14 +46,15 @@ class Model(nn.Module):
 
 
 def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda") -> Model:
-    """Construct the deploy detector from a config on ``device`` (reference:
-    yolo.py:55-138). Raises on parts of the model zoo not ported yet."""
+    """Construct the detector from a config on ``device`` (reference:
+    yolo.py:55-138): the deploy graph in eval mode, or with ``deploy=False``
+    the train graph (BN, RepVGG's three branches) in train mode. Raises on
+    parts of the model zoo not ported yet."""
     device = resolve_device(device)
-    if not deploy:
-        raise NotImplementedError("only deploy graphs are ported")
     mcfg = cfg.model
     if mcfg.head.use_dfl or mcfg.head.num_layers != 3:
-        raise NotImplementedError("only the 3-level head without DFL is ported")
+        raise NotImplementedError(
+            "only the 3-level head without DFL is ported; DFL comes with the M/L slice")
     num_repeat = [
         (max(round(i * mcfg.depth_multiple), 1) if i > 1 else i)
         for i in (list(mcfg.backbone.num_repeats) + list(mcfg.neck.num_repeats))
@@ -65,9 +67,10 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda") -> Mo
     backbone = BACKBONES.get(mcfg.backbone.type)(
         channels_list, num_repeat, block=block,
         fuse_P2=bool(mcfg.backbone.get("fuse_P2")),
-        cspsppf=bool(mcfg.backbone.get("cspsppf")),
+        cspsppf=bool(mcfg.backbone.get("cspsppf")), deploy=deploy,
     )
-    neck = NECKS.get(mcfg.neck.type)(channels_list, num_repeat, block=block)
+    neck = NECKS.get(mcfg.neck.type)(channels_list, num_repeat, block=block, deploy=deploy)
     detect = Detect((channels_list[6], channels_list[8], channels_list[10]),
-                    num_classes=num_classes, reg_max=mcfg.head.reg_max)
-    return Model(backbone, neck, detect, num_classes).to(device).eval()
+                    num_classes=num_classes, reg_max=mcfg.head.reg_max, deploy=deploy)
+    model = Model(backbone, neck, detect, num_classes).to(device)
+    return model.eval() if deploy else model.train()

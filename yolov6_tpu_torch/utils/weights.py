@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's deploy models to the port.
+"""Carry weights from the JAX package's models, deploy or train, to the port.
 
 An own copy of the naming in yolov6_tpu/utils/torch_import.py:176-218: the
 flax module path joined with dots is the torch module path, because both
@@ -23,33 +23,50 @@ def _flatten(tree, prefix=()):
     return out
 
 
+# (collection, JAX leaf) -> torch suffix; kernels are handled apart
+_LEAF_MAP = {
+    ("params", "bias"): "bias",
+    ("params", "scale"): "weight",  # BatchNorm gamma
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
 def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """JAX deploy variables (``{"params": nested dict of arrays}``) -> the
-    port's ``state_dict``, for ``load_state_dict(..., strict=True)``.
+    """JAX variables -> the port's ``state_dict``, for
+    ``load_state_dict(..., strict=True)``: deploy variables
+    (``{"params": ...}``) for the deploy graph, or train variables
+    (``{"params", "batch_stats"}``) for the train graph.
 
     Conv kernels go HWIO -> OIHW. A ``Transpose`` block, the only module of
-    the deploy graphs with a (2, 2, in, out) kernel, maps both its kernel, as
-    (in, out, 2, 2), and its bias under ``<module>.upsample_transpose``."""
-    params = _flatten({k: dict(v) for k, v in variables.items() if k == "params"})
+    these graphs with a (2, 2, in, out) kernel, maps both its kernel, as
+    (in, out, 2, 2), and its bias under ``<module>.upsample_transpose``. BN
+    leaves map ``scale``/``bias``/``mean``/``var`` to ``weight``/``bias``/
+    ``running_mean``/``running_var``, and each BN gets torch's
+    ``num_batches_tracked``, 0."""
+    flat = _flatten({k: dict(v) for k, v in variables.items() if k in ("params", "batch_stats")})
     transposes = {
         path[1:-1]
-        for path, v in params.items()
-        if path[-1] == "kernel" and np.ndim(v) == 4 and np.shape(v)[:2] == (2, 2)
+        for path, v in flat.items()
+        if path[:1] == ("params",) and path[-1] == "kernel" and np.ndim(v) == 4
+        and np.shape(v)[:2] == (2, 2)
     }
     out: Dict[str, torch.Tensor] = {}
-    for path, value in params.items():
-        mods, leaf = path[1:-1], path[-1]
+    for path, value in flat.items():
+        col, mods, leaf = path[0], path[1:-1], path[-1]
         v = np.asarray(value, np.float32)
-        if leaf == "kernel":
+        if (col, leaf) == ("params", "kernel"):
             suffix = "weight"
             if mods in transposes:
                 v = v.transpose(2, 3, 0, 1)
             elif v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)
-        elif leaf == "bias":
-            suffix = "bias"
+        elif (col, leaf) in _LEAF_MAP:
+            suffix = _LEAF_MAP[(col, leaf)]
         else:
-            raise KeyError(f"no deploy mapping for JAX leaf {'/'.join(path)}")
+            raise KeyError(f"no mapping for JAX leaf {'/'.join(path)}")
         names = list(mods) + (["upsample_transpose"] if mods in transposes else []) + [suffix]
-        out[".".join(names)] = torch.from_numpy(np.ascontiguousarray(v))
+        out[".".join(names)] = torch.from_numpy(np.array(v))  # a writable copy
+        if leaf == "scale":
+            out[".".join(list(mods) + ["num_batches_tracked"])] = torch.tensor(0)
     return out
