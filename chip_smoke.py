@@ -292,7 +292,9 @@ def bench_batch(batch: int, img: int, max_labels: int, labels: int, dev):
 
 def time_step_phases(step, images, targets, epoch):
     """One step with CUDA events between its phases: (forward with the input
-    preparation, loss with the assignment, backward, optimizer+EMA) in ms."""
+    preparation, loss with the assignment, backward, optimizer+EMA) in ms.
+    The step's two public halves bound the optimizer phase; the loss is
+    bounded by wrapping the step's loss function."""
     import torch
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -304,20 +306,15 @@ def time_step_phases(step, images, targets, epoch):
         ev[2].record()
         return out
 
-    update = step._update
-
-    def timed_update(*args):
-        ev[3].record()
-        update(*args)
-        ev[4].record()
-
-    step.compute_loss, step._update = timed_loss, timed_update
+    step.compute_loss = timed_loss
     try:
         ev[0].record()
-        step(images, targets, epoch)
+        step.forward_backward(images, targets)
+        ev[3].record()
+        step.update(epoch)
+        ev[4].record()
     finally:
         step.compute_loss = compute_loss
-        del step._update
     torch.cuda.synchronize()
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
 
@@ -402,29 +399,32 @@ def fold_and_serve_phase(cfg, step, images, dev, card: str) -> int:
     from yolov6_tpu_torch.models.yolo import build_model
     from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     x = images[:2].permute(0, 3, 1, 2).float().contiguous() / 255.0
     deployed = {}
-    for name, train_model in (("model", step.model), ("ema", step.ema)):
-        deploy = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device=dev)
-        deploy.load_state_dict(fold_to_deploy(train_model.state_dict()), strict=True)
-        was_training = train_model.training
-        train_model.eval()
-        with torch.no_grad():
-            want, _ = train_model(x)
-            got, _ = deploy(x)
-        train_model.train(was_training)
-        worst = 0.0
-        for key in ("cls", "reg"):
-            for g, w in zip(got[key], want[key]):
-                rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-                worst = max(worst, rel)
-        log(f"[7] folded {name}: deploy fp32 forward vs train-form eval forward on 2 images, "
-            f"max |diff| / max |value| over the head maps {worst:.3e} (tolerance {FOLD_REL_TOL})")
-        assert worst <= FOLD_REL_TOL, f"folded {name} differs from its train form: {worst}"
-        deployed[name] = deploy
-    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, train_model in (("model", step.model), ("ema", step.ema)):
+            deploy = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device=dev)
+            deploy.load_state_dict(fold_to_deploy(train_model.state_dict()), strict=True)
+            was_training = train_model.training
+            train_model.eval()
+            with torch.no_grad():
+                want, _ = train_model(x)
+                got, _ = deploy(x)
+            train_model.train(was_training)
+            worst = 0.0
+            for key in ("cls", "reg"):
+                for g, w in zip(got[key], want[key]):
+                    rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    worst = max(worst, rel)
+            log(f"[7] folded {name}: deploy fp32 forward vs train-form eval forward on 2 "
+                f"images, max |diff| / max |value| over the head maps {worst:.3e} (tolerance "
+                f"{FOLD_REL_TOL})")
+            assert worst <= FOLD_REL_TOL, f"folded {name} differs from its train form: {worst}"
+            deployed[name] = deploy
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
     serve = make_end2end_fn(deployed["model"], **FOLD_SERVE, with_preprocess=True, half=True,
                             device=dev)

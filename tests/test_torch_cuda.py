@@ -5,6 +5,8 @@ one; none imports JAX, so they run where JAX is absent:
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -114,12 +116,18 @@ def test_kernel_wrapper_rejects(cuda_device, bad):
 @pytest.mark.cuda
 def test_fp32_train_step_matches_cpu(cuda_device):
     """Two fp32 steps (TF32 off) of the small S graph on the card and on the
-    CPU from the same weights and data (batch_size 32, no warmup: apply,
-    hold): finite, and the losses equal at rtol 1e-3."""
+    CPU from the same weights and data, at epoch 1 of 10 with the step
+    counter past the warmup (batch_size 32: hold, then apply at the full
+    weight LR): finite, the losses equal at rtol 1e-3, and after the applied
+    step each parameter's change and each momentum buffer within 1e-3 of the
+    CPU leaf's largest magnitude, plus a floor of 1e-6 scaled by the LR for
+    the change (1e-6 for the momentum), far below the decay's share, and 2
+    ulp of the leaf's largest parameter for the change, read off fp32."""
     torch.manual_seed(0)
     cpu_model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cpu")
     cuda_model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cuda")
     cuda_model.load_state_dict(cpu_model.state_dict())
+    before = {k: v.detach().clone() for k, v in cpu_model.named_parameters()}
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     targets = np.zeros((2, 8, 5), np.float32)
@@ -132,13 +140,27 @@ def test_fp32_train_step_matches_cpu(cuda_device):
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        losses = {}
+        losses, steps = {}, {}
         for device, model in (("cpu", cpu_model), ("cuda", cuda_model)):
             step = make_train_step(model, ComputeLoss(**loss_kw), solver, 100, 10, 32, 0,
                                    (64, 64), half=False, device=device)
-            losses[device] = [step(images, targets, 10)[0].item() for _ in range(2)]
-            assert int(step.ema_updates) == 1 and int(step.accum_count) == 1
+            step.step.fill_(1)  # past the warmup: the weight LR is 0.0098
+            losses[device] = [step(images, targets, 1)[0].item() for _ in range(2)]
+            assert int(step.ema_updates) == 1 and int(step.accum_count) == 0
+            steps[device] = step
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    lr = 0.01 * (1 - (1 - math.cos(math.pi / 10)) / 2 * 0.99)  # lr0 · cosine factor at epoch 1
     assert np.isfinite(losses["cuda"]).all()
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    cuda_params = dict(cuda_model.named_parameters())
+    for name, p in cpu_model.named_parameters():
+        moved = cuda_params[name].detach().cpu() - before[name]
+        for what, got, want, floor in (
+                ("change", moved, p.detach() - before[name],
+                 1e-6 * lr + 2 * float(np.spacing(before[name].abs().max().numpy()))),
+                ("momentum", steps["cuda"].momentum[name].cpu(), steps["cpu"].momentum[name],
+                 1e-6)):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            assert err <= 1e-3 * scale + floor, (name, what, err, scale)

@@ -129,5 +129,5 @@ def test_ema_update_matches_jax(updates):
 @pytest.mark.parametrize("batch_size", [8, 32, 64, 256])
 def test_scale_hyperparams_for_batch_matches_jax(batch_size):
     cfg = dict(lr0=0.01, weight_decay=0.0005, momentum=0.937)
-    assert (tbuild.scale_hyperparams_for_batch(cfg, batch_size, 128)
-            == jbuild.scale_hyperparams_for_batch(cfg, batch_size, 128))
+    assert (tbuild.scale_hyperparams_for_batch(cfg, batch_size)
+            == jbuild.scale_hyperparams_for_batch(cfg, batch_size))

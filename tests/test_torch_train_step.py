@@ -25,9 +25,19 @@ first step the JAX step's gradients are up to 2.6e-4 of a leaf's largest
 magnitude off the float64 gradient, the port's 4.5e-5, and by the third
 step the buffers of BN weights whose gradient is near 0 differed by up to
 0.7% of the leaf's largest value. The updates, scaled by the LR, are.
+Before the three steps, one applied step at epoch 1 (weight LR 0.0098,
+where the decay's share of an update is no longer below the tolerance),
+from counters past the warmup: there each parameter's change and each
+momentum buffer are held within 1e-3 of the JAX leaf's largest magnitude,
+plus a floor of 1e-7 (times the LR for the change) for fp32 noise,
+500 times below the decay's share of a weight's gradient, and, for the
+change, 2 ulp of the leaf's largest parameter (the change is read off fp32
+parameters; the decay moves a weight by about 80 of its ulp).
 The JAX step compiles once in this file (about 80-100 s on one CPU core);
 test_torch_train_step_single.py holds the single-step branch the same way.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -56,6 +66,11 @@ from torch_port_utils import random_jax_variables, small_s_config
 
 IMG, NC, B, M = 64, 3, 2, 8
 EPOCHS = EPOCH = 10
+MID_EPOCH, MID_STEP = 1, 5  # mid-schedule: past any warmup used here
+# fp32 gradient noise: a leaf whose gradient is 0 but for rounding (a bias
+# ahead of a BN) reads ~5e-9; the decay adds 5e-4·|w| to a weight's gradient
+MID_FLOOR = 1e-7
+MID_LR = 0.01 * (1 - (1 - math.cos(math.pi * MID_EPOCH / EPOCHS)) / 2 * 0.99)  # every group's
 S_SOLVER = dict(lr0=0.01, lrf=0.01, momentum=0.937, weight_decay=0.0005, warmup_epochs=3.0,
                 warmup_momentum=0.8, warmup_bias_lr=0.1, lr_scheduler="Cosine")
 LOSS_KW = dict(num_classes=NC, ori_img_size=IMG, warmup_epoch=0, use_dfl=False, reg_max=0,
@@ -109,16 +124,58 @@ def _close_leaf(got, want, name, extra=0.0):
     assert err <= 1e-4 * float(np.abs(want).max()) + 1e-6 + extra, (name, err, extra)
 
 
+def _close_rel(got, want, name, floor):
+    """max |port − jax| ≤ 1e-3·max|jax| + ``floor`` over the leaf."""
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-3 * scale + floor, (name, err, scale)
+
+
+def check_mid_schedule_step(jstep, variables, batch_size, warmup_stepnum):
+    """One applied step at epoch 1 of 10, from ``step`` counters past the
+    warmup and the accumulator one call short of its count, so that the
+    first call applies at the full weight LR before any noise compounds."""
+    accum_count = max(1, round(64 / batch_size)) - 1
+    jstate = create_train_state(variables)._replace(
+        step=jnp.asarray(MID_STEP, jnp.int32), accum_count=jnp.asarray(accum_count, jnp.int32))
+    step = _port_step(variables, batch_size, warmup_stepnum)
+    step.step.fill_(MID_STEP)
+    step.accum_count.fill_(accum_count)
+    images, targets = _batch()
+    before = _params(step)
+    jstate, loss_j, comp_j = jstep(jstate, jnp.asarray(images), jnp.asarray(targets),
+                                   jnp.asarray(MID_EPOCH), use_atss=False)
+    loss_t, comp_t = step(images, targets, MID_EPOCH)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(comp_t.numpy(), np.asarray(comp_j), rtol=1e-4, atol=1e-6)
+    assert int(step.ema_updates) == int(jstate.ema_updates) == 1
+    assert int(step.accum_count) == int(jstate.accum_count) == 0
+
+    j_before = _jax_leaves({"params": variables["params"]})
+    j_after = _jax_leaves({"params": jax.device_get(jstate.params)})
+    j_momentum = _jax_leaves({"params": jax.device_get(jstate.opt.momentum_buf)})
+    assert set(j_momentum) == set(step.momentum)
+    for name, p in step.model.named_parameters():
+        # a change is read off fp32 parameters: each side rounds to its ulp
+        ulp = float(np.spacing(np.abs(j_before[name]).max()))
+        _close_rel((p.detach() - before[name]).numpy(), j_after[name] - j_before[name],
+                   f"mid-schedule {name}", MID_FLOOR * MID_LR + 2 * ulp)
+        _close_rel(step.momentum[name].numpy(), j_momentum[name],
+                   f"mid-schedule momentum {name}", MID_FLOOR)
+
+
 def check_steps_against_jax(batch_size, warmup_stepnum, seed, n_steps=3):
-    """Run ``n_steps`` of the JAX step (jitted) and the port's step side by
-    side from the same variables and compare after each; returns whether
-    each step applied an update."""
+    """Run one mid-schedule step (``check_mid_schedule_step``), then
+    ``n_steps`` of the JAX step (jitted) and the port's step side by side
+    from the same variables and compare after each; returns whether each of
+    the ``n_steps`` applied an update."""
     jmodel, variables = _train_variables(seed)
     solver = scale_hyperparams_for_batch(S_SOLVER, batch_size)
     jstep = jax_make_train_step(
         jmodel, JaxComputeLoss(**LOSS_KW), build_param_groups(variables["params"]), solver,
         max_stepnum=100, epochs=EPOCHS, batch_size=batch_size, warmup_stepnum=warmup_stepnum,
         img_size=(IMG, IMG))
+    check_mid_schedule_step(jstep, variables, batch_size, warmup_stepnum)
     jstate = create_train_state(variables)
     step = _port_step(variables, batch_size, warmup_stepnum)
     images, targets = _batch()
@@ -236,6 +293,24 @@ def test_single_step_equals_an_applied_accumulate_step():
             assert torch.equal(x, y), name
     for name in single.momentum:
         assert torch.equal(single.momentum[name], accum.momentum[name]), name
+
+
+@pytest.mark.parametrize("breach", ["zero_grad", "cast"])
+def test_step_refuses_a_model_it_no_longer_owns(breach):
+    """The model's tensors and gradients are views of the step's buffers:
+    ``model.zero_grad()`` (gradients set to None) or a cast breaks that, and
+    the next step raises instead of updating buffers the model does not
+    read."""
+    _, variables = _train_variables(seed=25)
+    step = _port_step(variables, 32, 0)
+    if breach == "zero_grad":
+        step.model.zero_grad()
+        match = "zero_grad"
+    else:
+        step.model.double()
+        match = "moved or cast"
+    with pytest.raises(ValueError, match=match):
+        step(*_batch(), EPOCH)
 
 
 def test_cuda_entry_points_raise_without_cuda(monkeypatch):

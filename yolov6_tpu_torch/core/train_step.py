@@ -58,8 +58,11 @@ class TrainStep:
     ``accum_count``, ``step`` and ``ema_updates`` (int32 device scalars), and
     ``ema``, an fp32 copy of the model kept in eval mode, for
     ``layers/reparam.py::fold_to_deploy(step.ema.state_dict())``. The
-    model's tensors are views into the step's buffers: do not move or cast
-    the model while the step owns it (``load_state_dict`` is fine)."""
+    model's tensors and gradients are views into the step's buffers: do not
+    move or cast the model, or set its gradients to ``None``
+    (``model.zero_grad()``), while the step owns it; a step then raises.
+    ``load_state_dict`` is fine. ``max_stepnum`` is taken to match the JAX
+    signature and unused."""
 
     def __init__(self, model: nn.Module, compute_loss, solver_cfg: Dict, max_stepnum: int,
                  epochs: int, batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
@@ -72,7 +75,7 @@ class TrainStep:
                                  f"needs fp32 parameters on {device}")
         self.model, self.compute_loss, self.device = model, compute_loss, device
         self.solver_cfg = dict(solver_cfg)
-        self.max_stepnum, self.epochs, self.batch_size = max_stepnum, epochs, batch_size
+        self.epochs, self.batch_size = epochs, batch_size
         self.warmup_stepnum, self.img_size, self.half = warmup_stepnum, tuple(img_size), half
         # with a batch of at least the nominal 64 the accumulation count is 1
         # for the whole run: no accumulator and no selects on it
@@ -98,6 +101,7 @@ class TrainStep:
             _flatten_into([ema_buffers[n] for n, _ in float_bufs], **f32),
             _flatten_into([ema_buffers[n] for n, _ in int_bufs], torch.int64, device),
         ]
+        self._stats_before = torch.empty_like(self._stats)
         self._grad = torch.zeros_like(self._param)
         self._momentum = torch.zeros_like(self._param)
         self._accum = torch.zeros_like(self._param)
@@ -105,6 +109,9 @@ class TrainStep:
         grads = _views(self._grad, params)
         for p, g in zip(params, grads):
             p.grad = g
+        self._params, self._grads = params, grads
+        self._bufs = [b for _, b in float_bufs + int_bufs]
+        self._ptrs = [t.data_ptr() for t in params + self._bufs]
         self.momentum = dict(zip(self.param_names, _views(self._momentum, params)))
         self.grad_accum = dict(zip(self.param_names, _views(self._accum, params)))
 
@@ -121,6 +128,26 @@ class TrainStep:
         """One step on ``images_u8 [b, H, W, 3]`` uint8 NHWC and padded
         ``targets [b, M, 5]``; returns (loss, components [iou, dfl, cls]) as
         device tensors."""
+        loss, components = self.forward_backward(images_u8, targets, use_atss)
+        self.update(epoch)
+        return loss, components
+
+    def _check_aliasing(self) -> None:
+        """Raise if the model's tensors or gradients are no longer views of
+        the step's buffers (host pointers only: no device work)."""
+        if any(p.grad is not g for p, g in zip(self._params, self._grads)):
+            raise ValueError("a parameter's .grad is no longer the step's gradient buffer "
+                             "(model.zero_grad() sets it to None); the step would read no "
+                             "gradient")
+        if [t.data_ptr() for t in self._params + self._bufs] != self._ptrs:
+            raise ValueError("the model was moved or cast after make_train_step; the step "
+                             "would update buffers the model no longer reads")
+
+    def forward_backward(self, images_u8, targets, use_atss: bool = False):
+        """The first half of a step: the forward (BN statistics snapshotted
+        first), the loss and the gradients, in the step's gradient buffer.
+        ``update`` is the second half."""
+        self._check_aliasing()
         dev = self.device
         images = torch.as_tensor(images_u8, device=dev)
         if tuple(images.shape[1:3]) != self.img_size:
@@ -130,7 +157,7 @@ class TrainStep:
         targets = torch.as_tensor(targets, device=dev)
 
         self.model.train()
-        stats_before = self._stats.clone()
+        self._stats_before.copy_(self._stats)
         self._grad.zero_()
         with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=self.half):
             head_out, _ = self.model(x)
@@ -139,13 +166,12 @@ class TrainStep:
         loss, components = self.compute_loss(feats_hw, cls_scores, reg_distri, targets,
                                              x.shape[2], x.shape[3], use_atss)
         loss.backward()
-        with torch.no_grad():
-            self._update(epoch, stats_before)
         return loss.detach(), components
 
-    def _update(self, epoch, stats_before: torch.Tensor) -> None:
-        """Guards, SGD, accumulation and EMA (JAX: train_step.py:156-249), on
-        device values only."""
+    @torch.no_grad()
+    def update(self, epoch) -> None:
+        """The second half of a step: guards, SGD, accumulation and EMA
+        (JAX: train_step.py:156-249), on device values only."""
         sc = self.solver_cfg
         if not torch.is_tensor(epoch):
             epoch = torch.full((), float(epoch), device=self.device)
@@ -161,7 +187,7 @@ class TrainStep:
         # later forward, train and eval
         grads_finite = torch.isfinite(self._grad).all()
         stats_finite = torch.isfinite(self._stats).all()
-        self._stats.copy_(torch.where(stats_finite, self._stats, stats_before))
+        self._stats.copy_(torch.where(stats_finite, self._stats, self._stats_before))
 
         if self.single_step:
             grads, apply = self._grad, grads_finite

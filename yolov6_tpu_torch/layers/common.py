@@ -29,15 +29,14 @@ def batch_norm(channels: int) -> nn.BatchNorm2d:
 
 
 class ConvModule(nn.Module):
-    """Conv (same padding unless ``padding``) + BN + activation (JAX:
-    common.py:177-216). ``deploy``: BN folded into the conv's bias."""
+    """Conv (same padding) + BN + activation (JAX: common.py:177-216).
+    ``deploy``: BN folded into the conv's bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, act: str | None = "relu", padding: int | None = None,
-                 deploy: bool = True):
+                 stride: int = 1, act: str | None = "relu", deploy: bool = True):
         super().__init__()
-        p = kernel_size // 2 if padding is None else padding
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride, p, bias=deploy)
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride, kernel_size // 2,
+                              bias=deploy)
         self.bn = None if deploy else batch_norm(out_channels)
         self.act = ACTIVATIONS[act]
 
@@ -143,8 +142,8 @@ class RepVGGBlock(nn.Module):
         if deploy:
             self.rbr_reparam = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=True)
             return
-        self.rbr_dense = ConvModule(in_channels, out_channels, 3, stride, None, 1, deploy=False)
-        self.rbr_1x1 = ConvModule(in_channels, out_channels, 1, stride, None, 0, deploy=False)
+        self.rbr_dense = ConvModule(in_channels, out_channels, 3, stride, None, deploy=False)
+        self.rbr_1x1 = ConvModule(in_channels, out_channels, 1, stride, None, deploy=False)
         self.rbr_identity = (batch_norm(in_channels)
                              if in_channels == out_channels and stride == 1 else None)
 

@@ -42,7 +42,9 @@ class ComputeLoss:
     """Loss over (feats_hw, cls_scores, reg_distri) and padded targets
     (JAX: loss.py:65-204). Targets are ``[bs, M, 5]`` rows (cls, cx, cy, w,
     h), normalised; padded rows have cls -1 and boxes 0. Returns the loss and
-    ``components = [iou, dfl (0), cls]``, weighted and detached."""
+    ``components = [iou, dfl (0), cls]``, weighted and detached.
+    ``ori_img_size`` and ``warmup_epoch`` are taken to match the JAX
+    signature and unused: only TAL assigns in this port."""
 
     def __init__(
         self,
@@ -63,8 +65,6 @@ class ComputeLoss:
         self.grid_cell_size = grid_cell_size
         self.grid_cell_offset = grid_cell_offset
         self.num_classes = num_classes
-        self.ori_img_size = ori_img_size
-        self.warmup_epoch = warmup_epoch
         self.use_dfl = use_dfl
         self.reg_max = reg_max
         self.iou_type = iou_type

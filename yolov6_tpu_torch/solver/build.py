@@ -103,11 +103,10 @@ def sgd_update(grads: Sequence[torch.Tensor], momentum_bufs: Sequence[torch.Tens
     return new_p, new_b
 
 
-def scale_hyperparams_for_batch(solver_cfg: Dict, batch_size: int, world_batch: int | None = None):
-    """lr/wd batch rescale (JAX: build.py:166-173)."""
+def scale_hyperparams_for_batch(solver_cfg: Dict, batch_size: int):
+    """Weight-decay batch rescale (JAX: build.py:166-173, single device: no
+    LR rescale)."""
     accumulate = max(1, round(64 / batch_size))
     out = dict(solver_cfg)
     out["weight_decay"] = solver_cfg["weight_decay"] * batch_size * accumulate / 64
-    if world_batch:
-        out["lr0"] = solver_cfg["lr0"] * batch_size / world_batch
     return out
