@@ -30,17 +30,28 @@ Phases, each of which asserts:
      (``fold_to_deploy``, loaded with strict=True), whose fp32 forward must
      equal the train model's eval-mode forward; then the folded model serves
      b32@640 through ``make_end2end_fn``, and the NMS kernel must take the
-     tile walk in every image.
+     tile walk in every image;
+  8. YOLOv6-M (configs/yolov6m.py: CSPBepBackbone, CSPRepBiFPANNeck, the DFL
+     head) served as S is in phases 3-5: fp32 with the same checks, the
+     kernel on M's own candidates against its plain version, bf16 times and
+     a profile;
+  9. M's training step as S's in phase 6 (BottleRep alphas, DFL on the TAL
+     branch), then 3 steps on the ATSS branch, then the fold and the folded
+     serve of phase 7;
+ 10. YOLOv6-L (configs/yolov6l.py, ``conv_silu`` blocks): the deploy graph
+     serves b32@640 in bf16 through the kernel (timed), and the train form
+     takes 3 + 5 steps in bf16 with DFL.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 and when there is no CUDA device.
 
 The serving weights are random, from seeds: torch's default init, then
 every conv re-drawn He-normal so activations stay O(1) through the full
-depth, and the head's class and box predictions (zero weights at init, which
-would give every anchor the same score) spread as in the CPU tests. The
-train model's convs are drawn He-normal by a generator on the card; its BNs
-and its head's prior-probability init are as built.
+depth, BottleRep alphas in [0.5, 1.5], and the head's class and box
+predictions (zero weights at init, which would give every anchor the same
+score) spread as in the CPU tests. The train model's convs are drawn
+He-normal by a generator on the card; its BNs, alphas and its head's
+prior-probability init are as built.
 """
 
 from __future__ import annotations
@@ -71,9 +82,14 @@ KEEP_SHAPES = [
 # orders through ~40 layers
 DECODE_BOX_TOL = dict(rtol=1e-4, atol=1e-2)  # pixels
 DECODE_SCORE_TOL = dict(rtol=0.0, atol=1e-4)
+# M runs through about twice S's conv layers, and its DFL boxes are sums of
+# 17 bins: an H100 read 1.5e-2 px and 9.4e-5 against S's 1.2e-4 px and 3e-7
+DECODE_TOL_M = (dict(rtol=1e-4, atol=5e-2), dict(rtol=0.0, atol=5e-4))
 # the train phase: the JAX bench's train cell (bench.py:236-256)
 TRAIN = dict(max_labels=32, labels=4, epoch=100, epochs=300, warmup_stepnum=10,
              max_stepnum=1000, warmup_steps=3, timed_steps=20, profiled_steps=3)
+ATSS_STEPS = 3  # M's steps on the ATSS branch (the trainer's warmup epochs)
+L_TIMED_STEPS = 5  # L's timed train steps, after TRAIN["warmup_steps"]
 # the folded deploy graph against the train graph's eval forward, fp32, TF32
 # off: max |diff| over a head map at most this share of the map's max |value|
 # (an H100 read 3.6e-6 after 27 steps)
@@ -225,6 +241,8 @@ def randomize_weights(model, seed: int) -> None:
                 new = torch.rand(p.shape, generator=gen) * 5.0 - 4.0
             elif ".reg_preds." in name:
                 new = torch.rand(p.shape, generator=gen) * 2.0 + 1.0
+            elif name.endswith(".alpha"):
+                new = torch.rand(p.shape, generator=gen) + 0.5
             else:
                 new = torch.rand(p.shape, generator=gen) * 0.2 - 0.1
             p.copy_(new.to(p.device))
@@ -319,8 +337,12 @@ def time_step_phases(step, images, targets, epoch):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
 
 
-def train_phase(cfg, dev, card: str):
-    """Phase 6: the S training step at b32@640 in bf16; returns the step."""
+def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
+                profile: bool = True, atss_steps: int = 0):
+    """A training step at b32@640 in bf16 on the bench's cell (phases 6, 9
+    and 10): ``TRAIN["warmup_steps"]`` steps, ``timed_steps`` timed, one split
+    into its phases, optionally a profile window; then ``atss_steps`` steps on
+    the ATSS branch. Returns the step."""
     import torch
 
     from yolov6_tpu_torch.core.train_step import make_train_step
@@ -341,14 +363,15 @@ def train_phase(cfg, dev, card: str):
     step = make_train_step(model, loss_fn, solver, t["max_stepnum"], t["epochs"], BATCH,
                            t["warmup_stepnum"], (IMG, IMG), half=True, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
+    n_alpha = sum(1 for n, _ in model.named_parameters() if n.endswith(".alpha"))
     images, targets = bench_batch(BATCH, IMG, t["max_labels"], t["labels"], dev)
     epoch = t["epoch"]
 
     losses, applied = [], []
 
-    def one_step():
+    def one_step(use_atss=False):
         before = step.ema_updates.clone()
-        loss, comp = step(images, targets, epoch)
+        loss, comp = step(images, targets, epoch, use_atss=use_atss)
         losses.append(torch.cat([loss[None], comp]))
         applied.append(step.ema_updates - before)
 
@@ -359,39 +382,58 @@ def train_phase(cfg, dev, card: str):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(t["timed_steps"]):
+    for _ in range(timed_steps):
         one_step()
     end.record()
     end.synchronize()
-    step_ms = start.elapsed_time(end) / t["timed_steps"]
+    step_ms = start.elapsed_time(end) / timed_steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     split = time_step_phases(step, images, targets, epoch)
     applied_all = torch.stack(applied).tolist()
     rows = torch.stack(losses).tolist()
     n_applied = sum(applied_all)
     n_held = len(applied_all) - n_applied
-    log(f"[6] trained YOLOv6-S ({n_params / 1e6:.2f} M params, train form) b{BATCH}@{IMG} bf16: "
-        f"{t['warmup_steps']} + {t['timed_steps']} steps, {step_ms:.3f} ms/step = "
-        f"{BATCH / step_ms * 1e3:.1f} imgs/s [{card}]")
-    log(f"[6] one step split: forward {split[0]:.3f} ms, loss with assignment {split[1]:.3f} ms, "
-        f"backward {split[2]:.3f} ms, optimizer+EMA {split[3]:.3f} ms (sum {sum(split):.3f}) "
+    log(f"{tag} trained {label} ({n_params / 1e6:.2f} M params, train form, {n_alpha} BottleRep "
+        f"alphas; DFL {bool(head.use_dfl)}) b{BATCH}@{IMG} bf16: {t['warmup_steps']} + "
+        f"{timed_steps} steps, {step_ms:.3f} ms/step = {BATCH / step_ms * 1e3:.1f} imgs/s [{card}]")
+    log(f"{tag} one step split: forward {split[0]:.3f} ms, loss with assignment {split[1]:.3f} "
+        f"ms, backward {split[2]:.3f} ms, optimizer+EMA {split[3]:.3f} ms (sum {sum(split):.3f}) "
         f"[{card}]")
-    log(f"[6] peak memory allocated {peak_gib:.2f} GiB over the timed steps; "
+    log(f"{tag} peak memory allocated {peak_gib:.2f} GiB over the timed steps; "
         f"{n_applied} steps applied, {n_held} held; loss [total, iou, dfl, cls] first "
         f"{[round(x, 5) for x in rows[0]]}, last {[round(x, 5) for x in rows[-1]]}")
     assert all(math.isfinite(x) for row in rows for x in row), f"a loss is not finite: {rows}"
     assert n_applied > 0 and n_held > 0, f"applied {n_applied}, held {n_held}"
     assert int(step.step) == len(rows) + 1
-    profile_calls(lambda: step(images, targets, epoch), card, calls=t["profiled_steps"],
-                  tag="[6]", what="bf16 train steps", unit="step")
+    if head.use_dfl:
+        assert all(row[2] > 0 for row in rows), "a DFL component is not positive"
+    if profile:
+        profile_calls(lambda: step(images, targets, epoch), card, calls=t["profiled_steps"],
+                      tag=tag, what="bf16 train steps", unit="step")
+    if atss_steps:
+        losses.clear()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(atss_steps):
+            one_step(use_atss=True)
+        end.record()
+        end.synchronize()
+        atss_ms = start.elapsed_time(end) / atss_steps
+        rows = torch.stack(losses).tolist()
+        log(f"{tag} {atss_steps} steps on the ATSS branch: {atss_ms:.3f} ms/step = "
+            f"{BATCH / atss_ms * 1e3:.1f} imgs/s; loss [total, iou, dfl, cls] "
+            f"{[[round(x, 5) for x in row] for row in rows]} [{card}]")
+        assert all(math.isfinite(x) for row in rows for x in row), "ATSS: a loss is not finite"
+        assert all(row[2] > 0 for row in rows) or not head.use_dfl
     torch.cuda.synchronize()
     return step
 
 
-def fold_and_serve_phase(cfg, step, images, dev, card: str) -> int:
-    """Phase 7: fold the trained model and its EMA into the deploy graph,
-    hold each against its train form's eval forward in fp32, and serve the
-    folded model; returns the NMS kernel's launches in that serve."""
+def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str) -> int:
+    """Phases 7 and 9: fold the trained model and its EMA into the deploy
+    graph, hold each against its train form's eval forward in fp32, and
+    serve the folded model; returns the NMS kernel's launches in that
+    serve."""
     import torch
 
     from yolov6_tpu_torch.layers.reparam import fold_to_deploy
@@ -418,8 +460,8 @@ def fold_and_serve_phase(cfg, step, images, dev, card: str) -> int:
                 for g, w in zip(got[key], want[key]):
                     rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
                     worst = max(worst, rel)
-            log(f"[7] folded {name}: deploy fp32 forward vs train-form eval forward on 2 "
-                f"images, max |diff| / max |value| over the head maps {worst:.3e} (tolerance "
+            log(f"{tag} folded {label} {name}: deploy fp32 forward vs train-form eval forward on "
+                f"2 images, max |diff| / max |value| over the head maps {worst:.3e} (tolerance "
                 f"{FOLD_REL_TOL})")
             assert worst <= FOLD_REL_TOL, f"folded {name} differs from its train form: {worst}"
             deployed[name] = deploy
@@ -439,9 +481,180 @@ def fold_and_serve_phase(cfg, step, images, dev, card: str) -> int:
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     total = int(num_dets.sum())
     assert total > 0, "serving the folded trained model found no detections"
-    log(f"[7] served the folded trained YOLOv6-S b{BATCH}@{IMG} bf16 at {FOLD_SERVE}: {total} "
+    log(f"{tag} served the folded trained {label} b{BATCH}@{IMG} bf16 at {FOLD_SERVE}: {total} "
         f"detections, {launches} NMS kernel launch(es), the tile walk in all {BATCH} images, "
         f"{tiles:.2f} tiles/image; max score {float(scores.max()):.4f}")
+    return launches
+
+
+def forward_decode(x_uint8, model, half):
+    """The serve's preprocessing, forward and decode, without the NMS."""
+    import torch
+
+    x = x_uint8.permute(0, 3, 1, 2).to(torch.bfloat16 if half else torch.float32)
+    x = x.contiguous().flip(1) / 255.0
+    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=half):
+        head, _ = model(x)
+    return model.decode(head)
+
+
+def deploy_model(cfg, seed: int, dev):
+    """The deploy graph of ``cfg`` (80 classes) with seeded weights."""
+    import torch
+
+    from yolov6_tpu_torch.models.yolo import build_model
+
+    torch.manual_seed(seed)
+    model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device=dev)
+    randomize_weights(model, seed=seed)
+    return model
+
+
+def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: str,
+                decode_tol=(DECODE_BOX_TOL, DECODE_SCORE_TOL)):
+    """Phases 3 and 8: ``model`` serves b32@640 in fp32 (TF32 off) through
+    ``make_end2end_fn``; the NMS kernel must launch and take the tile walk in
+    every image and find detections; the default keep must equal the plain
+    emit-once keep and ``'pallas'`` the plain loop on the same predictions at
+    the serving setting and the eval protocol; the CPU decode of two images
+    must agree with the CUDA decode within ``decode_tol`` (boxes, scores);
+    and the kernel is timed on the served candidates against its plain
+    version. Returns the kernel's numbers."""
+    import torch
+
+    from yolov6_tpu_torch.models.end2end import make_end2end_fn
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.ops import nms as nms_mod
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_params = sum(p.numel() for p in model.parameters())
+    serve = make_end2end_fn(model, **SERVE, with_preprocess=True, half=False, device=dev)
+
+    greedy_nms.launches = 0
+    num_dets, boxes, scores, classes = serve(images)
+    torch.cuda.synchronize()
+    launches = greedy_nms.launches
+    assert launches > 0, f"{label}: serving did not launch the NMS kernel"
+    path = greedy_nms.last_path.tolist()
+    tiles = float(greedy_nms.last_tiles.float().mean())
+    assert path == [1] * BATCH, f"{label} serving: not every image took the tile walk: {path}"
+    assert num_dets.shape == (BATCH, 1) and boxes.shape == (BATCH, SERVE["max_det"], 4)
+    assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+    total = int(num_dets.sum())
+    assert total > 0, f"{label}: serving found no detections"
+    log(f"{tag} served {label} ({n_params / 1e6:.2f} M params) b{BATCH}@{IMG} fp32: "
+        f"{total} detections, {launches} NMS kernel launch(es), the tile walk in all "
+        f"{BATCH} images, {tiles:.2f} tiles/image")
+
+    def plain_emit_once(preds, conf_thres, iou_thres, max_det, max_nms=30000,
+                        multi_label=False):
+        cands = nms_mod._select_candidates(preds, conf_thres, max_nms, multi_label, False, None)
+        return nms_mod._keep_and_gather(cands, greedy_nms_plain, True, max_det, iou_thres)
+
+    cpu_model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        preds = forward_decode(images, model, half=False)
+        counts, walk_tiles = {}, {}
+        for setting, kw in (("serving", SERVE), ("eval protocol", EVAL)):
+            dets_k, valid_k = nms_mod.non_max_suppression(preds, **kw)
+            torch.cuda.synchronize()
+            paths = greedy_nms.last_path.tolist()
+            assert paths == [1] * BATCH, f"{setting}: not every image took the tile walk: {paths}"
+            walk_tiles[setting] = float(greedy_nms.last_tiles.float().mean())
+            dets_p, valid_p = plain_emit_once(preds, **kw)
+            assert torch.equal(valid_k, valid_p) and torch.equal(dets_k, dets_p), \
+                f"{label} {setting}: the default keep differs from the plain emit-once keep"
+            pal_k, pal_valid_k = nms_mod.non_max_suppression(preds, **kw, method="pallas")
+            pal_p, pal_valid_p = nms_mod.non_max_suppression(preds, **kw, method="loop")
+            assert torch.equal(pal_valid_k, pal_valid_p) and torch.equal(pal_k, pal_p), \
+                f"{label} {setting}: 'pallas' differs from the plain loop"
+            counts[setting] = (int(valid_k.sum()), int(pal_valid_k.sum()))
+            if setting == "serving":
+                assert torch.equal(valid_k.sum(1, keepdim=True, dtype=torch.int32), num_dets), \
+                    f"{label} serving: serve() differs from forward + decode + NMS"
+        log(f"{tag} same predictions through the plain keeps: the default equal to the plain "
+            f"emit-once keep, 'pallas' equal to 'loop', at the serving setting and at the "
+            f"eval protocol ((default, pallas) detections: {counts}); the default keep took "
+            f"the tile walk in every image of both (tiles/image: {walk_tiles})")
+
+        # two of the images on the CPU, fp32
+        cpu_serve = make_end2end_fn(cpu_model, **SERVE, with_preprocess=True, half=False,
+                                    device="cpu")
+        cpu_num, _, _, _ = cpu_serve(images_np[:2])
+        assert int(cpu_num.sum()) > 0, f"{label}: CPU serving found no detections"
+        preds_cpu = forward_decode(torch.from_numpy(images_np[:2]), cpu_model, half=False)
+        preds_gpu = preds[:2].cpu()
+        box_tol, score_tol = decode_tol
+        torch.testing.assert_close(preds_cpu[..., :4], preds_gpu[..., :4], **box_tol)
+        torch.testing.assert_close(preds_cpu[..., 4:], preds_gpu[..., 4:], **score_tol)
+        box_err = float((preds_cpu[..., :4] - preds_gpu[..., :4]).abs().max())
+        score_err = float((preds_cpu[..., 4:] - preds_gpu[..., 4:]).abs().max())
+        log(f"{tag} CPU decode of 2 images vs CUDA: max |box| diff {box_err:.3e} px, "
+            f"max |score| diff {score_err:.3e} (tolerance boxes {box_tol}, "
+            f"scores {score_tol}); CPU serve {cpu_num.flatten().tolist()} vs CUDA "
+            f"{num_dets[:2].flatten().tolist()} detections")
+
+        # the kernel at the main path's shape, on the main path's own candidates
+        _, nms_boxes, cand_scores, _ = nms_mod._select_candidates(
+            preds, SERVE["conf_thres"], 30000, False, False, None)
+        nms_boxes, cand_scores = nms_boxes.contiguous(), cand_scores.contiguous()
+        md, iou = SERVE["max_det"], SERVE["iou_thres"]
+        max_abs_err = 0.0
+        for emit_once in (False, True):  # the default rule last: its outputs are used below
+            idx_k, valid_k = greedy_nms(nms_boxes, cand_scores, md, iou, emit_once=emit_once)
+            idx_p, valid_p = greedy_nms_plain(nms_boxes, cand_scores, md, iou,
+                                              emit_once=emit_once)
+            assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p), \
+                f"{label} served candidates, emit_once={emit_once}: the kernel differs from plain"
+            assert (greedy_nms.last_path == 1).all()
+            max_abs_err = max(max_abs_err, float((idx_k - idx_p).abs().max()))
+        ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20,
+                     queue_ahead=True)
+        call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
+        plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, cand_scores, md, iou),
+                           iters=3, warmup=1)
+        bound, by = bound_ms(*keep_work_sorted(nms_boxes, cand_scores, idx_k, valid_k, TILE))
+        any_bound, any_by = bound_ms(*keep_work(nms_boxes, cand_scores, idx_k, valid_k, iou))
+        log(f"{tag} greedy_nms on {label}'s served candidates B={BATCH} K={nms_boxes.shape[1]} "
+            f"max_det={md}, both rules equal to plain: kernel {ms:.4f} ms, per call "
+            f"{call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+            f"({by}; in any order {any_bound:.5f} ms, {any_by}) [{card}]")
+    return dict(launches=launches, path=path[0], tiles_visited=tiles, max_abs_err=max_abs_err,
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                any_order_bound_ms=any_bound, K=nms_boxes.shape[1], max_det=md)
+
+
+def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=None):
+    """Phases 4/5, 8 and 10: bf16 fwd+decode and serve at b32@640 by CUDA
+    events (10 calls after 3), then a profile window when ``profile_tag`` is
+    given; returns the NMS kernel's launches in one serve call, which must
+    take the tile walk."""
+    import torch
+
+    from yolov6_tpu_torch.models.end2end import make_end2end_fn
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+    torch.backends.cudnn.allow_tf32 = True
+    serve16 = make_end2end_fn(model, **SERVE, with_preprocess=True, half=True, device=dev)
+    greedy_nms.launches = 0
+    n16 = serve16(images)[0]
+    torch.cuda.synchronize()
+    launches = greedy_nms.launches
+    assert launches > 0, f"{label}: bf16 serving did not launch the NMS kernel"
+    assert greedy_nms.last_path.tolist() == [1] * BATCH, f"{label} bf16: not every image walked"
+    assert int(n16.sum()) > 0, f"{label}: bf16 serving found no detections"
+    with torch.inference_mode():
+        fd_ms = cuda_ms(lambda: forward_decode(images, model, half=True), iters=10, warmup=3)
+    sv_ms = cuda_ms(lambda: serve16(images), iters=10, warmup=3)
+    log(f"{tag} bf16 {label} b{BATCH}@{IMG}: fwd+decode {fd_ms:.3f} ms = "
+        f"{BATCH / fd_ms * 1e3:.1f} imgs/s; fwd+decode+NMS (serve) {sv_ms:.3f} ms = "
+        f"{BATCH / sv_ms * 1e3:.1f} imgs/s; {int(n16.sum())} detections, {launches} NMS kernel "
+        f"launch(es) a call, the tile walk in all {BATCH} images [{card}]")
+    if profile_tag:
+        profile_calls(lambda: serve16(images), card, tag=profile_tag)
     return launches
 
 
@@ -455,13 +668,11 @@ def main() -> int:
 
     import numpy as np
 
-    from yolov6_tpu_torch.models.end2end import make_end2end_fn
-    from yolov6_tpu_torch.models.yolo import build_model
-    from yolov6_tpu_torch.ops import nms as nms_mod
     from yolov6_tpu_torch.ops.cuda import build
     from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
     from yolov6_tpu_torch.utils.config import Config
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = nvidia_smi_line()
 
@@ -516,163 +727,81 @@ def main() -> int:
             f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms ({b_by}; in any order {any_ms:.5f} ms, "
             f"{any_by}) [{card}]")
 
-    # ---- 3. the serving path at full width, fp32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Config.fromfile(os.path.join(ROOT, "configs", "yolov6s.py"))
-    torch.manual_seed(0)
-    model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device="cuda")
-    randomize_weights(model, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
     images_np = np.random.default_rng(0).integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
     images = torch.from_numpy(images_np).to(dev)
-    serve = make_end2end_fn(model, **SERVE, with_preprocess=True, half=False, device="cuda")
+    cfgs = {name: Config.fromfile(os.path.join(ROOT, "configs", f"yolov6{name}.py"))
+            for name in ("s", "m", "l")}
 
-    greedy_nms.launches = 0
-    num_dets, boxes, scores, classes = serve(images)
-    torch.cuda.synchronize()
-    main_launches = greedy_nms.launches
-    assert main_launches > 0, "serving did not launch the NMS kernel"
-    main_path = greedy_nms.last_path.tolist()
-    main_tiles = float(greedy_nms.last_tiles.float().mean())
-    assert main_path == [1] * BATCH, f"serving: not every image took the tile walk: {main_path}"
-    assert num_dets.shape == (BATCH, 1) and boxes.shape == (BATCH, SERVE["max_det"], 4)
-    assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
-    total = int(num_dets.sum())
-    assert total > 0, "serving found no detections"
-    log(f"[3] served YOLOv6-S ({n_params / 1e6:.2f} M params) b{BATCH}@{IMG} fp32: "
-        f"{total} detections, {main_launches} NMS kernel launch(es), the tile walk in all "
-        f"{BATCH} images, {main_tiles:.2f} tiles/image")
-
-    def forward_decode(x_uint8, m, half):
-        x = x_uint8.permute(0, 3, 1, 2).to(torch.bfloat16 if half else torch.float32)
-        x = x.contiguous().flip(1) / 255.0
-        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=half):
-            head, _ = m(x)
-        return m.decode(head)
-
-    cpu_model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    def plain_emit_once(preds, conf_thres, iou_thres, max_det, max_nms=30000,
-                        multi_label=False):
-        cands = nms_mod._select_candidates(preds, conf_thres, max_nms, multi_label, False, None)
-        return nms_mod._keep_and_gather(cands, greedy_nms_plain, True, max_det, iou_thres)
-
-    with torch.inference_mode():
-        preds = forward_decode(images, model, half=False)
-        counts, walk_tiles = {}, {}
-        for setting, kw in (("serving", SERVE), ("eval protocol", EVAL)):
-            dets_k, valid_k = nms_mod.non_max_suppression(preds, **kw)
-            torch.cuda.synchronize()
-            paths = greedy_nms.last_path.tolist()
-            assert paths == [1] * BATCH, f"{setting}: not every image took the tile walk: {paths}"
-            walk_tiles[setting] = float(greedy_nms.last_tiles.float().mean())
-            dets_p, valid_p = plain_emit_once(preds, **kw)
-            assert torch.equal(valid_k, valid_p) and torch.equal(dets_k, dets_p), \
-                f"{setting}: the default keep differs from the plain emit-once keep"
-            pal_k, pal_valid_k = nms_mod.non_max_suppression(preds, **kw, method="pallas")
-            pal_p, pal_valid_p = nms_mod.non_max_suppression(preds, **kw, method="loop")
-            assert torch.equal(pal_valid_k, pal_valid_p) and torch.equal(pal_k, pal_p), \
-                f"{setting}: 'pallas' differs from the plain loop"
-            counts[setting] = (int(valid_k.sum()), int(pal_valid_k.sum()))
-            if setting == "serving":
-                assert torch.equal(valid_k.sum(1, keepdim=True, dtype=torch.int32), num_dets), \
-                    "serving: serve() differs from forward + decode + NMS"
-        log(f"[3] same predictions through the plain keeps: the default equal to the plain "
-            f"emit-once keep, 'pallas' equal to 'loop', at the serving setting and at the "
-            f"eval protocol ((default, pallas) detections: {counts}); the default keep took "
-            f"the tile walk in every image of both (tiles/image: {walk_tiles})")
-
-        # two of the images on the CPU, fp32
-        cpu_serve = make_end2end_fn(cpu_model, **SERVE, with_preprocess=True, half=False,
-                                    device="cpu")
-        cpu_num, _, _, _ = cpu_serve(images_np[:2])
-        assert int(cpu_num.sum()) > 0, "CPU serving found no detections"
-        preds_cpu = forward_decode(torch.from_numpy(images_np[:2]), cpu_model, half=False)
-        preds_gpu = preds[:2].cpu()
-        torch.testing.assert_close(preds_cpu[..., :4], preds_gpu[..., :4], **DECODE_BOX_TOL)
-        torch.testing.assert_close(preds_cpu[..., 4:], preds_gpu[..., 4:], **DECODE_SCORE_TOL)
-        box_err = float((preds_cpu[..., :4] - preds_gpu[..., :4]).abs().max())
-        score_err = float((preds_cpu[..., 4:] - preds_gpu[..., 4:]).abs().max())
-        log(f"[3] CPU decode of 2 images vs CUDA: max |box| diff {box_err:.3e} px, "
-            f"max |score| diff {score_err:.3e} (tolerance boxes {DECODE_BOX_TOL}, "
-            f"scores {DECODE_SCORE_TOL}); CPU serve {cpu_num.flatten().tolist()} vs CUDA "
-            f"{num_dets[:2].flatten().tolist()} detections")
-
-        # the kernel at the main path's shape, on the main path's own candidates
-        _, nms_boxes, cand_scores, _ = nms_mod._select_candidates(
-            preds, SERVE["conf_thres"], 30000, False, False, None)
-        nms_boxes, cand_scores = nms_boxes.contiguous(), cand_scores.contiguous()
-        md, iou = SERVE["max_det"], SERVE["iou_thres"]
-        max_abs_err = 0.0
-        for emit_once in (False, True):  # the default rule last: its outputs are used below
-            idx_k, valid_k = greedy_nms(nms_boxes, cand_scores, md, iou, emit_once=emit_once)
-            idx_p, valid_p = greedy_nms_plain(nms_boxes, cand_scores, md, iou,
-                                              emit_once=emit_once)
-            assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p), \
-                f"served candidates, emit_once={emit_once}: the kernel differs from plain"
-            assert (greedy_nms.last_path == 1).all()
-            max_abs_err = max(max_abs_err, float((idx_k - idx_p).abs().max()))
-        main_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20,
-                          queue_ahead=True)
-        main_call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
-        main_plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, cand_scores, md, iou),
-                                iters=3, warmup=1)
-        main_bound, main_by = bound_ms(*keep_work_sorted(nms_boxes, cand_scores, idx_k, valid_k,
-                                                         TILE))
-        any_bound, any_by = bound_ms(*keep_work(nms_boxes, cand_scores, idx_k, valid_k, iou))
-        log(f"[3] greedy_nms on the served candidates B={BATCH} K={nms_boxes.shape[1]} "
-            f"max_det={md}, both rules equal to plain: kernel {main_ms:.4f} ms, per call "
-            f"{main_call_ms:.4f} ms, plain {main_plain_ms:.3f} ms, bound {main_bound:.5f} ms "
-            f"({main_by}; in any order {any_bound:.5f} ms, {any_by}) [{card}]")
-
-    # ---- 4. times: bf16 serving at b32@640
-    torch.backends.cudnn.allow_tf32 = True
-    serve16 = make_end2end_fn(model, **SERVE, with_preprocess=True, half=True, device="cuda")
-    n16 = serve16(images)[0]
-    torch.cuda.synchronize()
-    assert int(n16.sum()) > 0, "bf16 serving found no detections"
-    with torch.inference_mode():
-        fd_ms = cuda_ms(lambda: forward_decode(images, model, half=True), iters=10, warmup=3)
-    sv_ms = cuda_ms(lambda: serve16(images), iters=10, warmup=3)
-    log(f"[4] bf16 YOLOv6-S b{BATCH}@{IMG}: fwd+decode {fd_ms:.3f} ms = "
-        f"{BATCH / fd_ms * 1e3:.1f} imgs/s; fwd+decode+NMS (serve) {sv_ms:.3f} ms = "
-        f"{BATCH / sv_ms * 1e3:.1f} imgs/s [{card}]")
+    # ---- 3.-5. YOLOv6-S: the serving path at full width, fp32 checks, bf16 times, profile
+    model = deploy_model(cfgs["s"], 0, dev)
+    main = serve_phase(cfgs["s"], "YOLOv6-S", model, images_np, images, dev, card, "[3]")
     log(f"[4] greedy_nms at the serving shape {keep_rows['serving']['ms']:.4f} ms, at the "
         f"eval-protocol shape {keep_rows['eval_protocol']['ms']:.4f} ms [{card}]")
-    profile_calls(lambda: serve16(images), card)
+    time_serve(model, "YOLOv6-S", images, dev, card, "[4]", profile_tag="[5]")
 
-    # ---- 6. the training step at full width, bf16 (no kernel of this repo on its path)
+    # ---- 6. the S training step at full width, bf16 (no kernel of this repo on its path)
     greedy_nms.launches = 0
-    step = train_phase(cfg, dev, card)
+    step = train_phase(cfgs["s"], "YOLOv6-S", dev, card, "[6]", TRAIN["timed_steps"])
     train_launches = greedy_nms.launches
 
-    # ---- 7. fold the trained model into the deploy graph and serve it
-    fold_launches = fold_and_serve_phase(cfg, step, images, dev, card)
+    # ---- 7. fold the trained S into the deploy graph and serve it
+    fold_launches = fold_and_serve_phase(cfgs["s"], "YOLOv6-S", step, images, dev, card, "[7]")
+    del step, model
+
+    # ---- 8. YOLOv6-M served at full width: fp32 checks, the kernel on M's candidates, bf16
+    model = deploy_model(cfgs["m"], 1, dev)
+    m_serve = serve_phase(cfgs["m"], "YOLOv6-M", model, images_np, images, dev, card, "[8]",
+                          decode_tol=DECODE_TOL_M)
+    time_serve(model, "YOLOv6-M", images, dev, card, "[8]", profile_tag="[8]")
+    del model
+
+    # ---- 9. M's training step (TAL with DFL, then ATSS), the fold and the folded serve
+    greedy_nms.launches = 0
+    step = train_phase(cfgs["m"], "YOLOv6-M", dev, card, "[9]", TRAIN["timed_steps"],
+                       atss_steps=ATSS_STEPS)
+    train_m_launches = greedy_nms.launches
+    fold_m_launches = fold_and_serve_phase(cfgs["m"], "YOLOv6-M", step, images, dev, card, "[9]")
+    del step
+
+    # ---- 10. YOLOv6-L: bf16 serve through the kernel, then 3 + 5 train steps
+    model = deploy_model(cfgs["l"], 2, dev)
+    serve_l_launches = time_serve(model, "YOLOv6-L", images, dev, card, "[10]")
+    del model
+    greedy_nms.launches = 0
+    step = train_phase(cfgs["l"], "YOLOv6-L", dev, card, "[10]", L_TIMED_STEPS, profile=False)
+    train_l_launches = greedy_nms.launches
+    del step
 
     kernels = [{
         "name": "greedy_nms",
         "route": "cuda",
         "source": "yolov6_tpu_torch/ops/cuda/csrc/nms_kernel.cu",
         "replaces": "yolov6_tpu/ops/pallas/nms_kernel.py:27",
-        "launches": main_launches,
-        "launches_by_path": {"serve": main_launches, "train": train_launches,
-                             "serve_folded_trained": fold_launches},
+        "launches": main["launches"],
+        "launches_by_path": {"serve": main["launches"], "train": train_launches,
+                             "serve_folded_trained": fold_launches,
+                             "serve_m": m_serve["launches"], "train_m": train_m_launches,
+                             "serve_m_folded_trained": fold_m_launches,
+                             "serve_l": serve_l_launches, "train_l": train_l_launches},
         "matches_plain": True,
-        "max_abs_err": max_abs_err,
-        "path": main_path[0],
-        "tiles_visited": main_tiles,
-        "ms": main_ms,
-        "call_ms": main_call_ms,
-        "plain_ms": main_plain_ms,
-        "bound_ms": main_bound,
-        "bound_by": main_by,
-        "any_order_bound_ms": any_bound,
+        "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"]),
+        "path": main["path"],
+        "tiles_visited": main["tiles_visited"],
+        "ms": main["ms"],
+        "call_ms": main["call_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "any_order_bound_ms": main["any_order_bound_ms"],
         "library_ms": None,
-        "shape": f"B={BATCH} K={nms_boxes.shape[1]} max_det={md}",
+        "shape": f"B={BATCH} K={main['K']} max_det={main['max_det']}",
         "shapes": {name: dict(B=B, K=K, max_det=m, **keep_rows[name])
                    for name, B, K, m, _ in KEEP_SHAPES},
+        "on_m_candidates": {k: m_serve[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "any_order_bound_ms",
+            "tiles_visited", "K", "max_det")},
     }]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

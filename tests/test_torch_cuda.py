@@ -1,6 +1,7 @@
-"""The port on the card: its CUDA kernels, and its training step against the
-same step on the CPU. Every test here needs an NVIDIA GPU and skips without
-one; none imports JAX, so they run where JAX is absent:
+"""The port on the card: its CUDA kernels, its DFL decode and ATSS assigner,
+and its training steps (S, and M with DFL) against the same on the CPU.
+Every test here needs an NVIDIA GPU and skips without one; none imports JAX,
+so they run where JAX is absent:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -11,13 +12,18 @@ import numpy as np
 import pytest
 import torch
 
+from yolov6_tpu_torch.assigners.anchor_generator import generate_anchors
+from yolov6_tpu_torch.assigners.atss_assigner import atss_assigner
 from yolov6_tpu_torch.core.train_step import make_train_step
 from yolov6_tpu_torch.losses.loss import ComputeLoss
+from yolov6_tpu_torch.models.effidehead import decode_eval
 from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.ops.cuda.nms_kernel import MAX_K, TILE, greedy_nms, greedy_nms_plain
 from yolov6_tpu_torch.utils.config import Config
 
-from torch_port_utils import clustered_candidates, small_s_config
+from torch_port_utils import (
+    clustered_candidates, edge_centred_targets, small_m_config, small_s_config,
+)
 
 
 @pytest.fixture
@@ -113,10 +119,11 @@ def test_kernel_wrapper_rejects(cuda_device, bad):
         greedy_nms(boxes, scores, max_det, 0.5)
 
 
-@pytest.mark.cuda
-def test_fp32_train_step_matches_cpu(cuda_device):
-    """Two fp32 steps (TF32 off) of the small S graph on the card and on the
-    CPU from the same weights and data, at epoch 1 of 10 with the step
+def _fp32_step_on_card_and_cpu(make_cfg, loss_kw, spread_head=False):
+    """Two fp32 steps (TF32 off) of a small train graph on the card and on
+    the CPU from the same weights and data (``spread_head``: the head's
+    prediction convs, zero at init, drawn N(0, 0.01²) so that gradients reach
+    the backbone), at epoch 1 of 10 with the step
     counter past the warmup (batch_size 32: hold, then apply at the full
     weight LR): finite, the losses equal at rtol 1e-3, and after the applied
     step each parameter's change and each momentum buffer within 1e-3 of the
@@ -124,8 +131,13 @@ def test_fp32_train_step_matches_cpu(cuda_device):
     the change (1e-6 for the momentum), far below the decay's share, and 2
     ulp of the leaf's largest parameter for the change, read off fp32."""
     torch.manual_seed(0)
-    cpu_model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cpu")
-    cuda_model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cuda")
+    cpu_model = build_model(make_cfg(Config), num_classes=3, deploy=False, device="cpu")
+    if spread_head:
+        with torch.no_grad():
+            for name, p in cpu_model.named_parameters():
+                if "_preds." in name and name.endswith(".weight"):
+                    p.normal_(0.0, 0.01)
+    cuda_model = build_model(make_cfg(Config), num_classes=3, deploy=False, device="cuda")
     cuda_model.load_state_dict(cpu_model.state_dict())
     before = {k: v.detach().clone() for k, v in cpu_model.named_parameters()}
     rng = np.random.default_rng(0)
@@ -136,7 +148,6 @@ def test_fp32_train_step_matches_cpu(cuda_device):
     targets[1, :1] = [[1, 0.4, 0.6, 0.6, 0.5]]
     solver = dict(lr0=0.01, lrf=0.01, momentum=0.937, weight_decay=0.0005,
                   warmup_momentum=0.8, warmup_bias_lr=0.1)
-    loss_kw = dict(num_classes=3, ori_img_size=64, warmup_epoch=0, use_dfl=False, reg_max=0)
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -164,3 +175,62 @@ def test_fp32_train_step_matches_cpu(cuda_device):
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
             assert err <= 1e-3 * scale + floor, (name, what, err, scale)
+    return steps
+
+
+@pytest.mark.cuda
+def test_fp32_train_step_matches_cpu(cuda_device):
+    """Small S, TAL without DFL (``_fp32_step_on_card_and_cpu``)."""
+    _fp32_step_on_card_and_cpu(small_s_config, dict(num_classes=3, ori_img_size=64,
+                                                    warmup_epoch=0, use_dfl=False, reg_max=0))
+
+
+@pytest.mark.cuda
+def test_fp32_train_step_small_m_dfl_matches_cpu(cuda_device):
+    """Small M (BottleRep alphas, the CSP neck), TAL with DFL, as M trains
+    (``_fp32_step_on_card_and_cpu`` with the head spread); the alphas get a
+    gradient."""
+    steps = _fp32_step_on_card_and_cpu(small_m_config, dict(
+        num_classes=3, ori_img_size=64, warmup_epoch=0, use_dfl=True, reg_max=16),
+        spread_head=True)
+    alphas = [n for n in steps["cuda"].param_names if n.endswith(".alpha")]
+    assert len(alphas) == 8
+    assert all(float(steps["cuda"].momentum[n].abs().max()) > 0 for n in alphas)
+
+
+@pytest.mark.cuda
+def test_dfl_decode_on_card_matches_cpu(cuda_device):
+    """The DFL decode of seeded head maps (b2@640 shapes, 80 classes) on the
+    card and the CPU: boxes within rtol 1e-5 / atol 1e-3 px (softmax and a
+    17-term expectation in another order), scores within 1e-6."""
+    rng = np.random.default_rng(1)
+    feats = [(80, 80), (40, 40), (20, 20)]
+    maps = {"cls": [rng.standard_normal((2, 80, h, w)).astype(np.float32) for h, w in feats],
+            "reg": [(rng.standard_normal((2, 68, h, w)) * 2).astype(np.float32)
+                    for h, w in feats]}
+    want, got = (decode_eval({k: [torch.from_numpy(a).to(dev) for a in v] for k, v in maps.items()},
+                             80, (8, 16, 32), use_dfl=True, reg_max=16).cpu()
+                 for dev in ("cpu", cuda_device))
+    assert got.shape == (2, 8400, 85)
+    torch.testing.assert_close(got[..., :4], want[..., :4], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(got[..., 4:], want[..., 4:], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_atss_assigner_on_card_matches_cpu(cuda_device):
+    """ATSS at 8400 anchors on the card and the CPU, GT centres on cell
+    edges (exact distance ties): fg_mask, labels and target boxes exactly
+    equal, soft target scores within rtol 1e-5 / atol 1e-6."""
+    targets, gt_bboxes, mask_gt = edge_centred_targets(640, 4, 6, 16, 80, seed=2)
+    feats = [(80, 80), (40, 40), (20, 20)]
+    out = []
+    for dev in ("cpu", cuda_device):
+        anchors, pts, n_level, _ = generate_anchors(feats, (8, 16, 32), device=dev)
+        pd = torch.cat([pts - 20.0, pts + 30.0], -1)[None].repeat(4, 1, 1)
+        args = [torch.from_numpy(a).to(dev) for a in (targets[..., :1], gt_bboxes, mask_gt)]
+        out.append([t.cpu() for t in atss_assigner(anchors, n_level, *args, pd, topk=9,
+                                                   num_classes=80)])
+    (lab_c, box_c, sc_c, fg_c), (lab_g, box_g, sc_g, fg_g) = out
+    assert fg_c.any()
+    assert torch.equal(fg_g, fg_c) and torch.equal(lab_g, lab_c) and torch.equal(box_g, box_c)
+    torch.testing.assert_close(sc_g, sc_c, rtol=1e-5, atol=1e-6)

@@ -232,12 +232,3 @@ def test_compute_loss_and_grads_match_jax(iou_type):
     for g, w in ((s.grad, grads_j[0]), (d.grad, grads_j[1])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-7)
 
-
-def test_compute_loss_refuses_atss_and_dfl():
-    """ATSS and DFL belong to the M/L slice; nothing stands in for them."""
-    with pytest.raises(NotImplementedError, match="DF"):
-        ComputeLoss(num_classes=NC, use_dfl=True, reg_max=16)
-    loss = ComputeLoss(**LOSS_KW)
-    scores, distri = _predictions()
-    with pytest.raises(NotImplementedError, match="ATSS"):
-        loss(FEATS, _t(scores), _t(distri), _t(_targets()), IMG, IMG, True)

@@ -26,7 +26,7 @@ from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.ema import ema_update
 from yolov6_tpu_torch.utils.weights import state_dict_from_jax
 
-from torch_port_utils import small_s_config
+from torch_port_utils import small_m_config, small_s_config
 
 TOL = dict(rtol=1e-6, atol=1e-9)
 S_SOLVER = dict(lr0=0.01, lrf=0.01, epochs=300, warmup_bias_lr=0.1, warmup_momentum=0.8,
@@ -60,25 +60,41 @@ def test_warmup_accumulate_matches_jax(batch_size, warmup_stepnum):
         assert got[1] == 2 and got[3] == 2 and got[6] == 4 and got[20] == 4
 
 
-def test_param_groups_match_jax():
-    """Group by module type, as upstream: BN gammas (``rbr_identity.weight``
-    among them) undecayed, conv and transpose weights decayed, every bias on
-    the warmup bias LR; the same split as the JAX groups by leaf name."""
-    jmodel = jax_build_model(small_s_config(JaxConfig), num_classes=3, deploy=False)
+def _jax_group_ids(make_cfg):
+    """The JAX ``build_param_groups`` of a small train graph, as port keys."""
+    jmodel = jax_build_model(make_cfg(JaxConfig), num_classes=3, deploy=False)
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False))
     jgroups = jbuild.build_param_groups(shapes["params"])
     # carry the group ids across as the leaves' values, at the leaves' shapes
     filled = jax.tree_util.tree_map(lambda g, leaf: np.full(leaf.shape, g, np.float32),
                                     jgroups, shapes["params"])
-    want = {k: int(v.flatten()[0]) for k, v in state_dict_from_jax({"params": filled}).items()
+    return {k: int(v.flatten()[0]) for k, v in state_dict_from_jax({"params": filled}).items()
             if not k.endswith("num_batches_tracked")}
+
+
+def test_param_groups_match_jax():
+    """Group by module type, as upstream: BN gammas (``rbr_identity.weight``
+    among them) undecayed, conv and transpose weights decayed, every bias on
+    the warmup bias LR; the same split as the JAX groups by leaf name."""
+    want = _jax_group_ids(small_s_config)
     model = build_model(small_s_config(Config), num_classes=3, deploy=False, device="cpu")
     got = tbuild.param_groups(model)
     assert got == want
     assert got["backbone.ERBlock_2.1.conv1.rbr_identity.weight"] == tbuild.GROUP_BN
     assert got["neck.Bifusion0.upsample.upsample_transpose.weight"] == tbuild.GROUP_WEIGHT
     assert got["detect.cls_preds.0.bias"] == tbuild.GROUP_BIAS
+
+
+def test_param_groups_of_alphas_match_jax():
+    """Small M: every BottleRep ``alpha`` in the bias group (no decay, the
+    warmup bias LR), as the JAX step puts it; the other leaves as in S."""
+    want = _jax_group_ids(small_m_config)
+    model = build_model(small_m_config(Config), num_classes=3, deploy=False, device="cpu")
+    got = tbuild.param_groups(model)
+    assert got == want
+    alphas = [k for k in got if k.endswith(".alpha")]
+    assert len(alphas) == 8 and {got[k] for k in alphas} == {tbuild.GROUP_BIAS}
 
 
 def _seeded_tree(seed):

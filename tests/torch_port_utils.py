@@ -2,20 +2,41 @@
 so the tests that need the card can use it where JAX is absent."""
 
 import os
+import types
 
 import numpy as np
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6s.py")
+M_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6m.py")
+L_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6l.py")
+REPLAY_CHUNK = 1000  # equations a compiled piece of ``jax_in_float64``
+
+
+def _small(config_cls, path):
+    cfg = config_cls.fromfile(path)
+    cfg.model.depth_multiple = 0.1
+    cfg.model.width_multiple = 0.125
+    return cfg
 
 
 def small_s_config(config_cls):
     """configs/yolov6s.py cut to test size: depth 0.1, width 0.125. It keeps
     every block of the S graph, and stage 4's RepBlock keeps 2 blocks."""
-    cfg = config_cls.fromfile(S_CONFIG)
-    cfg.model.depth_multiple = 0.1
-    cfg.model.width_multiple = 0.125
-    return cfg
+    return _small(config_cls, S_CONFIG)
+
+
+def small_m_config(config_cls):
+    """configs/yolov6m.py cut as S is: depth 0.1, width 0.125. Every BepC3
+    keeps one BottleRep (stage 4's n is 2), of RepVGG blocks, with its
+    alpha; SimSPPF, the CSP neck and the DFL head (reg_max 16) stay."""
+    return _small(config_cls, M_CONFIG)
+
+
+def small_l_config(config_cls):
+    """configs/yolov6l.py cut as S is: the M graph of ``conv_silu`` blocks
+    (ConvBNSiLU in place of RepVGG, BepC3's 1x1s SiLU) ending in SPPF."""
+    return _small(config_cls, L_CONFIG)
 
 
 def random_jax_variables(shapes, seed: int):
@@ -27,7 +48,8 @@ def random_jax_variables(shapes, seed: int):
     model, get small weights; their biases are spread so scores differ per
     class and box distances stay positive. BN gammas (train variables) lie
     in [0.4, 0.8] and running variances in [0.5, 1.5], so that eval-mode
-    activations also stay O(1) through RepVGG's three summed branches."""
+    activations also stay O(1) through RepVGG's three summed branches.
+    BottleRep alphas lie in [0.5, 1.5]."""
     import jax
 
     rng = np.random.default_rng(seed)
@@ -44,7 +66,7 @@ def random_jax_variables(shapes, seed: int):
             return (rng.standard_normal(shape) * std).astype(np.float32)
         if names[-1] == "scale":
             return rng.uniform(0.4, 0.8, shape).astype(np.float32)
-        if names[-1] == "var":
+        if names[-1] in ("var", "alpha"):
             return rng.uniform(0.5, 1.5, shape).astype(np.float32)
         if owner.startswith("cls_preds"):
             return rng.uniform(-4.0, 1.0, shape).astype(np.float32)
@@ -53,6 +75,113 @@ def random_jax_variables(shapes, seed: int):
         return rng.uniform(-0.1, 0.1, shape).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_in_float64(fn):
+    """``fn``, a JAX function of array pytrees, evaluated in float64: its
+    jaxpr, traced as written (float32), is replayed under x64 with every
+    float32 input, constant, literal, cast and result type raised to
+    float64. The JAX package fixes float32 in its modules (the ``dtype``
+    fields, the BN's casts), so ``jax.enable_x64`` alone leaves its
+    arithmetic in float32; this replay runs the package's own operations,
+    in its own order, at double precision. Returns a function of the same
+    arguments whose float outputs are float64. The jaxpr is compiled in
+    chunks of ``REPLAY_CHUNK`` equations: XLA's CPU compile time grows
+    faster than the program: the M train step's 17k equations took about
+    280 s to compile whole on one CPU core, about 90 s in chunks."""
+    import jax
+    import jax.numpy as jnp
+    from jax.extend.core import Literal
+
+    f32 = np.dtype(np.float32)
+
+    def widen(x):
+        return x.astype(jnp.float64) if x.dtype == f32 else x
+
+    def widen_param(p):
+        return np.dtype(np.float64) if isinstance(p, np.dtype) and p == f32 else p
+
+    def literal(v):
+        return np.float64(v.val) if v.aval.dtype == f32 else v.val
+
+    def replay(jaxpr, consts, args):
+        env = {}
+
+        def read(v):
+            return literal(v) if isinstance(v, Literal) else env[v]
+
+        env.update(zip(jaxpr.constvars, map(widen, map(jnp.asarray, consts))))
+        env.update(zip(jaxpr.invars, map(widen, args)))
+        for eqn in jaxpr.eqns:
+            ins = [read(v) for v in eqn.invars]
+            if eqn.primitive.name in ("jit", "custom_jvp_call"):
+                inner = eqn.params.get("jaxpr") or eqn.params["call_jaxpr"]
+                outs = replay(inner.jaxpr, inner.consts, ins)
+            else:
+                params = {k: widen_param(p) for k, p in eqn.params.items()}
+                if params.get("update_jaxpr") is not None:  # a scatter's combiner
+                    update = params["update_jaxpr"]
+                    params["update_jaxpr"] = jax.make_jaxpr(
+                        lambda *a, u=update: replay(u, params["update_consts"], a))(
+                        *[jax.ShapeDtypeStruct(v.aval.shape, widen_param(v.aval.dtype))
+                          for v in update.invars]).jaxpr
+                outs = eqn.primitive.bind(*ins, **params)
+                outs = outs if eqn.primitive.multiple_results else [outs]
+            env.update(zip(eqn.outvars, outs))
+        return [read(v) for v in jaxpr.outvars]
+
+    def run(*args):
+        closed, out_shape = jax.make_jaxpr(fn, return_shape=True)(*args)
+        jaxpr, eqns = closed.jaxpr, closed.jaxpr.eqns
+        bounds = range(0, len(eqns), REPLAY_CHUNK)
+        # the variables read after each chunk: what it must hand on
+        needed = {v for v in jaxpr.outvars if not isinstance(v, Literal)}
+        after = []
+        for lo in reversed(bounds):
+            after.append(set(needed))
+            needed.update(v for e in eqns[lo:lo + REPLAY_CHUNK] for v in e.invars
+                          if not isinstance(v, Literal))
+        after.reverse()
+        with jax.enable_x64(True):
+            env = dict(zip(jaxpr.constvars, map(widen, map(jnp.asarray, closed.consts))))
+            env.update(zip(jaxpr.invars,
+                           map(widen, map(jnp.asarray, jax.tree_util.tree_leaves(args)))))
+            for lo, later in zip(bounds, after):
+                part = eqns[lo:lo + REPLAY_CHUNK]
+                made = [v for e in part for v in e.outvars]
+                made_set = set(made)
+                ins = list(dict.fromkeys(v for e in part for v in e.invars
+                                         if not isinstance(v, Literal) and v not in made_set))
+                sub = types.SimpleNamespace(constvars=[], invars=ins, eqns=part,
+                                            outvars=[v for v in made if v in later])
+                outs = jax.jit(lambda a, sub=sub: replay(sub, [], a))([env[v] for v in ins])
+                env.update(zip(sub.outvars, outs))
+            outs = [literal(v) if isinstance(v, Literal) else env[v] for v in jaxpr.outvars]
+        return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(out_shape), outs)
+
+    return run
+
+
+def edge_centred_targets(img, n_img, n_box, max_labels, num_classes, seed):
+    """Padded targets ``[n_img, max_labels, 5]`` (image b has ``n_box - b``
+    boxes) whose centres lie on cell edges of every level (multiples of 32
+    px, or of 8 in a 64 image) with sizes of whole pixels, so that GT-anchor
+    distances tie exactly; with the image-pixel xyxy GT boxes and the GT
+    mask, as ComputeLoss derives them."""
+    rng = np.random.default_rng(seed)
+    step = 8 if img == 64 else 32
+    t = np.zeros((n_img, max_labels, 5), np.float32)
+    t[:, :, 0] = -1
+    for b in range(n_img):
+        for j in range(n_box - b):
+            cx, cy = rng.integers(1, img // step, 2) * step
+            w, h = rng.integers(2, img // 8, 2) * 4
+            t[b, j] = [rng.integers(0, num_classes), cx / img, cy / img, w / img, h / img]
+    xywh = t[..., 1:5] * np.float32(img)
+    gt_bboxes = np.concatenate([xywh[..., :2] - xywh[..., 2:] / 2,
+                                xywh[..., :2] + xywh[..., 2:] / 2], -1).astype(np.float32)
+    mask_gt = (gt_bboxes.sum(-1, keepdims=True) > 0).astype(np.float32)
+    return t, gt_bboxes, mask_gt
 
 
 def clustered_candidates(seed, B, K, n_clusters=12, n_cls=3, zero_area=0):

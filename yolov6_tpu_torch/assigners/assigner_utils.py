@@ -1,5 +1,5 @@
 """Shared assigner ops at fixed shapes (port of
-yolov6_tpu/assigners/assigner_utils.py:30-95).
+yolov6_tpu/assigners/assigner_utils.py:14-95).
 
 Padded GT rows are masked arithmetically, with no boolean gathers, so every
 shape is known before the data is.
@@ -9,6 +9,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def dist_calculator(gt_bboxes: torch.Tensor, anchor_bboxes: torch.Tensor):
+    """Centre distances of [G, 4] GT boxes and [A, 4] anchor boxes, xyxy ->
+    (distances [G, A], anchor centres [A, 2])."""
+    gt_points = torch.stack([(gt_bboxes[:, 0] + gt_bboxes[:, 2]) / 2.0,
+                             (gt_bboxes[:, 1] + gt_bboxes[:, 3]) / 2.0], 1)
+    ac_points = torch.stack([(anchor_bboxes[:, 0] + anchor_bboxes[:, 2]) / 2.0,
+                             (anchor_bboxes[:, 1] + anchor_bboxes[:, 3]) / 2.0], 1)
+    distances = ((gt_points[:, None, :] - ac_points[None, :, :]) ** 2).sum(-1).sqrt()
+    return distances, ac_points
 
 
 def select_candidates_in_gts(xy_centers: torch.Tensor, gt_bboxes: torch.Tensor,

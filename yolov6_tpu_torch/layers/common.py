@@ -6,7 +6,8 @@ the JAX parameter paths (utils/weights.py). Every block takes ``deploy``:
 ``True`` (the default) builds the deploy form, each conv carrying its folded
 BN as a bias; ``False`` builds the train form, conv without bias + BatchNorm,
 and RepVGGBlock's three branches. layers/reparam.py folds the second into the
-first. The other block families are not ported yet.
+first. Ported: the blocks of the P5 EfficientRep/CSPBep graphs (N/S/M/L);
+the QARepVGG, RepOpt, MBLA and lite families are not.
 """
 
 from __future__ import annotations
@@ -74,24 +75,44 @@ def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.max_pool2d(x, k, stride=1, padding=k // 2)
 
 
-class CSPSPPFModule(nn.Module):
-    """CSP-wrapped SPPF with 5x5 pools and ReLU blocks, hidden width
-    ``out_channels // 2`` (JAX: common.py:313-339)."""
+class SPPFModule(nn.Module):
+    """Serial 5x5 max-pool pyramid, hidden width ``in_channels // 2`` (JAX:
+    common.py:265-282)."""
 
-    def __init__(self, in_channels: int, out_channels: int, deploy: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, block=ConvBNReLU,
+                 deploy: bool = True):
+        super().__init__()
+        c_ = in_channels // 2
+        self.cv1 = block(in_channels, c_, 1, 1, deploy=deploy)
+        self.cv2 = block(4 * c_, out_channels, 1, 1, deploy=deploy)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = max_pool_same(x, 5)
+        y2 = max_pool_same(y1, 5)
+        y3 = max_pool_same(y2, 5)
+        return self.cv2(torch.cat([x, y1, y2, y3], 1))
+
+
+class CSPSPPFModule(nn.Module):
+    """CSP-wrapped SPPF with 5x5 pools, hidden width ``out_channels // 2``
+    (JAX: common.py:313-339)."""
+
+    def __init__(self, in_channels: int, out_channels: int, block=ConvBNReLU,
+                 deploy: bool = True):
         super().__init__()
         c_ = out_channels // 2
 
-        def block(cin, cout, k):
-            return ConvBNReLU(cin, cout, k, 1, deploy=deploy)
+        def conv(cin, cout, k):
+            return block(cin, cout, k, 1, deploy=deploy)
 
-        self.cv1 = block(in_channels, c_, 1)
-        self.cv2 = block(in_channels, c_, 1)
-        self.cv3 = block(c_, c_, 3)
-        self.cv4 = block(c_, c_, 1)
-        self.cv5 = block(4 * c_, c_, 1)
-        self.cv6 = block(c_, c_, 3)
-        self.cv7 = block(2 * c_, out_channels, 1)
+        self.cv1 = conv(in_channels, c_, 1)
+        self.cv2 = conv(in_channels, c_, 1)
+        self.cv3 = conv(c_, c_, 3)
+        self.cv4 = conv(c_, c_, 1)
+        self.cv5 = conv(4 * c_, c_, 1)
+        self.cv6 = conv(c_, c_, 3)
+        self.cv7 = conv(2 * c_, out_channels, 1)
 
     def forward(self, x):
         x1 = self.cv4(self.cv3(self.cv1(x)))
@@ -103,15 +124,50 @@ class CSPSPPFModule(nn.Module):
         return self.cv7(torch.cat([y0, y3], 1))
 
 
-class SimCSPSPPF(nn.Module):
-    """CSPSPPF with ReLU (JAX: common.py:342-354)."""
+class SimSPPF(nn.Module):
+    """SPPF with ReLU (JAX: common.py:285-296)."""
+
+    block = ConvBNReLU
 
     def __init__(self, in_channels: int, out_channels: int, deploy: bool = True):
         super().__init__()
-        self.cspsppf = CSPSPPFModule(in_channels, out_channels, deploy)
+        self.sppf = SPPFModule(in_channels, out_channels, self.block, deploy)
+
+    def forward(self, x):
+        return self.sppf(x)
+
+
+class SPPF(SimSPPF):
+    """SPPF with SiLU (JAX: common.py:299-310)."""
+
+    block = ConvBNSiLU
+
+
+class SimCSPSPPF(nn.Module):
+    """CSPSPPF with ReLU (JAX: common.py:342-354)."""
+
+    block = ConvBNReLU
+
+    def __init__(self, in_channels: int, out_channels: int, deploy: bool = True):
+        super().__init__()
+        self.cspsppf = CSPSPPFModule(in_channels, out_channels, self.block, deploy)
 
     def forward(self, x):
         return self.cspsppf(x)
+
+
+class CSPSPPF(SimCSPSPPF):
+    """CSPSPPF with SiLU (JAX: common.py:358-369)."""
+
+    block = ConvBNSiLU
+
+
+def sppf_cls(block, cspsppf: bool):
+    """The stage-5 layer of the P5 backbones (JAX: efficientrep.py:32-36):
+    SiLU variants after ``ConvBNSiLU`` blocks, ReLU ones otherwise."""
+    if cspsppf:
+        return CSPSPPF if block is ConvBNSiLU else SimCSPSPPF
+    return SPPF if block is ConvBNSiLU else SimSPPF
 
 
 class Transpose(nn.Module):
@@ -156,21 +212,89 @@ class RepVGGBlock(nn.Module):
         return F.relu(y)
 
 
+class BottleRep(nn.Module):
+    """Two ``basic_block``s and a residual (JAX: common.py:697-717). With
+    ``weight`` the residual is scaled by a learnable ``alpha`` of shape (1,),
+    initialised to 1; the residual exists only when in == out."""
+
+    def __init__(self, in_channels: int, out_channels: int, basic_block=RepVGGBlock,
+                 weight: bool = False, deploy: bool = True):
+        super().__init__()
+        self.conv1 = basic_block(in_channels, out_channels, deploy=deploy)
+        self.conv2 = basic_block(out_channels, out_channels, deploy=deploy)
+        self.shortcut = in_channels == out_channels
+        self.alpha = nn.Parameter(torch.ones(1)) if self.shortcut and weight else None
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        if not self.shortcut:
+            return y
+        return y + (x if self.alpha is None else self.alpha.to(x.dtype) * x)
+
+
 class RepBlock(nn.Module):
-    """Stage block: n sequential rep blocks (JAX: common.py:744-773)."""
+    """Stage block: n sequential rep blocks (JAX: common.py:744-773). With
+    ``block=BottleRep`` it holds ``max(n // 2, 1)`` BottleReps of
+    ``basic_block``, each with its ``alpha``."""
 
     def __init__(self, in_channels: int, out_channels: int, n: int = 1,
-                 block=RepVGGBlock, deploy: bool = True):
+                 block=RepVGGBlock, basic_block=RepVGGBlock, deploy: bool = True):
         super().__init__()
-        self.conv1 = block(in_channels, out_channels, deploy=deploy)
-        self.block = nn.ModuleList(block(out_channels, out_channels, deploy=deploy)
-                                   for _ in range(n - 1))
+        if block is BottleRep:
+            def make(cin):
+                return BottleRep(cin, out_channels, basic_block, weight=True, deploy=deploy)
+            n_more = n // 2 - 1
+        else:
+            def make(cin):
+                return block(cin, out_channels, deploy=deploy)
+            n_more = n - 1
+        self.conv1 = make(in_channels)
+        self.block = nn.ModuleList(make(out_channels) for _ in range(n_more))
 
     def forward(self, x):
         x = self.conv1(x)
         for b in self.block:
             x = b(x)
         return x
+
+
+class BepC3(nn.Module):
+    """CSP stack of BottleReps (JAX: common.py:776-799): ``cv1`` -> ``m`` (a
+    RepBlock of BottleReps of ``block``) beside ``cv2``, concatenated, then
+    ``cv3``; hidden width ``int(out_channels * e)``. The 1x1 convs are
+    ``ConvBNSiLU`` when ``block`` is, else ``ConvBNReLU``."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1, e: float = 0.5,
+                 block=RepVGGBlock, deploy: bool = True):
+        super().__init__()
+        c_ = int(out_channels * e)
+        wrapper = ConvBNSiLU if block is ConvBNSiLU else ConvBNReLU
+        self.cv1 = wrapper(in_channels, c_, 1, 1, deploy=deploy)
+        self.m = RepBlock(c_, c_, n, BottleRep, block, deploy=deploy)
+        self.cv2 = wrapper(in_channels, c_, 1, 1, deploy=deploy)
+        self.cv3 = wrapper(2 * c_, out_channels, 1, 1, deploy=deploy)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+def stage_factory(csp: bool, block, csp_e: float = 0.5, stage_block_type: str = "BepC3",
+                  deploy: bool = True):
+    """The stage block of the rep backbones and necks (JAX: reppan.py:36-56):
+    ``RepBlock`` of ``block``, or with ``csp`` the CSP stage block with its
+    ``(n, e)``. Returns ``make(in_channels, out_channels, n)``."""
+    if csp and stage_block_type != "BepC3":
+        if stage_block_type == "MBLABlock":
+            raise NotImplementedError("the MBLABlock stage (configs/mbla/) is not ported: it "
+                                      "waits for the MBLA slice of the port")
+        raise ValueError(f"unknown stage_block_type {stage_block_type!r}")
+
+    def make(in_channels: int, out_channels: int, n: int) -> nn.Module:
+        if csp:
+            return BepC3(in_channels, out_channels, n, csp_e, block, deploy=deploy)
+        return RepBlock(in_channels, out_channels, n, block, deploy=deploy)
+
+    return make
 
 
 class BiFusion(nn.Module):
@@ -196,8 +320,12 @@ class BiFusion(nn.Module):
 
 
 def get_block(mode: str):
-    """training_mode string -> block class (JAX: common.py:1014-1027)."""
-    table = {"repvgg": RepVGGBlock}
+    """training_mode string -> block class (JAX: common.py:1014-1027). The
+    ``ConvBN*`` blocks take ``block(in, out)`` as RepVGGBlock does: kernel 3,
+    stride 1."""
+    table = {"repvgg": RepVGGBlock, "conv_relu": ConvBNReLU, "conv_silu": ConvBNSiLU}
     if mode not in table:
-        raise NotImplementedError(f"rep-block mode {mode!r} is not ported yet")
+        raise NotImplementedError(
+            f"rep-block mode {mode!r} is not ported (the port has {sorted(table)}; "
+            "QARepVGG, RepOpt and the hyper-search blocks are not)")
     return table[mode]

@@ -1,6 +1,6 @@
-"""Efficient decoupled head, anchor-free, without DFL
+"""Efficient decoupled head, anchor-free, with or without DFL
 (port of yolov6_tpu/models/effidehead.py:31-125): the head, the train-branch
-flattening and the eval decode."""
+flattening, the DFL projection and the eval decode."""
 
 from __future__ import annotations
 
@@ -20,8 +20,11 @@ PRIOR_PROB = 1e-2
 class Detect(nn.Module):
     """Decoupled head over the neck's levels (JAX: effidehead.py:31-75).
 
-    ``forward`` returns ``{"cls": [b, nc, h, w] logits, "reg": [b, 4, h, w]}``
-    per level, in NCHW. ``deploy=False`` gives the stems and convs their BN."""
+    ``forward`` returns ``{"cls": [b, nc, h, w] logits, "reg": [b, 4 *
+    (reg_max + 1), h, w]}`` per level, in NCHW: ltrb distances when
+    ``reg_max`` is 0, else a DFL distribution of ``reg_max + 1`` bins a side,
+    channel ``side * (reg_max + 1) + bin`` as in the JAX package's last axis.
+    ``deploy=False`` gives the stems and convs their BN."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
                  num_anchors: int = 1, reg_max: int = 0, deploy: bool = True):
@@ -62,21 +65,35 @@ def _flatten_nhwc(m: torch.Tensor) -> torch.Tensor:
 
 def flatten_head_outputs(outputs: dict):
     """Train branch (JAX: effidehead.py:78-83): sigmoid class scores
-    ``[b, A, nc]`` and raw box distances ``[b, A, 4]``, fp32, the levels
+    ``[b, A, nc]`` and the raw box regression ``[b, A, 4 * (reg_max + 1)]``
+    (distances, or the DFL logits for the loss), fp32, the levels
     concatenated in row-major (h, w) anchor order."""
     cls_scores = torch.cat([torch.sigmoid(_flatten_nhwc(c)) for c in outputs["cls"]], 1)
     reg_dists = torch.cat([_flatten_nhwc(r) for r in outputs["reg"]], 1)
     return cls_scores, reg_dists
 
 
-def decode_eval(outputs: dict, num_classes: int, strides: Sequence[int]) -> torch.Tensor:
+def dfl_project(reg_out: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """DFL decode (JAX: effidehead.py:86-93): ``[b, A, 4 * (reg_max + 1)]``
+    logits -> ``[b, A, 4]`` distances, the expectation of a softmax over the
+    ``reg_max + 1`` bins of each side, in fp32."""
+    b, a = reg_out.shape[:2]
+    probs = torch.softmax(reg_out.float().reshape(b, a, 4, reg_max + 1), -1)
+    return probs @ torch.arange(reg_max + 1, dtype=torch.float32, device=reg_out.device)
+
+
+def decode_eval(outputs: dict, num_classes: int, strides: Sequence[int], use_dfl: bool = False,
+                reg_max: int = 0) -> torch.Tensor:
     """Eval decode (JAX: effidehead.py:96-125), always in fp32: returns
     ``[b, A, 5+nc]`` rows ``[cx, cy, w, h, 1.0 (obj), class scores...]`` in
-    input-image pixels, anchors level by level in row-major (h, w) order."""
+    input-image pixels, anchors level by level in row-major (h, w) order.
+    ``use_dfl`` projects the distribution to distances first."""
     feats_hw = [tuple(c.shape[2:4]) for c in outputs["cls"]]
     cls_scores, reg_dists = flatten_head_outputs(outputs)
     if cls_scores.shape[-1] != num_classes:
         raise ValueError(f"head has {cls_scores.shape[-1]} classes, expected {num_classes}")
+    if use_dfl:
+        reg_dists = dfl_project(reg_dists, reg_max)
     anchor_points, stride_tensor = generate_anchors(
         feats_hw, strides, is_eval=True, device=cls_scores.device
     )

@@ -1,6 +1,7 @@
-"""Detector assembly (port of yolov6_tpu/models/yolo.py:29-166), P5 non-lite
-rep graph (EfficientRep + RepBiFPANNeck + Detect without DFL), in the deploy
-or the train form."""
+"""Detector assembly (port of yolov6_tpu/models/yolo.py:29-166): the P5
+non-lite graphs (EfficientRep + RepBiFPANNeck for N/S, CSPBepBackbone +
+CSPRepBiFPANNeck for M/L, Detect with or without DFL), in the deploy or the
+train form."""
 
 from __future__ import annotations
 
@@ -25,12 +26,14 @@ class Model(nn.Module):
     """backbone -> neck -> head; ``forward`` returns ``(head_out, neck_feats)``."""
 
     def __init__(self, backbone: nn.Module, neck: nn.Module, detect: Detect,
-                 num_classes: int):
+                 num_classes: int, use_dfl: bool = False, reg_max: int = 0):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.detect = detect
         self.num_classes = num_classes
+        self.use_dfl = use_dfl
+        self.reg_max = reg_max
 
     @property
     def strides(self):
@@ -42,19 +45,26 @@ class Model(nn.Module):
 
     def decode(self, head_out):
         """Raw head maps -> ``[b, A, 5+nc]`` predictions (eval branch)."""
-        return decode_eval(head_out, self.num_classes, self.strides)
+        return decode_eval(head_out, self.num_classes, self.strides, self.use_dfl, self.reg_max)
 
 
 def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda") -> Model:
     """Construct the detector from a config on ``device`` (reference:
     yolo.py:55-138): the deploy graph in eval mode, or with ``deploy=False``
-    the train graph (BN, RepVGG's three branches) in train mode. Raises on
-    parts of the model zoo not ported yet."""
+    the train graph (BN, RepVGG's three branches, BottleRep alphas) in train
+    mode. Raises ``NotImplementedError`` on the parts of the model zoo not
+    ported: P6 heads (``num_layers != 3``), the lite family, MBLA stages and
+    block modes other than ``repvgg``, ``conv_relu`` and ``conv_silu``. The
+    JAX ``build_model``'s fuse-AB and distill heads (its ``fuse_ab`` and
+    ``distill_ns`` flags) have no counterpart here."""
     device = resolve_device(device)
     mcfg = cfg.model
-    if mcfg.head.use_dfl or mcfg.head.num_layers != 3:
+    if mcfg.backbone.type == "Lite_EffiBackbone":
+        raise NotImplementedError("the lite family (Lite_EffiBackbone, DetectLite) is not ported")
+    if mcfg.head.num_layers != 3:
         raise NotImplementedError(
-            "only the 3-level head without DFL is ported; DFL comes with the M/L slice")
+            f"a {mcfg.head.num_layers}-level head (P6) is not ported; the port builds the "
+            "3-level P5 graphs")
     num_repeat = [
         (max(round(i * mcfg.depth_multiple), 1) if i > 1 else i)
         for i in (list(mcfg.backbone.num_repeats) + list(mcfg.neck.num_repeats))
@@ -64,13 +74,17 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda") -> Mo
         for i in (list(mcfg.backbone.out_channels) + list(mcfg.neck.out_channels))
     ]
     block = get_block(cfg.get("training_mode", "repvgg"))
-    backbone = BACKBONES.get(mcfg.backbone.type)(
-        channels_list, num_repeat, block=block,
-        fuse_P2=bool(mcfg.backbone.get("fuse_P2")),
-        cspsppf=bool(mcfg.backbone.get("cspsppf")), deploy=deploy,
-    )
-    neck = NECKS.get(mcfg.neck.type)(channels_list, num_repeat, block=block, deploy=deploy)
+    bb_kwargs = dict(block=block, fuse_P2=bool(mcfg.backbone.get("fuse_P2")),
+                     cspsppf=bool(mcfg.backbone.get("cspsppf")), deploy=deploy)
+    neck_kwargs = dict(block=block, deploy=deploy)
+    if "CSP" in mcfg.backbone.type:
+        stage_block_type = mcfg.backbone.get("stage_block_type", "BepC3")
+        bb_kwargs.update(csp_e=mcfg.backbone.csp_e, stage_block_type=stage_block_type)
+        neck_kwargs.update(csp_e=mcfg.neck.csp_e, stage_block_type=stage_block_type)
+    backbone = BACKBONES.get(mcfg.backbone.type)(channels_list, num_repeat, **bb_kwargs)
+    neck = NECKS.get(mcfg.neck.type)(channels_list, num_repeat, **neck_kwargs)
     detect = Detect((channels_list[6], channels_list[8], channels_list[10]),
                     num_classes=num_classes, reg_max=mcfg.head.reg_max, deploy=deploy)
-    model = Model(backbone, neck, detect, num_classes).to(device)
+    model = Model(backbone, neck, detect, num_classes, bool(mcfg.head.use_dfl),
+                  mcfg.head.reg_max).to(device)
     return model.eval() if deploy else model.train()

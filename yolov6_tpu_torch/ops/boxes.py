@@ -1,4 +1,4 @@
-"""Box geometry (port of yolov6_tpu/ops/boxes.py:16-37, 68-130)."""
+"""Box geometry (port of yolov6_tpu/ops/boxes.py:16-45, 68-130)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,13 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor,
     if box_format == "xywh":
         return torch.cat([(x1y1 + x2y2) * 0.5, x2y2 - x1y1], -1)
     raise ValueError(box_format)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> ltrb distances from the anchor points, clipped to
+    ``[0, reg_max - 0.01]`` (the DFL target)."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
 
 
 def elementwise_box_iou(box1: torch.Tensor, box2: torch.Tensor, iou_type: str = "giou",

@@ -1,8 +1,8 @@
 """Optimizer and LR schedule (port of yolov6_tpu/solver/build.py:22-173).
 
-Three parameter groups as upstream's ``build_optimizer``: BN weights without
-decay, conv and transpose weights with ``weight_decay``, every bias with the
-warmup bias LR. The schedule is a function of device tensors (the step
+Three parameter groups as the JAX package's: BN weights without decay, conv
+and transpose weights with ``weight_decay``, every bias and every BottleRep
+``alpha`` with the warmup bias LR. The schedule is a function of device tensors (the step
 counter), and the update a function over lists of tensors, so that a train
 step needs no value on the host.
 """
@@ -17,18 +17,19 @@ from torch import nn
 
 GROUP_BN = 0      # BatchNorm weights (gammas): no weight decay
 GROUP_WEIGHT = 1  # conv and transposed-conv weights: decayed
-GROUP_BIAS = 2    # biases: no decay, warmup_bias_lr
+GROUP_BIAS = 2    # biases, BottleRep alphas: no decay, warmup_bias_lr
 
 
 def param_groups(model: nn.Module) -> Dict[str, int]:
     """Parameter name -> group id, by the type of the owning module, as
     upstream's ``build_optimizer`` sorts them (JAX: build.py:22-42 sorts the
-    same leaves by name). ``rbr_identity.weight`` is a BN gamma."""
+    same leaves by name). ``rbr_identity.weight`` is a BN gamma. A
+    BottleRep's ``alpha`` joins the biases, as in the JAX step."""
     groups = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
-            if leaf == "bias":
+            if leaf in ("bias", "alpha"):
                 groups[name] = GROUP_BIAS
             elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 groups[name] = GROUP_BN

@@ -27,6 +27,7 @@ def _flatten(tree, prefix=()):
 _LEAF_MAP = {
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",  # BatchNorm gamma
+    ("params", "alpha"): "alpha",  # BottleRep's residual scale
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -43,7 +44,7 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     (in, out, 2, 2), and its bias under ``<module>.upsample_transpose``. BN
     leaves map ``scale``/``bias``/``mean``/``var`` to ``weight``/``bias``/
     ``running_mean``/``running_var``, and each BN gets torch's
-    ``num_batches_tracked``, 0."""
+    ``num_batches_tracked``, 0. A BottleRep's ``alpha`` keeps its name."""
     flat = _flatten({k: dict(v) for k, v in variables.items() if k in ("params", "batch_stats")})
     transposes = {
         path[1:-1]
