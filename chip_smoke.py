@@ -40,7 +40,18 @@ Phases, each of which asserts:
      serve of phase 7;
  10. YOLOv6-L (configs/yolov6l.py, ``conv_silu`` blocks): the deploy graph
      serves b32@640 in bf16 through the kernel (timed), and the train form
-     takes 3 + 5 steps in bf16 with DFL.
+     takes 3 + 5 steps in bf16 with DFL;
+ 11. COCO evaluation: the port's generator writes a synthetic val set of 320
+     PNG images of mixed sizes (80 class names); a mock detector that emits
+     the letterboxed GT boxes must score AP50 > 0.99 and AP > 0.95 through
+     the port's loader, Evaler and evaluator; then the Evaler runs S and M
+     (the deploy models of phases 3 and 8) at b32@640 in bf16 at the eval
+     protocol, and S again with ``infer_on_rect``: one kernel launch per
+     batch, the tile walk in every image of every batch, the kernel's keep
+     equal to the plain emit-once keep on the first batch's candidates, COCO
+     rows found and AP finite in [0, 1]; it logs imgs/s, the per-batch split
+     (loader wait, copy, device, host conversion), the COCO scoring time,
+     ``measure_speed`` and the device's idle share.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 and when there is no CUDA device.
@@ -658,6 +669,227 @@ def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=
     return launches
 
 
+# the eval phase's set: 320 PNG images in four sizes (w, h), so that the
+# loader both shrinks (INTER_AREA, 768x576) and enlarges (INTER_LINEAR, 320x240)
+EVAL_SET = dict(n_val=320, seed=0, sizes=[(640, 480), (480, 640), (768, 576), (320, 240)])
+
+
+def write_eval_set(root: str, card: str) -> dict:
+    """The synthetic val set under ``root``, its data dict naming 80 classes
+    (the generator draws the first 4)."""
+    import glob
+
+    from yolov6_tpu_torch.data.synth_detect import CLASS_NAMES, generate_synth_dataset
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    t0 = time.perf_counter()
+    data = load_data_config(generate_synth_dataset(root, n_train=0, img_size=IMG, **EVAL_SET))
+    secs = time.perf_counter() - t0
+    files = glob.glob(os.path.join(data["val"], "*.png"))
+    nbytes = sum(os.path.getsize(f) for f in files)
+    assert len(files) == EVAL_SET["n_val"]
+    data["nc"] = NUM_CLASSES
+    data["names"] = CLASS_NAMES + [f"class{i}" for i in range(len(CLASS_NAMES), NUM_CLASSES)]
+    log(f"[11] wrote {len(files)} PNG images of (w, h) {EVAL_SET['sizes']}: {nbytes} bytes in "
+        f"{secs:.2f} s (one host thread) [{card}]")
+    return data
+
+
+def perfect_mock_phase(data: dict, dev, card: str) -> None:
+    """tests/test_eval_pipeline.py's perfect mock through the port's loader,
+    Evaler (on the card) and evaluator: detections at the letterboxed GT."""
+    import torch
+
+    from yolov6_tpu_torch.core.evaler import Evaler
+
+    evaler = Evaler(dict(data), batch_size=BATCH, img_size=IMG, device=dev)
+    loader = evaler.init_data(None, "val")
+    current = {}
+
+    class Batches:
+        def __len__(self):
+            return len(loader)
+
+        def __iter__(self):
+            for batch in loader:
+                current["labels"] = batch[1]
+                yield batch
+
+    def mock_infer(imgs):
+        b, h, w, _ = imgs.shape
+        dets = torch.zeros((b, 300, 6), device=imgs.device)
+        valid = torch.zeros((b, 300), dtype=torch.bool, device=imgs.device)
+        for i, lb in enumerate(current["labels"]):
+            lb = torch.from_numpy(lb[lb[:, 0] >= 0]).to(imgs.device)
+            cx, cy, bw, bh = lb[:, 1] * w, lb[:, 2] * h, lb[:, 3] * w, lb[:, 4] * h
+            dets[i, :len(lb)] = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2,
+                                             torch.full_like(cx, 0.9), lb[:, 0]], -1)
+            valid[i, :len(lb)] = True
+        return dets, valid
+
+    evaler._infer = mock_infer
+    rows = evaler.predict_model(None, Batches())
+    ap50, ap = evaler.eval_model(rows, None, loader)
+    log(f"[11] perfect mock through the port's loader, Evaler and evaluator: {len(rows)} rows, "
+        f"AP50 {ap50:.5f}, AP {ap:.5f} (need > 0.99 and > 0.95)")
+    assert ap50 > 0.99 and ap > 0.95, f"perfect mock: AP50 {ap50}, AP {ap}"
+
+
+def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False) -> dict:
+    """``Evaler.init_data``, ``predict_model`` and ``eval_model`` of ``model``
+    at b32@640 in bf16 at the eval protocol (conf 0.03, IoU 0.65,
+    multi-label, max_nms 8192, max_det 300), with the asserts of the module
+    doc; the kernel against the plain emit-once keep on the first batch's
+    candidates (square mode). Returns the numbers."""
+    import torch
+
+    from yolov6_tpu_torch.core.evaler import Evaler
+    from yolov6_tpu_torch.ops import nms as nms_mod
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+
+    tag = "[11]"
+    what = f"{label}{' rect' if rect else ''}"
+    torch.backends.cudnn.allow_tf32 = True
+    evaler = Evaler(dict(data), batch_size=BATCH, img_size=IMG, half=True, infer_on_rect=rect,
+                    device=dev)
+    evaler.init_model(model)
+    t0 = time.perf_counter()
+    loader = evaler.init_data(None, "val")
+    init_s = time.perf_counter() - t0
+
+    # note every launch's path, tiles and K, and every batch shape, of the
+    # counted run
+    walks, shapes_seen = [], []
+    keep, rule = nms_mod._KEEPS[None]
+    infer = evaler._infer
+
+    def recording_keep(boxes, scores, *args, **kwargs):
+        out = keep(boxes, scores, *args, **kwargs)
+        walks.append((greedy_nms.last_path.clone(), greedy_nms.last_tiles.clone(), boxes.shape[1]))
+        return out
+
+    def recording_infer(imgs):
+        shapes_seen.append(tuple(imgs.shape[1:3]))
+        return infer(imgs)
+
+    nms_mod._KEEPS[None] = (recording_keep, rule)
+    evaler._infer = recording_infer
+    try:
+        greedy_nms.launches = 0
+        t0 = time.perf_counter()
+        rows = evaler.predict_model(model, loader)
+        wall = time.perf_counter() - t0
+        launches = greedy_nms.launches
+    finally:
+        nms_mod._KEEPS[None] = (keep, rule)
+        evaler._infer = infer
+    n_img = int(evaler.speed_result[0])
+    n_batches = len(evaler.batch_split)
+    assert n_img == EVAL_SET["n_val"] and n_batches == len(loader)
+    assert launches == n_batches, f"{what}: {launches} kernel launches for {n_batches} batches"
+    paths = torch.cat([p for p, _, _ in walks]).tolist()
+    assert paths == [1] * (n_batches * BATCH), f"{what}: not every image took the tile walk"
+    tiles = float(torch.cat([t for _, t, _ in walks]).float().mean())
+    ks = sorted({k for _, _, k in walks})
+    shapes = sorted(set(shapes_seen))
+    if rect:
+        assert any(s != (IMG, IMG) for s in shapes), f"{what}: only {shapes} reached the kernel"
+    assert len(rows) > 0, f"{what}: no COCO rows"
+
+    t0 = time.perf_counter()
+    ap50, ap = evaler.eval_model(rows, model, loader)
+    score_s = time.perf_counter() - t0
+    assert all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in (ap50, ap)), (ap50, ap)
+
+    split = evaler.batch_split
+    loader_s = sum(r["loader_s"] for r in split)
+    launch_s = sum(r["launch_s"] for r in split)
+    h2d_ms = sum(r["h2d_ms"] for r in split)
+    device_ms = sum(r["device_ms"] for r in split)
+    convert_s = sum(r["convert_s"] for r in split)
+    busy_s = (h2d_ms + device_ms) / 1e3
+    idle = 1.0 - busy_s / wall
+    fwd_ms, all_ms = evaler.measure_speed(BATCH, iters=10)
+    log(f"{tag} eval {what} b{BATCH}@{IMG} bf16 at the eval protocol: init_data {init_s:.2f} s; "
+        f"predict_model {n_img} images in {n_batches} batches {wall:.3f} s = "
+        f"{n_img / wall:.1f} imgs/s with the loader; {len(rows)} COCO rows; {launches} kernel "
+        f"launches, the tile walk in all {n_img} images, {tiles:.2f} tiles/image; K seen {ks}; "
+        f"batch shapes {shapes} [{card}]")
+    log(f"{tag} eval {what} per batch (these overlap in the pipeline, their sum is not the wall "
+        f"time): loader wait {loader_s / n_batches * 1e3:.2f} ms, host time to queue the batch "
+        f"function {launch_s / n_batches * 1e3:.2f} ms, host-to-device copy "
+        f"{h2d_ms / n_batches:.3f} ms, device (CUDA events around the batch function) "
+        f"{device_ms / n_batches:.3f} ms, host conversion to COCO rows "
+        f"{convert_s / n_batches * 1e3:.2f} ms; device idle {idle:.3f} of the loop's wall time "
+        f"(CUDA-event time of copy + batch function over wall time) [{card}]")
+    log(f"{tag} eval {what}: COCO scoring {score_s:.2f} s, AP50 {ap50:.5f}, AP {ap:.5f} (random "
+        f"weights); measure_speed fwd+decode {fwd_ms:.4f} ms/img, with NMS {all_ms:.4f} ms/img "
+        f"[{card}]")
+    out = dict(launches=launches, imgs_per_s=n_img / wall, wall_s=wall, rows=len(rows),
+               ap50=ap50, ap=ap, score_s=score_s, idle=idle, tiles_visited=tiles, K=ks,
+               shapes=[list(x) for x in shapes],
+               split_per_batch=dict(loader_ms=loader_s / n_batches * 1e3,
+                                    launch_ms=launch_s / n_batches * 1e3,
+                                    h2d_ms=h2d_ms / n_batches, device_ms=device_ms / n_batches,
+                                    convert_ms=convert_s / n_batches * 1e3),
+               speed_fwd_ms_per_img=fwd_ms, speed_all_ms_per_img=all_ms)
+    if rect:
+        return out
+
+    # the device's own busy time over a second pass: CUDA activity only, so
+    # that the profiler adds no per-op host cost
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaler.predict_model(model, loader)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if kernels:
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        out["profiled_idle"] = 1.0 - busy / prof_wall
+        ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        log(f"{tag} eval {what}, profiled second pass (CUDA activity only): wall {prof_wall:.3f} s "
+            f"= {n_img / prof_wall:.1f} imgs/s, kernels {busy * 1e3:.1f} ms, device idle "
+            f"{out['profiled_idle']:.3f} of the wall time; top: " + "; ".join(
+                f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms" for e in ranked[:4])
+            + f" [{card}]")
+    else:
+        out["profiled_idle"] = None
+        log(f"{tag} eval {what}: the profiler saw no device time; idle share not measured")
+
+    # the kernel on the first batch's own candidates, against the plain keep
+    imgs = torch.as_tensor(next(iter(loader))[0]).to(dev)
+    with torch.inference_mode():
+        preds = evaler._decode(imgs)
+        _, nms_boxes, scores, _ = nms_mod._select_candidates(
+            preds, evaler.conf_thres, evaler.max_nms, True, False, None,
+            row_select=evaler.row_select)
+    nms_boxes, scores = nms_boxes.contiguous(), scores.contiguous()
+    md, iou = evaler.max_det, evaler.iou_thres
+    idx_k, valid_k = greedy_nms(nms_boxes, scores, md, iou)
+    idx_p, valid_p = greedy_nms_plain(nms_boxes, scores, md, iou, emit_once=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p), \
+        f"{what}: the kernel's keep differs from the plain emit-once keep on eval candidates"
+    assert (greedy_nms.last_path == 1).all()
+    k_tiles = float(greedy_nms.last_tiles.float().mean())
+    ms = cuda_ms(lambda: greedy_nms(nms_boxes, scores, md, iou), iters=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, scores, md, iou), iters=20)
+    plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, scores, md, iou), iters=3, warmup=1)
+    bound, by = bound_ms(*keep_work_sorted(nms_boxes, scores, idx_k, valid_k, TILE))
+    log(f"{tag} greedy_nms on {what}'s first eval batch B={BATCH} K={nms_boxes.shape[1]} "
+        f"max_det={md}: equal to the plain emit-once keep ({int(valid_k.sum())} kept, "
+        f"{k_tiles:.2f} tiles/image); kernel {ms:.4f} ms, per call {call_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}) [{card}]")
+    out["kernel"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         tiles_visited=k_tiles, K=int(nms_boxes.shape[1]), max_det=md,
+                         max_abs_err=float((idx_k - idx_p).abs().max()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -772,6 +1004,20 @@ def main() -> int:
     train_l_launches = greedy_nms.launches
     del step
 
+    # ---- 11. COCO evaluation of S and M (and S on rect batches) on a PNG set
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+        data = write_eval_set(root, card)
+        perfect_mock_phase(data, dev, card)
+        model = deploy_model(cfgs["s"], 0, dev)
+        eval_s = eval_phase(model, "YOLOv6-S", data, dev, card)
+        eval_s_rect = eval_phase(model, "YOLOv6-S", data, dev, card, rect=True)
+        del model
+        model = deploy_model(cfgs["m"], 1, dev)
+        eval_m = eval_phase(model, "YOLOv6-M", data, dev, card)
+        del model
+
     kernels = [{
         "name": "greedy_nms",
         "route": "cuda",
@@ -782,9 +1028,12 @@ def main() -> int:
                              "serve_folded_trained": fold_launches,
                              "serve_m": m_serve["launches"], "train_m": train_m_launches,
                              "serve_m_folded_trained": fold_m_launches,
-                             "serve_l": serve_l_launches, "train_l": train_l_launches},
+                             "serve_l": serve_l_launches, "train_l": train_l_launches,
+                             "eval_s": eval_s["launches"], "eval_m": eval_m["launches"],
+                             "eval_s_rect": eval_s_rect["launches"]},
         "matches_plain": True,
-        "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"]),
+        "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
+                           eval_s["kernel"]["max_abs_err"], eval_m["kernel"]["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -800,6 +1049,9 @@ def main() -> int:
         "on_m_candidates": {k: m_serve[k] for k in (
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "any_order_bound_ms",
             "tiles_visited", "K", "max_det")},
+        "on_eval_candidates": {"s": eval_s["kernel"], "m": eval_m["kernel"]},
+        "eval": {name: {k: v for k, v in e.items() if k != "kernel"}
+                 for name, e in (("s", eval_s), ("m", eval_m), ("s_rect", eval_s_rect))},
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """The port on the card: its CUDA kernels, its DFL decode and ATSS assigner,
-and its training steps (S, and M with DFL) against the same on the CPU.
+its training steps (S, and M with DFL) and its Evaler, against the same on
+the CPU.
 Every test here needs an NVIDIA GPU and skips without one; none imports JAX,
 so they run where JAX is absent:
 
@@ -14,12 +15,16 @@ import torch
 
 from yolov6_tpu_torch.assigners.anchor_generator import generate_anchors
 from yolov6_tpu_torch.assigners.atss_assigner import atss_assigner
+from yolov6_tpu_torch.core.evaler import Evaler
 from yolov6_tpu_torch.core.train_step import make_train_step
+from yolov6_tpu_torch.data.synth_detect import generate_synth_dataset
 from yolov6_tpu_torch.losses.loss import ComputeLoss
 from yolov6_tpu_torch.models.effidehead import decode_eval
 from yolov6_tpu_torch.models.yolo import build_model
+from yolov6_tpu_torch.ops import nms as nms_mod
 from yolov6_tpu_torch.ops.cuda.nms_kernel import MAX_K, TILE, greedy_nms, greedy_nms_plain
 from yolov6_tpu_torch.utils.config import Config
+from yolov6_tpu_torch.utils.data_config import load_data_config
 
 from torch_port_utils import (
     clustered_candidates, edge_centred_targets, small_m_config, small_s_config,
@@ -234,3 +239,98 @@ def test_atss_assigner_on_card_matches_cpu(cuda_device):
     assert fg_c.any()
     assert torch.equal(fg_g, fg_c) and torch.equal(lab_g, lab_c) and torch.equal(box_g, box_c)
     torch.testing.assert_close(sc_g, sc_c, rtol=1e-5, atol=1e-6)
+
+
+def _eval_set(tmp_path, n):
+    """A port-written PNG set of mixed sizes (shrunk, enlarged and as is at
+    img 160)."""
+    return load_data_config(generate_synth_dataset(
+        str(tmp_path), n_train=0, n_val=n, img_size=160, seed=5,
+        sizes=[(160, 120), (200, 150), (97, 61), (120, 160)]))
+
+
+@pytest.mark.cuda
+def test_evaler_perfect_mock_on_card(cuda_device, tmp_path):
+    """The Evaler on the card (pinned batches, non-blocking copies, the
+    one-batch pipeline) with a detector that emits the letterboxed GT
+    boxes: AP50 > 0.99 and AP > 0.95."""
+    data = _eval_set(tmp_path, 10)
+    evaler = Evaler(data, batch_size=4, img_size=160, save_dir=str(tmp_path), device="cuda")
+    loader = evaler.init_data(None, "val")
+    current = {}
+
+    class Batches:
+        """The loader, noting each batch's labels for the mock."""
+
+        def __len__(self):
+            return len(loader)
+
+        def __iter__(self):
+            for batch in loader:
+                current["labels"] = batch[1]
+                yield batch
+
+    def mock_infer(imgs):
+        assert imgs.is_cuda and imgs.dtype == torch.uint8
+        b, h, w, _ = imgs.shape
+        dets = torch.zeros((b, 300, 6), device=imgs.device)
+        valid = torch.zeros((b, 300), dtype=torch.bool, device=imgs.device)
+        for i, lb in enumerate(current["labels"]):
+            lb = torch.from_numpy(lb[lb[:, 0] >= 0]).to(imgs.device)
+            cx, cy, bw, bh = lb[:, 1] * w, lb[:, 2] * h, lb[:, 3] * w, lb[:, 4] * h
+            dets[i, :len(lb)] = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2,
+                                             torch.full_like(cx, 0.9), lb[:, 0]], -1)
+            valid[i, :len(lb)] = True
+        return dets, valid
+
+    evaler._infer = mock_infer
+    rows = evaler.predict_model(None, Batches())
+    assert len(rows) > 10
+    ap50, ap = evaler.eval_model(rows, None, loader)
+    assert ap50 > 0.99 and ap > 0.95, (ap50, ap)
+    assert all(r["device_ms"] is not None for r in evaler.batch_split)
+
+
+@pytest.mark.cuda
+def test_evaler_on_card_matches_cpu_decode_and_plain_keep(cuda_device, tmp_path):
+    """Small S with a spread head, fp32 with TF32 off, one batch of 4: the
+    card's decode agrees with the CPU's within chip_smoke.py phase [3]'s
+    decode tolerance (boxes rtol 1e-4 / atol 1e-2 px, scores atol 1e-4), and
+    the card's COCO rows equal the rows its own decode gives through the
+    plain emit-once keep."""
+    data = _eval_set(tmp_path, 4)
+    torch.manual_seed(0)
+    cpu_model = build_model(small_s_config(Config), num_classes=4, device="cpu")
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if "_preds." in name:
+                p.normal_(0.0, 0.05) if name.endswith(".weight") else p.uniform_(-3.0, 1.0)
+    cuda_model = build_model(small_s_config(Config), num_classes=4, device="cuda")
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        evs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", cuda_model)):
+            evs[dev] = Evaler(dict(data), batch_size=4, img_size=160, half=False, device=dev)
+            evs[dev].init_model(model)
+        loader = evs["cuda"].init_data(None, "val")
+        (imgs, _, paths, shapes, n_valid), = list(loader)
+        before = greedy_nms.launches
+        rows = evs["cuda"].predict_model(cuda_model, [(imgs, None, paths, shapes, n_valid)])
+        assert greedy_nms.launches == before + 1 and len(rows) > 0
+        imgs_dev = imgs.to(cuda_device)
+        preds = evs["cuda"]._decode(imgs_dev)
+        want = evs["cpu"]._decode(torch.as_tensor(imgs.numpy()))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = preds.cpu()
+    torch.testing.assert_close(got[..., :4], want[..., :4], rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(got[..., 4:], want[..., 4:], rtol=0, atol=1e-4)
+    ev = evs["cuda"]
+    cands = nms_mod._select_candidates(preds, ev.conf_thres, ev.max_nms, True, False, None,
+                                       row_select=ev.row_select)
+    dets, valid = nms_mod._keep_and_gather(cands, greedy_nms_plain, True, ev.max_det,
+                                           ev.iou_thres)
+    plain_rows = ev.convert_to_coco_format(dets.cpu().numpy(), valid.cpu().numpy(), paths, shapes)
+    assert rows == plain_rows

@@ -199,3 +199,31 @@ def clustered_candidates(seed, B, K, n_clusters=12, n_cls=3, zero_area=0):
     scores = rng.uniform(0, 1, (B, K))
     scores[scores < 0.2] = 0.0
     return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+# (w, h) of the eval-data tests' PNG set at img_size 160: shrunk (INTER_AREA,
+# integer and non-integer factors), enlarged (INTER_LINEAR), odd sizes, and
+# images read as they are
+EVAL_IMG_SIZE = 160
+EVAL_SIZES = [(160, 120), (120, 160), (200, 150), (97, 61), (64, 48), (333, 250), (320, 240),
+              (150, 200), (160, 160), (81, 160)]
+# long side 160: no pixel is resized, in square and in rect mode
+NATIVE_SIZES = [(160, 120), (120, 160), (160, 160), (160, 96)]
+
+
+def loaded_shape(w, h, img_size=EVAL_IMG_SIZE, shrink=0):
+    """(h, w) of an image after ``load_image``'s ratio-keeping resize."""
+    ratio = (img_size - shrink) / max(h, w)
+    return (int(h * ratio), int(w * ratio)) if ratio != 1 else (h, w)
+
+
+def rect_batch_shapes(sizes, batch_size, img_size=EVAL_IMG_SIZE, stride=32, pad=0.5):
+    """The rect batches' [h, w] shapes of a set of (w, h) images, as
+    ``_setup_rect_batches`` computes them."""
+    ar = np.sort(np.array([h / w for w, h in sizes]))
+    out = []
+    for b in range(0, len(ar), batch_size):
+        mini, maxi = ar[b:b + batch_size].min(), ar[b:b + batch_size].max()
+        shape = [maxi, 1] if maxi < 1 else [1, 1 / mini] if mini > 1 else [1, 1]
+        out.append(tuple(np.ceil(np.array(shape) * img_size / stride + pad).astype(int) * stride))
+    return out
