@@ -50,8 +50,10 @@ Phases, each of which asserts:
      batch, the tile walk in every image of every batch, the kernel's keep
      equal to the plain emit-once keep on the first batch's candidates, COCO
      rows found and AP finite in [0, 1]; it logs imgs/s, the per-batch split
-     (loader wait, copy, device, host conversion), the COCO scoring time,
-     ``measure_speed`` and the device's idle share.
+     (loader wait, the host's time to queue the batch function, copy, host
+     conversion; also over batches built beforehand, with no loader thread
+     running), the COCO scoring time, ``measure_speed``, and the device's
+     time and idle share from a profiled second pass.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 and when there is no CUDA device.
@@ -735,12 +737,22 @@ def perfect_mock_phase(data: dict, dev, card: str) -> None:
     assert ap50 > 0.99 and ap > 0.95, f"perfect mock: AP50 {ap50}, AP {ap}"
 
 
+def split_per_batch(batch_split) -> dict:
+    """``Evaler.batch_split`` as means a batch, in ms."""
+    n = len(batch_split)
+    return dict(loader_ms=sum(r["loader_s"] for r in batch_split) / n * 1e3,
+                queue_ms=sum(r["launch_s"] for r in batch_split) / n * 1e3,
+                h2d_ms=sum(r["h2d_ms"] for r in batch_split) / n,
+                convert_ms=sum(r["convert_s"] for r in batch_split) / n * 1e3)
+
+
 def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False) -> dict:
     """``Evaler.init_data``, ``predict_model`` and ``eval_model`` of ``model``
     at b32@640 in bf16 at the eval protocol (conf 0.03, IoU 0.65,
     multi-label, max_nms 8192, max_det 300), with the asserts of the module
-    doc; the kernel against the plain emit-once keep on the first batch's
-    candidates (square mode). Returns the numbers."""
+    doc, then a profiled pass for the device's own time and idle share, a
+    pass over batches built beforehand, and the kernel against the plain
+    emit-once keep on the first batch's candidates. Returns the numbers."""
     import torch
 
     from yolov6_tpu_torch.core.evaler import Evaler
@@ -801,40 +813,20 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     score_s = time.perf_counter() - t0
     assert all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in (ap50, ap)), (ap50, ap)
 
-    split = evaler.batch_split
-    loader_s = sum(r["loader_s"] for r in split)
-    launch_s = sum(r["launch_s"] for r in split)
-    h2d_ms = sum(r["h2d_ms"] for r in split)
-    device_ms = sum(r["device_ms"] for r in split)
-    convert_s = sum(r["convert_s"] for r in split)
-    busy_s = (h2d_ms + device_ms) / 1e3
-    idle = 1.0 - busy_s / wall
+    split = split_per_batch(evaler.batch_split)
     fwd_ms, all_ms = evaler.measure_speed(BATCH, iters=10)
     log(f"{tag} eval {what} b{BATCH}@{IMG} bf16 at the eval protocol: init_data {init_s:.2f} s; "
         f"predict_model {n_img} images in {n_batches} batches {wall:.3f} s = "
         f"{n_img / wall:.1f} imgs/s with the loader; {len(rows)} COCO rows; {launches} kernel "
         f"launches, the tile walk in all {n_img} images, {tiles:.2f} tiles/image; K seen {ks}; "
         f"batch shapes {shapes} [{card}]")
-    log(f"{tag} eval {what} per batch (these overlap in the pipeline, their sum is not the wall "
-        f"time): loader wait {loader_s / n_batches * 1e3:.2f} ms, host time to queue the batch "
-        f"function {launch_s / n_batches * 1e3:.2f} ms, host-to-device copy "
-        f"{h2d_ms / n_batches:.3f} ms, device (CUDA events around the batch function) "
-        f"{device_ms / n_batches:.3f} ms, host conversion to COCO rows "
-        f"{convert_s / n_batches * 1e3:.2f} ms; device idle {idle:.3f} of the loop's wall time "
-        f"(CUDA-event time of copy + batch function over wall time) [{card}]")
     log(f"{tag} eval {what}: COCO scoring {score_s:.2f} s, AP50 {ap50:.5f}, AP {ap:.5f} (random "
         f"weights); measure_speed fwd+decode {fwd_ms:.4f} ms/img, with NMS {all_ms:.4f} ms/img "
         f"[{card}]")
     out = dict(launches=launches, imgs_per_s=n_img / wall, wall_s=wall, rows=len(rows),
-               ap50=ap50, ap=ap, score_s=score_s, idle=idle, tiles_visited=tiles, K=ks,
-               shapes=[list(x) for x in shapes],
-               split_per_batch=dict(loader_ms=loader_s / n_batches * 1e3,
-                                    launch_ms=launch_s / n_batches * 1e3,
-                                    h2d_ms=h2d_ms / n_batches, device_ms=device_ms / n_batches,
-                                    convert_ms=convert_s / n_batches * 1e3),
+               ap50=ap50, ap=ap, score_s=score_s, tiles_visited=tiles, K=ks,
+               shapes=[list(x) for x in shapes], split_per_batch=split,
                speed_fwd_ms_per_img=fwd_ms, speed_all_ms_per_img=all_ms)
-    if rect:
-        return out
 
     # the device's own busy time over a second pass: CUDA activity only, so
     # that the profiler adds no per-op host cost
@@ -849,16 +841,37 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     if kernels:
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        out["profiled_idle"] = 1.0 - busy / prof_wall
+        split["device_ms"] = busy * 1e3 / n_batches
+        out["idle"] = 1.0 - busy / prof_wall
         ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
         log(f"{tag} eval {what}, profiled second pass (CUDA activity only): wall {prof_wall:.3f} s "
-            f"= {n_img / prof_wall:.1f} imgs/s, kernels {busy * 1e3:.1f} ms, device idle "
-            f"{out['profiled_idle']:.3f} of the wall time; top: " + "; ".join(
+            f"= {n_img / prof_wall:.1f} imgs/s, kernels and copies {busy * 1e3:.1f} ms, device "
+            f"idle {out['idle']:.3f} of the wall time; top: " + "; ".join(
                 f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms" for e in ranked[:4])
             + f" [{card}]")
     else:
-        out["profiled_idle"] = None
-        log(f"{tag} eval {what}: the profiler saw no device time; idle share not measured")
+        split["device_ms"] = out["idle"] = None
+        log(f"{tag} eval {what}: the profiler saw no device time; device time and idle share "
+            f"not measured")
+
+    # the same loop over batches built beforehand, so that no loader thread
+    # runs beside it: does the host's queueing time come from the loader?
+    batches = list(loader)
+    t0 = time.perf_counter()
+    evaler.predict_model(model, batches)
+    pre_wall = time.perf_counter() - t0
+    del batches
+    pre = split_per_batch(evaler.batch_split)
+    out["prebuilt"] = dict(imgs_per_s=n_img / pre_wall, wall_s=pre_wall, split_per_batch=pre)
+    device = "not measured" if split["device_ms"] is None else f"{split['device_ms']:.3f} ms"
+    log(f"{tag} eval {what} per batch (these overlap in the pipeline, their sum is not the wall "
+        f"time), with the loader's threads running / over batches built beforehand: loader wait "
+        f"{split['loader_ms']:.2f} / {pre['loader_ms']:.2f} ms, host time to queue the batch "
+        f"function {split['queue_ms']:.2f} / {pre['queue_ms']:.2f} ms, host-to-device copy "
+        f"(CUDA events) {split['h2d_ms']:.3f} / {pre['h2d_ms']:.3f} ms, host conversion to COCO "
+        f"rows {split['convert_ms']:.2f} / {pre['convert_ms']:.2f} ms; device kernels and copies "
+        f"{device} (profiled pass); predict_model {n_img / wall:.1f} / {n_img / pre_wall:.1f} "
+        f"imgs/s [{card}]")
 
     # the kernel on the first batch's own candidates, against the plain keep
     imgs = torch.as_tensor(next(iter(loader))[0]).to(dev)
@@ -1033,7 +1046,7 @@ def main() -> int:
                              "eval_s_rect": eval_s_rect["launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
-                           eval_s["kernel"]["max_abs_err"], eval_m["kernel"]["max_abs_err"]),
+                           *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect))),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -1049,7 +1062,8 @@ def main() -> int:
         "on_m_candidates": {k: m_serve[k] for k in (
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "any_order_bound_ms",
             "tiles_visited", "K", "max_det")},
-        "on_eval_candidates": {"s": eval_s["kernel"], "m": eval_m["kernel"]},
+        "on_eval_candidates": {"s": eval_s["kernel"], "m": eval_m["kernel"],
+                               "s_rect": eval_s_rect["kernel"]},
         "eval": {name: {k: v for k, v in e.items() if k != "kernel"}
                  for name, e in (("s", eval_s), ("m", eval_m), ("s_rect", eval_s_rect))},
     }]

@@ -288,7 +288,7 @@ def test_evaler_perfect_mock_on_card(cuda_device, tmp_path):
     assert len(rows) > 10
     ap50, ap = evaler.eval_model(rows, None, loader)
     assert ap50 > 0.99 and ap > 0.95, (ap50, ap)
-    assert all(r["device_ms"] is not None for r in evaler.batch_split)
+    assert all(r["h2d_ms"] is not None for r in evaler.batch_split)
 
 
 @pytest.mark.cuda

@@ -206,6 +206,14 @@ def test_evaler_and_cli_refuse_cuda_without_a_card(sets, tmp_path, monkeypatch):
                      save_dir=str(tmp_path))
 
 
+def test_evaler_refuses_plots_before_it_predicts(sets):
+    """The plots need matplotlib: asking for one fails at construction,
+    before any batch runs."""
+    for kw in (dict(plot_curve=True), dict(plot_confusion_matrix=True)):
+        with pytest.raises(NotImplementedError, match="matplotlib"):
+            Evaler(dict(sets["native"]), do_pr_metric=True, device="cpu", **kw)
+
+
 def test_cli_evaluates_a_saved_state_dict(sets, tmp_path):
     """``python -m yolov6_tpu_torch.tools.eval`` on small S (a config file and
     a state dict written here, the head spread so that it detects) exits 0

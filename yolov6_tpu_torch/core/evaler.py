@@ -10,12 +10,15 @@ original-image pixels and scores them with ``utils/coco_eval.py``.
 i+1's copy to the device and its launches are queued before batch i's
 results are read on the host. It records, per batch, the time blocked on
 the loader, the host's time to queue the batch function, the host
-conversion and, on the card, the copy and the batch function by CUDA
-events; these overlap, so their sum is not the loop's wall time.
+conversion and, on the card, the copy by CUDA events; these overlap, so
+their sum is not the loop's wall time. The device's own time is not among
+them: the batch function's launches reach the card as fast as the host
+queues them, so events around it read the host's queueing.
 
 Not ported: the StableHLO artifact eval (``init_artifact``), the multi-host
 gather (``gather_coco_predictions``), the data-parallel mesh, the TPU's
-bf16 candidate ranking, and the PR/confusion plots (matplotlib).
+bf16 candidate ranking, and the PR/confusion plots (matplotlib):
+``plot_curve`` and ``plot_confusion_matrix`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from yolov6_tpu_torch.ops.nms import non_max_suppression
 from yolov6_tpu_torch.utils.coco_eval import COCOEvaluator, coco80_to_coco91_class
 from yolov6_tpu_torch.utils.data_config import load_data_config
 from yolov6_tpu_torch.utils.device import resolve_device
-from yolov6_tpu_torch.utils.metrics import ConfusionMatrix, ap_per_class, process_batch
+from yolov6_tpu_torch.utils.metrics import ap_per_class, process_batch
 
 LOGGER = logging.getLogger(__name__)
 
@@ -64,6 +67,9 @@ class Evaler:
         plot_confusion_matrix: bool = False,
         device="cuda",
     ):
+        if plot_curve or plot_confusion_matrix:
+            raise NotImplementedError(
+                "the PR/F1 and confusion-matrix plots need matplotlib and are not ported")
         self.device = resolve_device(device)
         self.data = data_dict
         self.batch_size = batch_size
@@ -89,11 +95,10 @@ class Evaler:
         self.speed_result = np.zeros(4)
         self.do_coco_metric = do_coco_metric
         self.do_pr_metric = do_pr_metric
-        self.plot_curve = plot_curve
-        self.plot_confusion_matrix = plot_confusion_matrix
         self.pr_results = None
-        # per batch of the last predict_model: loader_s, launch_s, convert_s,
-        # and on the card h2d_ms, device_ms (CUDA events)
+        # per batch of the last predict_model: loader_s, launch_s (the host's
+        # time to queue the batch function), convert_s, and on the card h2d_ms
+        # (CUDA events around the copy)
         self.batch_split = []
 
     # ------------------------------------------------------------ model/data
@@ -178,9 +183,6 @@ class Evaler:
         pred_results = []
         stats = []
         iouv = np.linspace(0.5, 0.95, 10)
-        confusion = None
-        if self.do_pr_metric and self.plot_confusion_matrix:
-            confusion = ConfusionMatrix(nc=model.num_classes)
         cuda = self.device.type == "cuda"
         n_batches = len(dataloader)
 
@@ -190,14 +192,13 @@ class Evaler:
             if cuda:
                 events[-1].synchronize()
                 rec["h2d_ms"] = events[0].elapsed_time(events[1])
-                rec["device_ms"] = events[1].elapsed_time(events[2])
             dets, valid = dets.numpy(), valid.numpy()
             t0 = time.perf_counter()
             pred_results.extend(
                 self.convert_to_coco_format(dets[:n_valid], valid[:n_valid], paths, shapes))
             rec["convert_s"] = time.perf_counter() - t0
             if self.do_pr_metric:
-                stats.extend(self._pr_stats(dets, valid, labels, hw, n_valid, iouv, confusion))
+                stats.extend(self._pr_stats(dets, valid, labels, hw, n_valid, iouv))
 
         # one-batch software pipeline: batch i+1's copy and launches are
         # queued before batch i's results are read, so the copy, the device
@@ -212,10 +213,10 @@ class Evaler:
             batch = next(batches, None)
             if batch is None:
                 break
-            rec = {"loader_s": time.perf_counter() - t0, "h2d_ms": None, "device_ms": None}
+            rec = {"loader_s": time.perf_counter() - t0, "h2d_ms": None}
             self.batch_split.append(rec)
             imgs, labels, paths, shapes, n_valid = batch
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else []
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else []
             if cuda:
                 events[0].record()
             imgs_dev = self._to_device(imgs)
@@ -224,8 +225,6 @@ class Evaler:
             t0 = time.perf_counter()
             dets_dev, valid_dev = self._infer(imgs_dev)
             rec["launch_s"] = time.perf_counter() - t0
-            if cuda:
-                events[2].record()
             dets, valid = self._to_host(dets_dev), self._to_host(valid_dev)
             if cuda:
                 events.append(torch.cuda.Event())
@@ -244,12 +243,10 @@ class Evaler:
         self.speed_result[2] += time.perf_counter() - t_loop
 
         if self.do_pr_metric and stats:
-            self._finish_pr_metric(stats, model)
-        if confusion is not None and self.save_dir:
-            confusion.plot(save_dir=self.save_dir, names=self.class_names)
+            self._finish_pr_metric(stats)
         return pred_results
 
-    def _pr_stats(self, dets, valid, labels, hw, n_valid, iouv, confusion):
+    def _pr_stats(self, dets, valid, labels, hw, n_valid, iouv):
         """Per-image TP stats in letterbox coords (reference: evaler.py:137-227)."""
         h, w = hw
         out = []
@@ -264,12 +261,10 @@ class Evaler:
                 gt[:, 1], gt[:, 2] = cx - bw / 2, cy - bh / 2
                 gt[:, 3], gt[:, 4] = cx + bw / 2, cy + bh / 2
             correct = process_batch(pred, gt, iouv)
-            if confusion is not None:
-                confusion.process_batch(pred, gt)
             out.append((correct, pred[:, 4], pred[:, 5], gt[:, 0]))
         return out
 
-    def _finish_pr_metric(self, stats, model):
+    def _finish_pr_metric(self, stats):
         tp = np.concatenate([s[0] for s in stats])
         conf = np.concatenate([s[1] for s in stats])
         pred_cls = np.concatenate([s[2] for s in stats])
@@ -277,11 +272,7 @@ class Evaler:
         if tp.size == 0:
             self.pr_results = None
             return
-        p, r, ap, f1, classes = ap_per_class(
-            tp, conf, pred_cls, target_cls,
-            plot=self.plot_curve and bool(self.save_dir),
-            save_dir=self.save_dir or ".", names=self.class_names,
-        )
+        p, r, ap, f1, classes = ap_per_class(tp, conf, pred_cls, target_cls)
         ap50, ap_all = ap[:, 0].mean(), ap.mean()
         LOGGER.info(
             f"PR metric: P={p.mean():.4f} R={r.mean():.4f} F1={f1.mean():.4f} "

@@ -34,18 +34,6 @@ IMG_FORMATS = ["bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo"]
 CACHE_VERSION = 2
 
 
-def check_image(im_file: str, full_check: bool = False):
-    """``(w, h)`` of an image from its PNG header; with ``full_check`` the
-    pixels are decoded too and the size must exceed 9 px a side. Raises
-    ``ValueError`` on a file the port cannot read (JAX: check_image)."""
-    shape = image_size(im_file)
-    if full_check:
-        h, w = imread(im_file).shape[:2]
-        if (w, h) != shape or min(w, h) <= 9:
-            raise ValueError(f"{im_file}: image size {(w, h)} (header {shape}) is not usable")
-    return shape
-
-
 def img2label_paths(img_paths: List[str]) -> List[str]:
     """images/xxx.png -> labels/xxx.txt (reference convention)."""
     sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
@@ -69,8 +57,6 @@ class TrainValDataset:
         augment: bool = False,
         hyp: Optional[dict] = None,
         rect: bool = False,
-        check_images: bool = False,
-        check_labels: bool = False,
         stride: int = 32,
         pad: float = 0.0,
         data_dict: Optional[dict] = None,
@@ -97,8 +83,7 @@ class TrainValDataset:
         self.target_height = height
         self.target_width = width
 
-        self.img_paths, self.labels, self.shapes = self._load_annotations(
-            img_dir, check_images, check_labels)
+        self.img_paths, self.labels, self.shapes = self._load_annotations(img_dir)
         self.n = len(self.img_paths)
         if self.rect:
             self._setup_rect_batches()
@@ -127,7 +112,7 @@ class TrainValDataset:
             raise FileNotFoundError(f"no images found in {img_dir}")
         return img_paths
 
-    def _load_annotations(self, img_dir, check_images, check_labels):
+    def _load_annotations(self, img_dir):
         img_paths = self._scan_images(img_dir)
         label_paths = img2label_paths(img_paths)
         cache_path = osp.join(osp.dirname(osp.dirname(img_paths[0])) or ".",
@@ -149,7 +134,7 @@ class TrainValDataset:
                 from the header, so rect batching and the GT JSON decode
                 nothing."""
                 img_path, lb_path = args
-                shape = check_image(img_path, full_check=check_images)
+                shape = image_size(img_path)
                 if not osp.exists(lb_path):
                     return img_path, [], shape
                 rows = []
@@ -158,10 +143,6 @@ class TrainValDataset:
                         vals = line.split()
                         if len(vals) == 5:
                             rows.append([float(v) for v in vals])
-                if check_labels and rows:
-                    arr = np.array(rows)
-                    if not ((arr >= 0).all() and (arr[:, 1:] <= 1).all()):
-                        raise ValueError(f"{lb_path}: label out of range")
                 return img_path, rows, shape
 
             with ThreadPool(8) as pool:
@@ -183,7 +164,7 @@ class TrainValDataset:
         header now."""
         shapes = np.asarray(self.shapes, np.float64)
         for i in np.flatnonzero((shapes <= 0).any(axis=1)):
-            shapes[i] = check_image(self.img_paths[int(i)])
+            shapes[i] = image_size(self.img_paths[int(i)])
         self.shapes = shapes
         return shapes
 

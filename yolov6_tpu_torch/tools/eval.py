@@ -6,7 +6,8 @@
 ``--weights`` is a ``torch.save``d state dict (``utils/checkpoint.py``).
 ``run`` is also the in-training eval API. ``--device`` defaults to ``cuda``
 and raises without it. Not ported: ``--artifact`` (StableHLO), the TPU's
-``--bf16-select``, and the weight download (a missing file raises).
+``--bf16-select``, ``--plot_curve`` and ``--plot_confusion_matrix`` (they
+need matplotlib), and the weight download (a missing file raises).
 """
 
 from __future__ import annotations
@@ -72,10 +73,6 @@ def get_args_parser(add_help=True):
     parser.add_argument("--row-select", choices=("grouped", "topk"), default="grouped",
                         help="per-anchor class pre-reduction of the NMS candidates")
     parser.add_argument("--do_pr_metric", action="store_true")
-    parser.add_argument("--plot_curve", default=False,
-                        type=lambda s: s.lower() not in ("false", "0", "no"),
-                        help="PR/F1 curve plots; not ported (they need matplotlib)")
-    parser.add_argument("--plot_confusion_matrix", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; cuda raises when there is no GPU")
     return parser
@@ -99,8 +96,6 @@ def run(
     verbose=False,
     do_coco_metric=True,
     do_pr_metric=False,
-    plot_curve=False,
-    plot_confusion_matrix=False,
     specific_shape=False,
     height=640,
     width=640,
@@ -123,8 +118,7 @@ def run(
         data, batch_size, img_size, conf_thres, iou_thres, half, save_dir,
         shrink_size, infer_on_rect, verbose, specific_shape, height, width,
         max_nms=max_nms, row_select=row_select, do_coco_metric=do_coco_metric,
-        do_pr_metric=do_pr_metric, plot_curve=plot_curve,
-        plot_confusion_matrix=plot_confusion_matrix, device=device,
+        do_pr_metric=do_pr_metric, device=device,
     )
     if model is None:
         model = load_state_dict_file(weights, Config.fromfile(config), device=evaler.device)
@@ -177,10 +171,9 @@ def main(args):
         args.conf_thres, args.iou_thres, args.task, args.half,
         save_dir=save_dir, shrink_size=args.shrink_size,
         infer_on_rect=args.infer_on_rect, verbose=args.verbose,
-        do_pr_metric=args.do_pr_metric, plot_curve=args.plot_curve,
-        plot_confusion_matrix=args.plot_confusion_matrix,
-        specific_shape=args.specific_shape, height=args.height, width=args.width,
-        max_nms=args.max_nms, row_select=args.row_select, device=args.device,
+        do_pr_metric=args.do_pr_metric, specific_shape=args.specific_shape,
+        height=args.height, width=args.width, max_nms=args.max_nms,
+        row_select=args.row_select, device=args.device,
     )
     if args.task != "speed":
         LOGGER.info(f"mAP@0.5: {ap50:.5f}  mAP@0.5:0.95: {ap:.5f}  (results in {save_dir})")
