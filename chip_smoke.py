@@ -53,10 +53,29 @@ Phases, each of which asserts:
      (loader wait, the host's time to queue the batch function, copy, host
      conversion; also over batches built beforehand, with no loader thread
      running), the COCO scoring time, ``measure_speed``, and the device's
-     time and idle share from a profiled second pass.
+     time and idle share from a profiled second pass;
+ 12. the train CLI: a 320-image PNG train split beside phase 11's val set
+     (the same sizes, another seed); ``tools/train.py::main`` trains
+     YOLOv6-S (80 classes, the config's data_aug: mosaic 1.0, mixup 0.0)
+     b32@640 in bf16 for 2 epochs, epoch 0 on the mosaic branch and epoch 1
+     on the letterbox+affine branch, with one in-training eval of the 320
+     val images, then resumes from the epoch-1 checkpoint for a third epoch:
+     every loss finite, the checkpoints written, the resumed step's state
+     equal to the saved one and its first epoch 2, one kernel launch per
+     eval batch with the tile walk in every image, and the stripped final
+     checkpoint loaded into the deploy graph (strict) through the fold; it
+     logs imgs/s per epoch with the loader, the loader wait and the step's
+     time (CUDA events) a step, the augmentation's host ms an image (the C++
+     pass, the HSV pass), the device's idle share over 3 profiled steps of
+     epoch 0, and the in-training eval's imgs/s;
+ 13. the learning gate (``tools/learning_gate.py`` at its defaults: YOLOv6-N,
+     160 px, 256 train and 64 val images, 4 classes, 30 epochs, batch 16,
+     seed 0, the exact-NMS pass on): final mAP50 > 0.75 and a gain > 0.20;
+     it logs the trajectory, the exact-NMS delta and the wall time.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
-and when there is no CUDA device.
+when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
+not beside it.
 
 The serving weights are random, from seeds: torch's default init, then
 every conv re-drawn He-normal so activations stay O(1) through the full
@@ -737,6 +756,45 @@ def perfect_mock_phase(data: dict, dev, card: str) -> None:
     assert ap50 > 0.99 and ap > 0.95, f"perfect mock: AP50 {ap50}, AP {ap}"
 
 
+class KeepRecorder:
+    """Records, while active, every launch of the default keep: its path and
+    tiles per image and its K (the eval paths' kernel checks)."""
+
+    def __init__(self):
+        from yolov6_tpu_torch.ops import nms as nms_mod
+
+        self.nms_mod = nms_mod
+        self.walks = []
+
+    def __enter__(self):
+        from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+        keep, self.rule = self.nms_mod._KEEPS[None]
+        self.keep = keep
+
+        def recording_keep(boxes, scores, *args, **kwargs):
+            out = keep(boxes, scores, *args, **kwargs)
+            self.walks.append((greedy_nms.last_path.clone(), greedy_nms.last_tiles.clone(),
+                               boxes.shape[1]))
+            return out
+
+        self.nms_mod._KEEPS[None] = (recording_keep, self.rule)
+        return self
+
+    def __exit__(self, *exc):
+        self.nms_mod._KEEPS[None] = (self.keep, self.rule)
+
+    def check(self, what: str, n_images: int) -> dict:
+        import torch
+
+        paths = torch.cat([p for p, _, _ in self.walks]).tolist()
+        assert paths == [1] * len(paths), f"{what}: not every image took the tile walk"
+        assert len(paths) >= n_images, f"{what}: {len(paths)} images walked, {n_images} evaluated"
+        return dict(launches=len(self.walks),
+                    tiles_visited=float(torch.cat([t for _, t, _ in self.walks]).float().mean()),
+                    K=sorted({k for _, _, k in self.walks}))
+
+
 def split_per_batch(batch_split) -> dict:
     """``Evaler.batch_split`` as means a batch, in ms."""
     n = len(batch_split)
@@ -771,38 +829,29 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
 
     # note every launch's path, tiles and K, and every batch shape, of the
     # counted run
-    walks, shapes_seen = [], []
-    keep, rule = nms_mod._KEEPS[None]
+    shapes_seen = []
     infer = evaler._infer
-
-    def recording_keep(boxes, scores, *args, **kwargs):
-        out = keep(boxes, scores, *args, **kwargs)
-        walks.append((greedy_nms.last_path.clone(), greedy_nms.last_tiles.clone(), boxes.shape[1]))
-        return out
 
     def recording_infer(imgs):
         shapes_seen.append(tuple(imgs.shape[1:3]))
         return infer(imgs)
 
-    nms_mod._KEEPS[None] = (recording_keep, rule)
     evaler._infer = recording_infer
     try:
-        greedy_nms.launches = 0
-        t0 = time.perf_counter()
-        rows = evaler.predict_model(model, loader)
-        wall = time.perf_counter() - t0
-        launches = greedy_nms.launches
+        with KeepRecorder() as rec:
+            greedy_nms.launches = 0
+            t0 = time.perf_counter()
+            rows = evaler.predict_model(model, loader)
+            wall = time.perf_counter() - t0
+            launches = greedy_nms.launches
     finally:
-        nms_mod._KEEPS[None] = (keep, rule)
         evaler._infer = infer
     n_img = int(evaler.speed_result[0])
     n_batches = len(evaler.batch_split)
     assert n_img == EVAL_SET["n_val"] and n_batches == len(loader)
     assert launches == n_batches, f"{what}: {launches} kernel launches for {n_batches} batches"
-    paths = torch.cat([p for p, _, _ in walks]).tolist()
-    assert paths == [1] * (n_batches * BATCH), f"{what}: not every image took the tile walk"
-    tiles = float(torch.cat([t for _, t, _ in walks]).float().mean())
-    ks = sorted({k for _, _, k in walks})
+    walk = rec.check(what, n_batches * BATCH)
+    tiles, ks = walk["tiles_visited"], walk["K"]
     shapes = sorted(set(shapes_seen))
     if rect:
         assert any(s != (IMG, IMG) for s in shapes), f"{what}: only {shapes} reached the kernel"
@@ -903,12 +952,216 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     return out
 
 
-def main() -> int:
+# the train CLI phase's set: 320 PNG train images beside the eval set, in its
+# sizes, from another seed
+TRAIN_SET = dict(n_train=320, seed=1, sizes=EVAL_SET["sizes"])
+TRAIN_CLI = dict(epochs=2, stop_aug_last_n_epoch=1, workers=8, profiled_steps=3)
+GATE_BAR = dict(min_map50=0.75, min_gain=0.20)
+
+
+def write_train_split(root: str, card: str) -> str:
+    """Phase 12's train split under ``root`` (beside phase 11's val set) and a
+    data description naming 80 classes; returns its path."""
+    import glob
+
+    from yolov6_tpu_torch.data.synth_detect import CLASS_NAMES, generate_synth_dataset
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    t0 = time.perf_counter()
+    data = load_data_config(generate_synth_dataset(root, n_val=0, img_size=IMG, **TRAIN_SET))
+    secs = time.perf_counter() - t0
+    n = len(glob.glob(os.path.join(data["train"], "*.png")))
+    assert n == TRAIN_SET["n_train"], n
+    assert len(glob.glob(os.path.join(data["val"], "*.png"))) == EVAL_SET["n_val"]
+    data["nc"] = NUM_CLASSES
+    data["names"] = CLASS_NAMES + [f"class{i}" for i in range(len(CLASS_NAMES), NUM_CLASSES)]
+    path = os.path.join(root, "data80.json")
+    with open(path, "w") as f:
+        json.dump(data, f)
+    log(f"[12] wrote {n} PNG train images of (w, h) {TRAIN_SET['sizes']} in {secs:.2f} s beside "
+        f"the {EVAL_SET['n_val']} val images [{card}]")
+    return path
+
+
+def augmentation_ms(data_path: str, card: str, n: int = 32) -> dict:
+    """The train path's host cost an image on one thread, by branch: the
+    whole sample, and within it the C++ pass (mosaic, warp, flips) and the
+    numpy HSV pass, over ``n`` samples of the train split at 640."""
+    from yolov6_tpu_torch.data import datasets, native_aug
+    from yolov6_tpu_torch.data.datasets import TrainValDataset
+    from yolov6_tpu_torch.utils.config import Config
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    data = load_data_config(data_path)
+    hyp = dict(Config.fromfile(os.path.join(ROOT, "configs", "yolov6s.py")).data_aug)
+    spent = {"cpp": 0.0, "hsv": 0.0}
+    train_aug, hsv = native_aug.train_aug, datasets.augment_hsv_rgb
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    out = {}
+    native_aug.train_aug = timed("cpp", train_aug)
+    datasets.augment_hsv_rgb = timed("hsv", hsv)
+    try:
+        for branch, mosaic in (("mosaic", 1.0), ("letterbox", 0.0)):
+            ds = TrainValDataset(data["train"], img_size=IMG, batch_size=BATCH, augment=True,
+                                 hyp=dict(hyp, mosaic=mosaic), data_dict=dict(data), seed=0)
+            spent.update(cpp=0.0, hsv=0.0)
+            t0 = time.perf_counter()
+            for i in range(n):
+                ds[i]
+            total = time.perf_counter() - t0
+            out[branch] = dict(sample_ms=total / n * 1e3, cpp_ms=spent["cpp"] / n * 1e3,
+                               hsv_ms=spent["hsv"] / n * 1e3)
+    finally:
+        native_aug.train_aug, datasets.augment_hsv_rgb = train_aug, hsv
+    log(f"[12] the train path's host ms an image on one thread ({n} samples at {IMG}): " + "; ".join(
+        f"{b}: sample {v['sample_ms']:.2f}, C++ pass {v['cpp_ms']:.2f}, HSV pass "
+        f"{v['hsv_ms']:.2f}" for b, v in out.items()) + f" [{card}]")
+    return out
+
+
+def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
+    """Phase 12 (see the module doc); returns its numbers."""
     import torch
 
+    from yolov6_tpu_torch.core.engine import Trainer
+    from yolov6_tpu_torch.tools import train as train_cli
+    from yolov6_tpu_torch.utils.checkpoint import load_checkpoint, load_state_dict_file
+    from yolov6_tpu_torch.utils.config import Config
+    from yolov6_tpu_torch.utils.events import load_yaml, save_yaml
+
+    t = TRAIN_CLI
+    argv = ["--data-path", data_path, "--conf-file", os.path.join(ROOT, "configs", "yolov6s.py"),
+            "--img-size", str(IMG), "--batch-size", str(BATCH), "--epochs", str(t["epochs"]),
+            "--workers", str(t["workers"]), "--eval-final-only",
+            "--stop_aug_last_n_epoch", str(t["stop_aug_last_n_epoch"]),
+            "--save_ckpt_on_last_n_epoch", "1", "--output-dir", os.path.join(root, "train"),
+            "--name", "s", "--bf16", "--profile", "--log-interval", "5", "--seed", "0",
+            "--device", "cuda"]
+    args = train_cli.get_args_parser().parse_args(argv)
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args)
+        wall = time.perf_counter() - t0
+    weights = os.path.join(args.save_dir, "weights")
+    n_val = EVAL_SET["n_val"]
+    walk = rec.check("[12] in-training eval", n_val)
+    n_eval_batches = -(-n_val // BATCH)
+    assert walk["launches"] == n_eval_batches, f"{walk['launches']} launches, {n_eval_batches} batches"
+    assert len(trainer.eval_stats) == 1 and trainer.eval_stats[0]["images"] == n_val
+    for name in ("last_ckpt", "best_ckpt", f"{t['epochs'] - 1}_ckpt"):
+        assert os.path.exists(os.path.join(weights, f"{name}.pt")), f"no {name}.pt"
+    stats = trainer.epoch_stats
+    assert [e["epoch"] for e in stats] == list(range(t["epochs"]))
+    assert all(math.isfinite(v) for e in stats for v in e["mean_loss"]), stats
+    assert stats[0]["steps"] == TRAIN_SET["n_train"] // BATCH
+    for e in stats:
+        log(f"[12] train CLI S epoch {e['epoch']} ({'mosaic' if e['epoch'] == 0 else 'letterbox'}"
+            f"+affine): {e['steps']} steps of b{BATCH}@{IMG} bf16 in {e['wall_s']:.3f} s = "
+            f"{e['imgs_per_s']:.1f} imgs/s with the loader (host clock); loader wait "
+            f"{e['loader_wait_s'] / e['steps'] * 1e3:.2f} ms a step; step {e['step_ms']:.3f} ms "
+            f"(CUDA events, from queueing to the end: the device time plus any gap the host "
+            f"leaves); mean loss [iou, dfl, cls] {[round(v, 5) for v in e['mean_loss']]} [{card}]")
+    prof = trainer.profile_result
+    if prof and prof["idle"] is not None:
+        log(f"[12] profiled {prof['steps']} steps of epoch 0: window {prof['wall_s']:.3f} s, device "
+            f"busy {prof['device_busy_s']:.3f} s, idle {prof['idle']:.3f} of the window; top: "
+            + "; ".join(f"{k} {ms:.1f} ms/step" for k, ms in prof["top"][:4]) + f" [{card}]")
+    else:
+        log("[12] the profiler saw no device time; the idle share is not measured")
+    ev = trainer.eval_stats[0]
+    log(f"[12] in-training eval of the EMA (train form, eval mode) at epoch {ev['epoch']}: "
+        f"{ev['images']} images in {ev['batches']} batches, {ev['predict_s']:.3f} s = "
+        f"{ev['imgs_per_s']:.1f} imgs/s; {walk['launches']} kernel launches, the tile walk in "
+        f"every image ({walk['tiles_visited']:.2f} tiles/image); AP50 {ev['ap50']:.5f}, AP "
+        f"{ev['ap']:.5f}; the whole CLI run {wall:.1f} s [{card}]")
+
+    # resume: the run's args.yaml, extended to a third epoch, wins over the
+    # command line; the last_ckpt of the finished run was stripped, so the
+    # run continues from its unstripped checkpoint of the same epoch
+    args_yaml = os.path.join(args.save_dir, "args.yaml")
+    save_yaml(dict(load_yaml(args_yaml), epochs=t["epochs"] + 1), args_yaml)
+    saved = load_checkpoint(os.path.join(weights, f"{t['epochs'] - 1}_ckpt.pt"))
+    rargs = train_cli.get_args_parser().parse_args(
+        ["--resume", os.path.join(weights, f"{t['epochs'] - 1}_ckpt.pt"), "--epochs", "99",
+         "--device", "cuda"])
+    with KeepRecorder() as rec2:
+        t0 = time.perf_counter()
+        # tools/train.py::main, with the resumed state checked before training
+        cfg = train_cli.check_and_init(rargs)
+        assert rargs.epochs == t["epochs"] + 1, "the saved args.yaml did not win"
+        resumed = Trainer(rargs, cfg)
+        assert resumed.start_epoch == t["epochs"], resumed.start_epoch
+        state = resumed.train_step.state_dict()
+        assert all(torch.equal(state[k], saved["train_state"][k]) for k in state),             "the resumed step's state differs from the saved one"
+        resumed.train()
+        rwall = time.perf_counter() - t0
+    rstats = resumed.epoch_stats
+    assert [e["epoch"] for e in rstats] == [t["epochs"]], rstats
+    assert all(math.isfinite(v) for v in rstats[0]["mean_loss"])
+    rec2.check("[12] resumed run's eval", n_val)
+    model = load_state_dict_file(os.path.join(weights, "last_ckpt.pt"),
+                                 Config.fromfile(os.path.join(ROOT, "configs", "yolov6s.py")),
+                                 device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[12] resumed at epoch {resumed.start_epoch} with the step's state equal to the saved "
+        f"one; epoch {rstats[0]['epoch']}: {rstats[0]['imgs_per_s']:.1f} imgs/s, mean loss "
+        f"{[round(v, 5) for v in rstats[0]['mean_loss']]}; run {rwall:.1f} s; the stripped final "
+        f"checkpoint folded into the deploy graph ({n_params / 1e6:.2f} M params, strict) "
+        f"[{card}]")
+    return dict(launches=walk["launches"], epochs=stats + rstats, eval=trainer.eval_stats,
+                profile=prof, tiles_visited=walk["tiles_visited"], wall_s=wall,
+                resume_wall_s=rwall)
+
+
+def learning_gate_phase(root: str, card: str) -> dict:
+    """Phase 13: ``tools/learning_gate.py`` at its defaults on the card."""
+    from yolov6_tpu_torch.tools import learning_gate
+
+    args = learning_gate.get_args_parser().parse_args(["--out", os.path.join(root, "gate")])
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        rc = learning_gate.main(args)
+        wall = time.perf_counter() - t0
+    with open(os.path.join(args.out, "gate_result.json")) as f:
+        result = json.load(f)
+    walk = rec.check("[13] gate evals", args.n_val)
+    traj = [(p["epoch"], round(p["map50"], 4), round(p["map50_95"], 4))
+            for p in result["trajectory"]]
+    log(f"[13] learning gate (N, {args.img_size} px, {args.n_train}/{args.n_val} images, "
+        f"{args.epochs} epochs, batch {args.batch_size}, seed {args.seed}): trajectory (epoch, "
+        f"mAP50, mAP50-95) {traj}; gain {result['gain']:.4f}; exact NMS mAP50 "
+        f"{result['exact_nms']['map50']:.4f}, mAP50-95 {result['exact_nms']['map50_95']:.4f}, "
+        f"delta mAP50-95 {result['nms_delta_map50_95']:+.4f}; training {result['train_s']:.1f} s, "
+        f"gate {wall:.1f} s; {walk['launches']} kernel launches in its evals [{card}]")
+    assert rc == 0 and result["passed"], f"the learning gate failed: {result}"
+    assert result["final_map50"] > GATE_BAR["min_map50"] and result["gain"] > GATE_BAR["min_gain"]
+    return dict(launches=walk["launches"], wall_s=wall, **{
+        k: result[k] for k in ("trajectory", "final_map50", "gain", "exact_nms",
+                               "nms_delta_map50_95", "train_s")})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "yolov6_tpu_torch")):
+        print(f"chip_smoke: the yolov6_tpu_torch package is not beside this script in {ROOT}; "
+              "run it from a checkout of the repository", file=sys.stderr)
         return 2
 
     import numpy as np
@@ -1017,10 +1270,11 @@ def main() -> int:
     train_l_launches = greedy_nms.launches
     del step
 
-    # ---- 11. COCO evaluation of S and M (and S on rect batches) on a PNG set
+    # ---- 11.-13. COCO evaluation of S and M (and S on rect batches) on a PNG
+    # set, the train CLI on a train split beside it, the learning gate
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
         data = write_eval_set(root, card)
         perfect_mock_phase(data, dev, card)
         model = deploy_model(cfgs["s"], 0, dev)
@@ -1030,6 +1284,16 @@ def main() -> int:
         model = deploy_model(cfgs["m"], 1, dev)
         eval_m = eval_phase(model, "YOLOv6-M", data, dev, card)
         del model
+
+        train_data = write_train_split(root, card)
+        aug_ms = augmentation_ms(train_data, card)
+        greedy_nms.launches = 0
+        train_cli = train_cli_phase(train_data, root, dev, card)
+        train_cli_launches = greedy_nms.launches
+        greedy_nms.launches = 0
+        gate = learning_gate_phase(root, card)
+        gate_launches = greedy_nms.launches
+    assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
 
     kernels = [{
         "name": "greedy_nms",
@@ -1043,7 +1307,9 @@ def main() -> int:
                              "serve_m_folded_trained": fold_m_launches,
                              "serve_l": serve_l_launches, "train_l": train_l_launches,
                              "eval_s": eval_s["launches"], "eval_m": eval_m["launches"],
-                             "eval_s_rect": eval_s_rect["launches"]},
+                             "eval_s_rect": eval_s_rect["launches"],
+                             "train_cli_eval": train_cli_launches,
+                             "learning_gate_eval": gate_launches},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect))),
@@ -1066,6 +1332,8 @@ def main() -> int:
                                "s_rect": eval_s_rect["kernel"]},
         "eval": {name: {k: v for k, v in e.items() if k != "kernel"}
                  for name, e in (("s", eval_s), ("m", eval_m), ("s_rect", eval_s_rect))},
+        "train_cli": dict(train_cli, augmentation_ms=aug_ms),
+        "learning_gate": gate,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

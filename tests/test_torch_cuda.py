@@ -1,6 +1,6 @@
 """The port on the card: its CUDA kernels, its DFL decode and ATSS assigner,
-its training steps (S, and M with DFL) and its Evaler, against the same on
-the CPU.
+its training steps (S, and M with DFL), its Evaler and its trainer, against
+the same on the CPU.
 Every test here needs an NVIDIA GPU and skips without one; none imports JAX,
 so they run where JAX is absent:
 
@@ -27,7 +27,7 @@ from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.data_config import load_data_config
 
 from torch_port_utils import (
-    clustered_candidates, edge_centred_targets, small_m_config, small_s_config,
+    N_CONFIG, clustered_candidates, edge_centred_targets, small_m_config, small_s_config,
 )
 
 
@@ -334,3 +334,33 @@ def test_evaler_on_card_matches_cpu_decode_and_plain_keep(cuda_device, tmp_path)
                                            ev.iou_thres)
     plain_rows = ev.convert_to_coco_format(dets.cpu().numpy(), valid.cpu().numpy(), paths, shapes)
     assert rows == plain_rows
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_matches_its_cpu_data_and_eval_launches_the_kernel(cuda_device,
+                                                                           tmp_path):
+    """tools/train.py on the card (N, 64 px, 8 images, 2 epochs, mosaic then
+    letterbox): finite losses, one kernel launch per eval batch, and the
+    loader's batches equal to the CPU trainer's (the host path is the
+    same)."""
+    from yolov6_tpu_torch.tools import train as train_cli
+
+    data = generate_synth_dataset(str(tmp_path / "set"), n_train=8, n_val=4, img_size=64, nc=3,
+                                  seed=0)
+    trainers = {}
+    for device in ("cpu", "cuda"):
+        args = train_cli.get_args_parser().parse_args([
+            "--data-path", data, "--conf-file", N_CONFIG, "--img-size", "64",
+            "--img-floor", "64", "--batch-size", "4", "--epochs", "2", "--workers", "2",
+            "--eval-final-only", "--stop_aug_last_n_epoch", "1", "--max-labels", "8",
+            "--output-dir", str(tmp_path / device), "--seed", "0", "--device", device])
+        greedy_nms.launches = 0
+        trainers[device] = train_cli.main(args)
+        launches = greedy_nms.launches
+    assert launches == 1 and trainers["cuda"].eval_stats[0]["images"] == 4
+    for e in trainers["cuda"].epoch_stats:
+        assert all(math.isfinite(v) for v in e["mean_loss"]) and e["step_ms"] > 0
+    for (imgs, labels, *_), (imgs_c, labels_c, *_) in zip(trainers["cpu"].train_loader,
+                                                          trainers["cuda"].train_loader):
+        np.testing.assert_array_equal(np.asarray(imgs), np.asarray(imgs_c))
+        np.testing.assert_array_equal(labels, labels_c)

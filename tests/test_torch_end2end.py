@@ -2,6 +2,7 @@
 the port's device rule and its import boundary."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -122,12 +123,22 @@ print("MODULES", len([n for n in sys.modules if n.startswith("yolov6_tpu_torch")
 
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
-    """Importing every module of the port, its eval CLI and data modules
-    included, and chip_smoke loads none of jax, jaxlib, flax, cv2, PIL, yaml
-    or the JAX package."""
+    """Importing every module of the port (its eval and train CLIs, the
+    trainer, the learning gate and the data modules included) and chip_smoke
+    loads none of jax, jaxlib, flax, cv2, PIL, yaml or the JAX package; the
+    host augmentation library's source includes only the C++ standard
+    library and its build links nothing else."""
     res = subprocess.run([sys.executable, "-c", PORT_IMPORT_CHECK], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
-    assert int(res.stdout.split("MODULES")[1]) >= 46
+    assert int(res.stdout.split("MODULES")[1]) >= 52
+
+    from yolov6_tpu_torch.data import native_aug
+
+    with open(native_aug.SOURCE) as f:
+        includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
+    assert includes and set(includes) <= {"algorithm", "cmath", "cstdint", "cstring"}, includes
+    assert not any(flag.startswith(("-l", "-L", "-I")) for flag in native_aug.CXX_FLAGS)
+    assert os.path.dirname(native_aug.lib_path()) == os.path.join(REPO_ROOT, "build", "host")

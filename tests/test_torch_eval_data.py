@@ -137,8 +137,12 @@ def test_dataloader_raises_worker_errors(synth_set, tmp_path):
         f.write(b"\xff\xd8\xff\xe0" + head[4:])
     with pytest.raises(ValueError, match="JPEG"):
         list(loader)
-    with pytest.raises(NotImplementedError, match="augment"):
-        TrainValDataset(str(bad), augment=True)
+    # the train-mode loader (augmenting, shuffled) raises it in the consumer too
+    hyp = dict(mosaic=0.0, degrees=0.0, translate=0.1, scale=0.5, shear=0.0)
+    train_loader, _ = create_dataloader(str(bad), EVAL_IMG_SIZE, 3, hyp=hyp, augment=True,
+                                        task="train")
+    with pytest.raises(ValueError, match="JPEG"):
+        list(train_loader)
 
 
 def test_synth_generator_matches_jax_labels(tmp_path):

@@ -5,9 +5,11 @@ fp32, on the CPU, at img 160, batch 4.
 
 - On images whose long side is 160, no pixel is resized, so both packages
   see the same pixels from their own loaders; square and rect mode.
-- On resized images (cv2's and the port's resizers may differ by 1 LSB),
-  the port's Evaler runs on the JAX loader's batches, so that a difference
-  of the model cannot hide behind a pixel.
+- On resized images (shrunk with INTER_AREA, enlarged with INTER_LINEAR),
+  each package from its own loader: the port's resizers equal cv2's bit for
+  bit (tests/test_torch_letterbox.py). The port's Evaler also runs on the
+  JAX loader's batches, so that a difference of the model cannot hide
+  behind a pixel.
 
 Tolerances: the same number of COCO rows with the same image and category
 ids in order; bbox within rtol 1e-4 / atol 2e-3 px (rows are rounded to
@@ -164,6 +166,26 @@ def test_evaler_matches_jax_on_the_jax_loaders_resized_batches(sets, models, tmp
     ours.init_data(None, "val")  # writes the port's GT json, equal to the JAX one
     stats_j = JaxCOCOEvaluator(dataset_j.data_dict["anno_path"]).evaluate(rows_j)
     np.testing.assert_allclose(ours.eval_model(rows, model, None),
+                               (stats_j["AP50"], stats_j["AP"]), rtol=0, atol=AP_TOL)
+
+
+def test_evaler_matches_jax_on_resized_images(sets, models, tmp_path):
+    """Each package's own loader over the resized set: the same pixels, so
+    the same rows and AP."""
+    jmodel, theirs, model = models
+    theirs.infer_on_rect = theirs.do_pr_metric = False
+    ours = _evaler(sets["resized"], tmp_path)
+    ours.init_model(model)
+    loader = ours.init_data(None, "val")
+    loader_j, dataset_j = jax_create_dataloader(
+        sets["resized"]["val"], EVAL_IMG_SIZE, BATCH, data_dict=dict(sets["resized"]),
+        task="val")
+    for (imgs, *_), (imgs_j, *_) in zip(loader, loader_j):
+        np.testing.assert_array_equal(np.asarray(imgs), imgs_j)
+    rows, rows_j = ours.predict_model(model, loader), theirs.predict_model(jmodel, loader_j)
+    _assert_rows_equal(rows, rows_j)
+    stats_j = JaxCOCOEvaluator(dataset_j.data_dict["anno_path"]).evaluate(rows_j)
+    np.testing.assert_allclose(ours.eval_model(rows, model, loader),
                                (stats_j["AP50"], stats_j["AP"]), rtol=0, atol=AP_TOL)
 
 

@@ -232,3 +232,57 @@ def test_compute_loss_and_grads_match_jax(iou_type):
     for g, w in ((s.grad, grads_j[0]), (d.grad, grads_j[1])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-7)
 
+
+
+def test_small_n_loss_and_grads_match_jax():
+    """The loss of small N's train-mode outputs at N's config (SIoU, no DFL,
+    TAL), and its gradients with respect to the model's outputs: the two
+    packages' forwards on the same weights, each through its own loss."""
+    from yolov6_tpu.models.effidehead import flatten_head_outputs as jax_flatten
+    from yolov6_tpu.models.yolo import build_model as jax_build_model
+    from yolov6_tpu.utils.config import Config as JaxConfig
+
+    from yolov6_tpu_torch.models.effidehead import flatten_head_outputs
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.utils.config import Config
+    from yolov6_tpu_torch.utils.weights import state_dict_from_jax
+
+    from torch_port_utils import random_jax_variables, small_n_config
+
+    head = small_n_config(Config).model.head
+    assert head.iou_type == "siou" and not head.use_dfl
+    kw = dict(num_classes=NC, ori_img_size=IMG, warmup_epoch=0, use_dfl=False, reg_max=0,
+              iou_type=head.iou_type)
+    jmodel = jax_build_model(small_n_config(JaxConfig), num_classes=NC, deploy=False)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)), train=False))
+    variables = random_jax_variables(shapes, seed=19)
+    x = np.random.default_rng(20).uniform(0, 1, (3, IMG, IMG, 3)).astype(np.float32)
+    targets = _targets()
+    jloss = JaxComputeLoss(**kw)
+
+    def jfn(s, d):
+        return jloss(FEATS, s, d, jnp.asarray(targets), IMG, IMG, False)
+
+    (head_j, _), _ = jax.jit(lambda v, a: jmodel.apply(v, a, train=True, mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
+    scores_j, distri_j = jax_flatten(head_j, NC)
+    (loss_j, comp_j), grads_j = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True))(
+        scores_j, distri_j)
+
+    model = build_model(small_n_config(Config), num_classes=NC, deploy=False, device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    with torch.no_grad():
+        head_t, _ = model(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))))
+    scores, distri = flatten_head_outputs(head_t)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(scores_j), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(distri.numpy(), np.asarray(distri_j), rtol=1e-4, atol=1e-4)
+    # the same inputs to both losses: the JAX outputs
+    s, d = _t(np.asarray(scores_j)).requires_grad_(), _t(np.asarray(distri_j)).requires_grad_()
+    loss_t, comp_t = ComputeLoss(**kw)(FEATS, s, d, _t(targets), IMG, IMG, False)
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(comp_t.numpy(), np.asarray(comp_j), rtol=1e-5, atol=1e-6)
+    assert float(comp_j[0]) > 0 and float(comp_j[2]) > 0
+    for g, w in ((s.grad, grads_j[0]), (d.grad, grads_j[1])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-7)

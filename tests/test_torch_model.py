@@ -26,7 +26,7 @@ from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.weights import state_dict_from_jax
 
-from torch_port_utils import S_CONFIG, random_jax_variables, small_s_config
+from torch_port_utils import S_CONFIG, random_jax_variables, small_n_config, small_s_config
 
 
 def _nchw(x):
@@ -97,6 +97,34 @@ def test_model_decode_matches_jax():
         for mj, mt in zip(head_j[key], head_t[key]):
             np.testing.assert_allclose(_nhwc(mt), np.asarray(mj), rtol=1e-4, atol=1e-4)
     assert preds_t.shape == preds_j.shape == (2, 16 * 16 + 8 * 8 + 4 * 4, 5 + nc)
+    np.testing.assert_allclose(preds_t[..., :4], preds_j[..., :4], rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(preds_t[..., 4], preds_j[..., 4])
+    np.testing.assert_allclose(preds_t[..., 5:], preds_j[..., 5:], rtol=0, atol=1e-5)
+
+
+def test_small_n_decode_matches_jax():
+    """Small N (half of small S's widths), deploy form: every head map and
+    the decode, at the S test's tolerances."""
+    img, nc = 96, 4
+    jmodel = jax_build_model(small_n_config(JaxConfig), num_classes=nc, deploy=True)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, img, img, 3)), train=False)
+    )
+    variables = random_jax_variables(shapes, seed=5)
+    x = np.random.default_rng(6).uniform(0, 1, (2, img, img, 3)).astype(np.float32)
+    apply = jax.jit(lambda v, a: jmodel.apply(v, a, train=False))
+    head_j, _ = apply(variables, jnp.asarray(x))
+    preds_j = np.asarray(jmodel.apply(variables, head_j, method=jmodel.decode))
+
+    model = build_model(small_n_config(Config), num_classes=nc, device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    assert model.detect.stems[0].block.conv.in_channels == 8  # N's narrower neck
+    with torch.no_grad():
+        head_t, _ = model(_nchw(x))
+        preds_t = model.decode(head_t).numpy()
+    for key in ("cls", "reg"):
+        for mj, mt in zip(head_j[key], head_t[key]):
+            np.testing.assert_allclose(_nhwc(mt), np.asarray(mj), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(preds_t[..., :4], preds_j[..., :4], rtol=1e-4, atol=1e-3)
     np.testing.assert_array_equal(preds_t[..., 4], preds_j[..., 4])
     np.testing.assert_allclose(preds_t[..., 5:], preds_j[..., 5:], rtol=0, atol=1e-5)

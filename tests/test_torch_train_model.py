@@ -30,7 +30,7 @@ from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.weights import state_dict_from_jax
 
-from torch_port_utils import S_CONFIG, random_jax_variables, small_s_config
+from torch_port_utils import S_CONFIG, random_jax_variables, small_n_config, small_s_config
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 IMG, NC = 64, 3
@@ -145,6 +145,32 @@ def test_train_model_matches_jax(small_train):
     _head_close(head_t, head_e)
     assert model.training is False and build_model(
         small_s_config(Config), num_classes=NC, deploy=False, device="cpu").training
+
+
+def test_small_n_train_model_matches_jax():
+    """Small N in its train form: train-mode head maps and BN statistics,
+    then eval-mode head maps."""
+    jmodel = jax_build_model(small_n_config(JaxConfig), num_classes=NC, deploy=False)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)), train=False))
+    variables = random_jax_variables(shapes, seed=17)
+    x = np.random.default_rng(18).uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32)
+    (head_j, _), updates = jax.jit(
+        lambda v, a: jmodel.apply(v, a, train=True, mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
+    head_e, _ = jax.jit(lambda v, a: jmodel.apply(v, a, train=False))(variables, jnp.asarray(x))
+
+    model = build_model(small_n_config(Config), num_classes=NC, deploy=False, device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    with torch.no_grad():
+        head_t, _ = model(_nchw(x))
+    _head_close(head_t, head_j)
+    _stats_close(model, updates["batch_stats"])
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    model.eval()
+    with torch.no_grad():
+        head_t, _ = model(_nchw(x))
+    _head_close(head_t, head_e)
 
 
 def test_train_state_dict_keys_match_jax_export(small_train):

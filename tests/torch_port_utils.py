@@ -7,6 +7,7 @@ import types
 import numpy as np
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6n.py")
 S_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6s.py")
 M_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6m.py")
 L_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6l.py")
@@ -17,6 +18,14 @@ def _small(config_cls, path):
     cfg = config_cls.fromfile(path)
     cfg.model.depth_multiple = 0.1
     cfg.model.width_multiple = 0.125
+    return cfg
+
+
+def small_n_config(config_cls):
+    """configs/yolov6n.py cut to test size: depth 0.1 and width 0.0625, half
+    of small S's width as N's 0.25 is half of S's 0.5; N's SIoU box loss."""
+    cfg = _small(config_cls, N_CONFIG)
+    cfg.model.width_multiple = 0.0625
     return cfg
 
 
@@ -207,6 +216,8 @@ def clustered_candidates(seed, B, K, n_clusters=12, n_cls=3, zero_area=0):
 EVAL_IMG_SIZE = 160
 EVAL_SIZES = [(160, 120), (120, 160), (200, 150), (97, 61), (64, 48), (333, 250), (320, 240),
               (150, 200), (160, 160), (81, 160)]
+# chip_smoke.py's eval and train-CLI sets at img_size 640 (EVAL_SET there)
+CHIP_EVAL_SIZES = [(640, 480), (480, 640), (768, 576), (320, 240)]
 # long side 160: no pixel is resized, in square and in rect mode
 NATIVE_SIZES = [(160, 120), (120, 160), (160, 160), (160, 96)]
 

@@ -216,6 +216,37 @@ class TrainStep:
         self.step += 1
 
 
+    def _state_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"params": self._param, "bn_stats": self._stats, "bn_counts": self._counts,
+                "momentum": self._momentum, "grad_accum": self._accum,
+                "ema_params": self._ema[0], "ema_bn_stats": self._ema[1],
+                "ema_bn_counts": self._ema[2], "accum_count": self.accum_count,
+                "step": self.step, "ema_updates": self.ema_updates}
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The step's whole state as CPU copies of its flat buffers (JAX:
+        train_step.py:66-76 ``state_to_dict``): parameters (group order), BN
+        statistics and counts, momentum, the accumulator, the EMA's three
+        buffers, ``accum_count``, ``step`` and ``ema_updates``."""
+        return {k: v.detach().to("cpu", copy=True) for k, v in self._state_tensors().items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy a ``state_dict()`` into the step's buffers in place, so that the
+        model and the EMA, views of them, continue from it bit for bit."""
+        own = self._state_tensors()
+        if set(state) != set(own):
+            raise ValueError(f"train state keys {sorted(state)} differ from the step's "
+                             f"{sorted(own)}")
+        for key, dst in own.items():
+            src = state[key]
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"train state {key}: {src.dtype} {tuple(src.shape)}, the step "
+                                 f"holds {dst.dtype} {tuple(dst.shape)} (another model?)")
+        for key, dst in own.items():
+            dst.copy_(state[key])
+
+
 def make_train_step(model, compute_loss, solver_cfg: Dict, max_stepnum: int, epochs: int,
                     batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
                     half: bool = True, device="cuda") -> TrainStep:

@@ -3,9 +3,11 @@
 
 Fixed-shape batches: the last partial batch is padded by repeating its last
 sample and carries the count of real ones, so the eval function sees one
-batch shape. A thread pool decodes the samples (zlib and most numpy
-operations release the GIL; the Python around them holds it) and fills a
-bounded queue; an error in it reaches the consumer. With
+batch shape; a training loader shuffles with the JAX permutation
+(``random.Random(seed + epoch).shuffle``) and drops the partial batch. A
+thread pool decodes the samples (zlib and most numpy operations release the
+GIL; the Python around them holds it) and fills a bounded queue; an error in
+it reaches the consumer. With
 ``pin_memory`` the image batch is collated straight into pinned host memory,
 so that the copy to the card can be non-blocking (the port's replacement for
 the JAX package's ``prefetch_to_device``).
@@ -14,6 +16,7 @@ the JAX package's ``prefetch_to_device``).
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from multiprocessing.pool import ThreadPool
 from typing import Iterator, Optional
@@ -37,26 +40,41 @@ class DataLoader:
         self,
         dataset: TrainValDataset,
         batch_size: int,
+        shuffle: bool = False,
         num_workers: int = 4,
         max_labels: int = 120,
+        seed: int = 0,
         shard_id: int = 0,
         num_shards: int = 1,
+        drop_last: bool = False,
         prefetch: int = 4,
         pad_shards: bool = True,
         pin_memory: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.max_labels = max_labels
+        self.seed = seed
+        self.epoch = 0
         self.shard_id = shard_id
         self.num_shards = num_shards
+        self.drop_last = drop_last
         self.prefetch = prefetch
         self.pad_shards = pad_shards
         self.pin_memory = pin_memory
 
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch of the next iteration: it sets the permutation and the
+        dataset's per-sample draws."""
+        self.epoch = epoch
+        self.dataset.epoch = epoch
+
     def _indices(self):
         idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
         # a contiguous shard; pad_shards=False drops the wrap-around fill,
         # which eval needs so that no detection is counted twice
         if self.num_shards > 1:
@@ -66,7 +84,8 @@ class DataLoader:
         return idx
 
     def __len__(self):
-        return int(np.ceil(len(self._indices()) / self.batch_size))
+        n = len(self._indices())
+        return n // self.batch_size if self.drop_last else int(np.ceil(n / self.batch_size))
 
     def _collate(self, samples):
         n_valid = len(samples)
@@ -94,6 +113,8 @@ class DataLoader:
         indices = self._indices()
         batches = [indices[i: i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -142,6 +163,7 @@ def create_dataloader(
     *,
     stride: int = 32,
     hyp: Optional[dict] = None,
+    augment: bool = False,
     pad: float = 0.0,
     rect: bool = False,
     data_dict: Optional[dict] = None,
@@ -155,18 +177,21 @@ def create_dataloader(
     num_shards: int = 1,
     pad_shards: bool = True,
     pin_memory: bool = False,
+    seed: int = 0,
 ):
-    """The eval loader over ``path`` in the dataset's order (reference:
-    data_load.py:206-266, without augmentation, shuffling and the RAM and
-    disk caches). Returns ``(loader, dataset)``."""
+    """The loader over ``path`` (reference: data_load.py:206-266, without the
+    RAM and disk caches). With ``augment`` the dataset augments and the
+    loader shuffles and drops the last partial batch, as the JAX package's
+    does; ``seed`` seeds the permutation and the dataset's draws. Returns
+    ``(loader, dataset)``."""
     dataset = TrainValDataset(
-        path, img_size=img_size, batch_size=batch_size, hyp=hyp, rect=rect, stride=stride,
-        pad=pad, data_dict=data_dict, task=task, specific_shape=specific_shape,
-        height=height, width=width,
+        path, img_size=img_size, batch_size=batch_size, augment=augment, hyp=hyp, rect=rect,
+        stride=stride, pad=pad, data_dict=data_dict, task=task, specific_shape=specific_shape,
+        height=height, width=width, seed=seed,
     )
     loader = DataLoader(
-        dataset, batch_size=batch_size, num_workers=num_workers, max_labels=max_labels,
-        shard_id=shard_id, num_shards=num_shards, pad_shards=pad_shards,
-        pin_memory=pin_memory,
+        dataset, batch_size=batch_size, shuffle=augment, num_workers=num_workers,
+        max_labels=max_labels, seed=seed, shard_id=shard_id, num_shards=num_shards,
+        drop_last=augment, pad_shards=pad_shards, pin_memory=pin_memory,
     )
     return loader, dataset

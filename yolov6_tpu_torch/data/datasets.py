@@ -1,10 +1,17 @@
-"""YOLO-format dataset, eval mode (port of yolov6_tpu/data/datasets.py:93-689).
+"""YOLO-format dataset (port of yolov6_tpu/data/datasets.py:93-689).
 
 The scan, the label cache, rect batching, the ratio-keeping pre-resize with
 ``shrink_size``, the letterbox and the COCO ground-truth JSON, on numpy and
-the standard library: images are PNG, read by ``data/image_io.py``. The
-training augmentations (mosaic, mixup, affine, HSV, flips) come with the
-trainer; ``augment=True`` raises ``NotImplementedError``.
+the standard library: images are PNG, read by ``data/image_io.py``.
+
+With ``augment=True`` a sample takes the JAX package's native train path
+(datasets.py:396-640): with probability ``mosaic``, four images in a mosaic
+under a random affine (optionally mixed up with a second mosaic), else the
+letterbox and a random affine; then the HSV jitter and the flips. The pixel
+passes are ``data/native_aug.py``'s C++ library; every random value is drawn
+from a ``Draws`` seeded by ``(seed, epoch, index)``, so a sample does not
+depend on which loader thread made it. The JAX package's RAM and disk image
+caches and its JPEG decoder are not ported.
 
 The label cache and the COCO GT file have names of their own
 (``.{dir}.torch_cache.json``, ``.{dir}_torch_coco_gt.json``), so that the
@@ -25,7 +32,15 @@ from typing import List, Optional
 
 import numpy as np
 
-from yolov6_tpu_torch.data.data_augment import letterbox, resize_area, resize_linear
+from yolov6_tpu_torch.data import native_aug
+from yolov6_tpu_torch.data.data_augment import (
+    Draws,
+    augment_hsv_rgb,
+    letterbox,
+    resize_area,
+    resize_linear,
+    sample_seed,
+)
 from yolov6_tpu_torch.data.image_io import image_size, imread
 
 LOGGER = logging.getLogger(__name__)
@@ -45,9 +60,11 @@ def get_hash(paths: List[str]) -> str:
 
 
 class TrainValDataset:
-    """YOLO-format dataset in eval mode. ``__getitem__`` returns
-    ``(img RGB HWC uint8, labels [n, 5] (cls, cx, cy, w, h normalised),
-    path, ((h0, w0), ((ry, rx), (pad_w, pad_h))))``."""
+    """YOLO-format dataset. ``__getitem__`` returns ``(img RGB HWC uint8,
+    labels [n, 5] (cls, cx, cy, w, h normalised), path, shapes)``, where
+    ``shapes`` is ``((h0, w0), ((ry, rx), (pad_w, pad_h)))``, or None for a
+    mosaic sample. With ``augment``, sample ``index`` of epoch ``epoch``
+    draws from ``Draws(sample_seed(seed, epoch, index))``."""
 
     def __init__(
         self,
@@ -64,11 +81,11 @@ class TrainValDataset:
         specific_shape: bool = False,
         height: Optional[int] = None,
         width: Optional[int] = None,
+        seed: int = 0,
     ):
-        if augment:
-            raise NotImplementedError(
-                "the training augmentations (mosaic, mixup, affine, HSV) are not ported; "
-                "the port's dataset runs in eval mode (augment=False)")
+        if augment and (rect or specific_shape or (hyp or {}).get("shrink_size")):
+            raise ValueError("augment=True takes no rect batches, specific_shape or "
+                             "shrink_size (the port's train path has none of them)")
         self.img_dir = img_dir
         self.img_size = img_size
         self.batch_size = batch_size
@@ -82,6 +99,8 @@ class TrainValDataset:
         self.specific_shape = specific_shape
         self.target_height = height
         self.target_width = width
+        self.seed = seed
+        self.epoch = 0
 
         self.img_paths, self.labels, self.shapes = self._load_annotations(img_dir)
         self.n = len(self.img_paths)
@@ -220,26 +239,83 @@ class TrainValDataset:
             im = resize(im, (int(w0 * ratio), int(h0 * ratio)))
         return im, (h0, w0), im.shape[:2]
 
+    def load_image_rgb(self, index):
+        """The train path's decode and pre-resize (JAX: datasets.py:396-459
+        ``_load_image_rgb``): RGB, INTER_LINEAR to ``img_size / max(h0, w0)``
+        whatever the size. Returns ``(RGB image, (h0, w0), (h, w))``."""
+        im = np.ascontiguousarray(imread(self.img_paths[index])[:, :, ::-1])
+        h0, w0 = im.shape[:2]
+        ratio = self.img_size / max(h0, w0)
+        dst_h, dst_w = int(h0 * ratio), int(w0 * ratio)
+        if (dst_h, dst_w) != (h0, w0):
+            im = resize_linear(im, (dst_w, dst_h))
+        return im, (h0, w0), im.shape[:2]
+
+    def _one_mosaic(self, index, target_hw, rng: Draws, flip_lr, flip_ud):
+        """One mosaic of ``index`` and three drawn images (JAX:
+        datasets.py:461-481). Returns ``(RGB image, labels xyxy)``."""
+        indices = [index] + rng.py.choices(range(self.n), k=3)
+        rng.py.shuffle(indices)
+        imgs = [self.load_image_rgb(i)[0] for i in indices]
+        return native_aug.mosaic_affine(imgs, [self.labels[i] for i in indices], self.hyp, rng,
+                                        target_hw[0], target_hw[1], flip_lr, flip_ud)
+
+    def _mosaic_sample(self, index, target_hw, rng: Draws):
+        """The mosaic branch (JAX: datasets.py:483-517): flips drawn first and
+        applied in the warp, the optional mixup with a second mosaic, then
+        the HSV jitter. Returns ``(image, labels xyxy, flip_lr, flip_ud)``."""
+        flip_lr, flip_ud = native_aug.draw_flips(self.hyp, rng)
+        img, labels = self._one_mosaic(index, target_hw, rng, flip_lr, flip_ud)
+        if rng.py.random() < self.hyp.get("mixup", 0.0):
+            img2, labels2 = self._one_mosaic(rng.py.randint(0, self.n - 1), target_hw, rng,
+                                             flip_lr, flip_ud)
+            native_aug.blend(img, img2, rng.np.beta(32.0, 32.0))
+            labels = np.concatenate((labels, labels2), 0)
+        augment_hsv_rgb(img, native_aug.draw_hsv_gains(self.hyp, rng))
+        return img, labels, flip_lr, flip_ud
+
     def __getitem__(self, index):
         target_shape = (
             (self.target_height, self.target_width) if self.specific_shape
             else self.batch_shapes[self.batch_indices[index]] if self.rect
             else self.img_size
         )
-        shrink = self.hyp.get("shrink_size") if self.hyp else None
-        img, (h0, w0), (h, w) = self.load_image(index, shrink)
-        img, ratio, pad = letterbox(img, target_shape, auto=False, scaleup=False)
-        shapes = (h0, w0), ((h * ratio / h0, w * ratio / w0), pad)
+        target_hw = ((target_shape, target_shape) if isinstance(target_shape, int)
+                     else tuple(int(v) for v in target_shape))
+        rng = Draws(sample_seed(self.seed, self.epoch, index)) if self.augment else None
+        flips = None  # the train path's pixel flips, applied to the labels below
 
-        labels = self.labels[index].copy()
-        if labels.size:
-            w_r, h_r = w * ratio, h * ratio
-            boxes = np.copy(labels[:, 1:])
-            boxes[:, 0] = w_r * (labels[:, 1] - labels[:, 3] / 2) + pad[0]
-            boxes[:, 1] = h_r * (labels[:, 2] - labels[:, 4] / 2) + pad[1]
-            boxes[:, 2] = w_r * (labels[:, 1] + labels[:, 3] / 2) + pad[0]
-            boxes[:, 3] = h_r * (labels[:, 2] + labels[:, 4] / 2) + pad[1]
-            labels[:, 1:] = boxes
+        if self.augment and rng.py.random() < self.hyp.get("mosaic", 0.0):
+            img, labels, *flips = self._mosaic_sample(index, target_hw, rng)
+            shapes = None
+        else:
+            if self.augment:
+                img, (h0, w0), (h, w) = self.load_image_rgb(index)
+                img, ratio, pad = native_aug.letterbox(img, target_hw, scaleup=True)
+            else:
+                shrink = self.hyp.get("shrink_size") if self.hyp else None
+                img, (h0, w0), (h, w) = self.load_image(index, shrink)
+                img, ratio, pad = letterbox(img, target_shape, auto=False, scaleup=False)
+            shapes = (h0, w0), ((h * ratio / h0, w * ratio / w0), pad)
+
+            labels = self.labels[index].copy()
+            if labels.size:
+                w_r, h_r = w * ratio, h * ratio
+                boxes = np.copy(labels[:, 1:])
+                boxes[:, 0] = w_r * (labels[:, 1] - labels[:, 3] / 2) + pad[0]
+                boxes[:, 1] = h_r * (labels[:, 2] - labels[:, 4] / 2) + pad[1]
+                boxes[:, 2] = w_r * (labels[:, 1] + labels[:, 3] / 2) + pad[0]
+                boxes[:, 3] = h_r * (labels[:, 2] + labels[:, 4] / 2) + pad[1]
+                labels[:, 1:] = boxes
+
+            if self.augment:
+                flips = native_aug.draw_flips(self.hyp, rng)
+                img, labels = native_aug.affine(
+                    img, labels, degrees=self.hyp.get("degrees", 0.0),
+                    translate=self.hyp.get("translate", 0.1), scale=self.hyp.get("scale", 0.5),
+                    shear=self.hyp.get("shear", 0.0), new_shape=target_hw, rng=rng,
+                    flip_lr=flips[0], flip_ud=flips[1])
+                augment_hsv_rgb(img, native_aug.draw_hsv_gains(self.hyp, rng))
 
         if len(labels):
             h, w = img.shape[:2]
@@ -252,7 +328,16 @@ class TrainValDataset:
             boxes[:, 3] = (labels[:, 4] - labels[:, 2]) / h
             labels[:, 1:] = boxes
 
-        img = np.ascontiguousarray(img[:, :, ::-1])  # BGR -> RGB, keep HWC
+        if flips is None:
+            img = np.ascontiguousarray(img[:, :, ::-1])  # BGR -> RGB, keep HWC
+        elif len(labels):
+            # the pixels were flipped in the warp; the labels follow in the
+            # JAX order, flipud then fliplr
+            flip_lr, flip_ud = flips
+            if flip_ud:
+                labels[:, 2] = 1 - labels[:, 2]
+            if flip_lr:
+                labels[:, 1] = 1 - labels[:, 1]
         return img, labels.astype(np.float32), self.img_paths[index], shapes
 
     # --------------------------------------------------------- COCO GT json

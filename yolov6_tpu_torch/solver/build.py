@@ -10,7 +10,7 @@ step needs no value on the host.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -104,10 +104,14 @@ def sgd_update(grads: Sequence[torch.Tensor], momentum_bufs: Sequence[torch.Tens
     return new_p, new_b
 
 
-def scale_hyperparams_for_batch(solver_cfg: Dict, batch_size: int):
-    """Weight-decay batch rescale (JAX: build.py:166-173, single device: no
-    LR rescale)."""
+def scale_hyperparams_for_batch(solver_cfg: Dict, batch_size: int,
+                                world_batch: Optional[int] = None):
+    """Weight-decay batch rescale, and with ``world_batch`` (the trainer's
+    ``--bs_per_device`` times the device count) the LR rescale
+    ``lr0 · batch_size / world_batch`` (JAX: build.py:166-173)."""
     accumulate = max(1, round(64 / batch_size))
     out = dict(solver_cfg)
     out["weight_decay"] = solver_cfg["weight_decay"] * batch_size * accumulate / 64
+    if world_batch:
+        out["lr0"] = solver_cfg["lr0"] * batch_size / world_batch
     return out

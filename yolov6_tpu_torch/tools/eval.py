@@ -16,28 +16,14 @@ import argparse
 import logging
 import os
 import os.path as osp
-from pathlib import Path
 
 from yolov6_tpu_torch.core.evaler import Evaler
 from yolov6_tpu_torch.utils.checkpoint import load_state_dict_file
 from yolov6_tpu_torch.utils.config import Config
+from yolov6_tpu_torch.utils.general import increment_name
 
 LOGGER = logging.getLogger(__name__)
 REPO_ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
-
-
-def increment_name(path):
-    """A path that does not exist yet: ``path``, else ``path`` with a counter
-    appended (the port's own copy of yolov6_tpu/utils/general.py:13-26)."""
-    path = Path(path)
-    if path.exists():
-        path, suffix = (path.with_suffix(""), path.suffix) if path.is_file() else (path, "")
-        for n in range(1, 9999):
-            p = f"{path}{n}{suffix}"
-            if not os.path.exists(p):
-                break
-        path = Path(p)
-    return path
 
 
 def get_args_parser(add_help=True):

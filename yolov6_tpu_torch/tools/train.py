@@ -1,0 +1,127 @@
+"""Training CLI (port of tools/train.py):
+
+    python -m yolov6_tpu_torch.tools.train --data-path <set>/data.json \
+        --conf-file configs/yolov6s.py --img-size 640 --batch-size 32 --bf16
+
+``--device`` defaults to ``cuda`` and raises without it. A run writes under
+``<output-dir>/<name>[n]/``: ``args.yaml`` and ``weights/`` (``last_ckpt.pt``,
+``best_ckpt.pt``, ``<epoch>_ckpt.pt`` for the last ``--save_ckpt_on_last_n_epoch``
+epochs, ``best_stop_aug_ckpt.pt``); the final ``last_ckpt.pt`` and
+``best_ckpt.pt`` hold the EMA only, and ``tools/eval.py`` reads them.
+``--resume [ckpt]`` continues a run from its checkpoint (the latest
+``last*_ckpt*`` under the working directory without one), with the run's
+saved ``args.yaml`` winning over the command line. Flags of later slices
+raise ``NotImplementedError`` (``core/engine.py::check_supported``); the JAX
+CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,
+``--check-images``/``--check-labels`` and the unused ``--dist_url``/
+``--gpu_count`` are not in this parser.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import random
+
+import numpy as np
+
+from yolov6_tpu_torch.core.engine import Trainer, check_supported
+from yolov6_tpu_torch.utils.config import Config
+from yolov6_tpu_torch.utils.events import LOGGER, load_yaml, save_yaml
+from yolov6_tpu_torch.utils.general import check_img_size, find_latest_checkpoint, increment_name
+
+
+def get_args_parser(add_help=True):
+    parser = argparse.ArgumentParser(description="YOLOv6 training (PyTorch port)",
+                                     add_help=add_help)
+    parser.add_argument("--data-path", default="./data/coco.yaml", type=str,
+                        help="dataset description, .json or flat .yaml")
+    parser.add_argument("--conf-file", default="./configs/yolov6n.py", type=str)
+    parser.add_argument("--img-size", default=640, type=int)
+    parser.add_argument("--batch-size", default=32, type=int)
+    parser.add_argument("--epochs", default=400, type=int)
+    parser.add_argument("--workers", default=8, type=int, help="loader threads")
+    parser.add_argument("--eval-interval", default=20, type=int)
+    parser.add_argument("--eval-final-only", action="store_true")
+    parser.add_argument("--heavy-eval-range", default=50, type=int)
+    parser.add_argument("--output-dir", default="./runs/train", type=str)
+    parser.add_argument("--name", default="exp", type=str)
+    parser.add_argument("--resume", nargs="?", const=True, default=False)
+    parser.add_argument("--write_trainbatch_tb", action="store_true")
+    parser.add_argument("--stop_aug_last_n_epoch", default=15, type=int)
+    parser.add_argument("--save_ckpt_on_last_n_epoch", default=-1, type=int)
+    parser.add_argument("--distill", action="store_true")
+    parser.add_argument("--quant", action="store_true")
+    parser.add_argument("--calib", action="store_true")
+    parser.add_argument("--fuse_ab", action="store_true")
+    parser.add_argument("--bs_per_device", default=None, type=int,
+                        help="per-device batch used to rescale lr0 (reference --bs_per_gpu)")
+    parser.add_argument("--cache-ram", action="store_true")
+    parser.add_argument("--cache", default=None, choices=["ram", "disk"])
+    parser.add_argument("--max-labels", type=int, default=120,
+                        help="fixed per-image label padding of the step")
+    parser.add_argument("--seed", type=int, default=1,
+                        help="seeds the weights' init, the shuffle and the augmentation")
+    parser.add_argument("--log-interval", type=int, default=50)
+    parser.add_argument("--img-floor", type=int, default=256,
+                        help="minimum training image size (reference floors at 256)")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler over steps 2-4 of the first epoch, to "
+                             "<save_dir>/profile")
+    parser.add_argument("--ckpt-backend", default="torch", choices=["torch", "orbax"])
+    parser.add_argument("--bf16", action="store_true",
+                        help="bf16 autocast in the forward (the reference's AMP analog)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu; cuda raises when there is no GPU")
+    return parser
+
+
+def check_and_init(args):
+    """The save dir, resume with the run's saved args, the image size and the
+    seeds; writes ``args.yaml`` (reference: tools/train.py:65-109). Returns
+    the config."""
+    if args.resume:
+        checkpoint_path = (args.resume if isinstance(args.resume, str)
+                           else find_latest_checkpoint())
+        if not checkpoint_path or not os.path.exists(checkpoint_path):
+            raise FileNotFoundError(f"resume checkpoint {checkpoint_path!r} not found")
+        save_dir = osp.dirname(osp.dirname(osp.normpath(checkpoint_path)))
+        args_yaml = osp.join(save_dir, "args.yaml")
+        if osp.exists(args_yaml):
+            saved = load_yaml(args_yaml)
+            saved.pop("resume", None)
+            vars(args).update(saved)
+        else:
+            LOGGER.warning(f"no args.yaml found under {save_dir}; using the command line's")
+        args.save_dir = save_dir
+        args.resume = checkpoint_path
+        LOGGER.info(f"Resume training from checkpoint {checkpoint_path}")
+    else:
+        args.save_dir = str(increment_name(osp.join(args.output_dir, args.name)))
+
+    cfg = Config.fromfile(args.conf_file)
+    if "training_mode" not in cfg:
+        cfg.training_mode = "repvgg"
+    check_supported(args, cfg)
+    os.makedirs(args.save_dir, exist_ok=True)
+
+    args.img_size = check_img_size(args.img_size, 32, floor=args.img_floor)
+
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    save_yaml(vars(args), osp.join(args.save_dir, "args.yaml"))
+    return cfg
+
+
+def main(args):
+    """Train; returns the ``Trainer`` (its ``epoch_stats``, ``eval_stats``
+    and ``profile_result``)."""
+    cfg = check_and_init(args)
+    trainer = Trainer(args, cfg)
+    trainer.train()
+    return trainer
+
+
+if __name__ == "__main__":
+    main(get_args_parser().parse_args())

@@ -1,9 +1,13 @@
-"""Load a saved state dict into the deploy graph.
+"""Checkpoints: the trainer's save, strip and resume, and loading a saved
+state dict into the deploy graph (port of yolov6_tpu/utils/checkpoint.py:28-62).
 
-The JAX package reads its msgpack checkpoints (yolov6_tpu/utils/checkpoint.py);
-the port reads what ``torch.save`` wrote: a state dict, bare or under
-``'ema'`` or ``'model'`` (the EMA first, as the reference's eval takes it).
-A train-form dict (RepVGG's three branches, conv+BN) is folded into the
+The JAX package writes msgpack; the port writes with ``torch.save`` a dict
+of ``train_state`` (``TrainStep.state_dict()``), ``model`` and ``ema`` (the
+train-form state dicts), ``epoch`` and ``results`` ((AP50, AP) of the last
+eval), every tensor on the CPU. ``strip_optimizer`` leaves ``model`` (the
+EMA) and ``epoch``. ``load_state_dict_file`` reads a state dict, bare or
+under ``'ema'`` or ``'model'`` (the EMA first, as the reference's eval takes
+it), and folds a train-form dict (RepVGG's three branches, conv+BN) into the
 deploy form by ``layers/reparam.py::fold_to_deploy``. The JAX package's
 weights reach the port through ``utils/weights.py::state_dict_from_jax``.
 """
@@ -11,6 +15,9 @@ weights reach the port through ``utils/weights.py::state_dict_from_jax``.
 from __future__ import annotations
 
 import os
+import os.path as osp
+import shutil
+from typing import Any, Dict
 
 import torch
 
@@ -43,3 +50,38 @@ def load_state_dict_file(path: str, cfg, device="cuda") -> Model:
                         device=device)
     model.load_state_dict(obj, strict=True)
     return model
+
+
+def save_checkpoint(ckpt: Dict[str, Any], is_best: bool, save_dir: str,
+                    model_name: str = "last_ckpt") -> str:
+    """``torch.save`` ``ckpt`` to ``<save_dir>/<model_name>.pt`` (written to a
+    temporary name, then renamed), and copy it to ``best_ckpt.pt`` when
+    ``is_best`` (reference: checkpoint.py:35-43). Returns the path."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = osp.join(save_dir, f"{model_name}.pt")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+    if is_best:
+        shutil.copyfile(path, osp.join(save_dir, "best_ckpt.pt"))
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint written by ``save_checkpoint``, its tensors on the CPU
+    (read with ``weights_only=True``)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint {path} not found")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def strip_optimizer(ckpt_dir: str, epoch: int) -> None:
+    """Keep only the EMA weights, as ``model``, and the epoch in the final
+    ``best_ckpt.pt`` and ``last_ckpt.pt`` (reference: checkpoint.py:46-61)."""
+    for name in ("best_ckpt", "last_ckpt"):
+        path = osp.join(ckpt_dir, f"{name}.pt")
+        if not osp.exists(path):
+            continue
+        ckpt = load_checkpoint(path)
+        out = {"model": ckpt.get("ema") or ckpt.get("model"), "epoch": ckpt.get("epoch", epoch)}
+        save_checkpoint(out, False, ckpt_dir, name)
