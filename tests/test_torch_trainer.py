@@ -101,6 +101,11 @@ def test_resume_takes_the_saved_args(tiny_set, tmp_path):
     trainer.epoch = trainer.start_epoch
     trainer.before_epoch()
     assert trainer.train_loader.dataset.hyp["mosaic"] == 0.0
+    # the finished run's last_ckpt.pt is stripped: no train state to resume
+    stripped = train_cli.get_args_parser().parse_args(
+        ["--resume", osp.join(args.save_dir, "weights", "last_ckpt.pt"), "--device", "cpu"])
+    with pytest.raises(ValueError, match="no train state"):
+        Trainer(stripped, train_cli.check_and_init(stripped))
 
 
 def test_resume_continues_bit_for_bit(tiny_set, tmp_path):

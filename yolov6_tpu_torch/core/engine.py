@@ -113,6 +113,10 @@ class Trainer:
         self.evaluate_results = (0.0, 0.0)
         if args.resume:
             ckpt = load_checkpoint(args.resume)
+            if "train_state" not in ckpt:
+                raise ValueError(f"{args.resume} holds no train state (a finished run's "
+                                 "last_ckpt.pt is stripped to the EMA); resume from an "
+                                 "<epoch>_ckpt.pt or an unfinished run's last_ckpt.pt")
             self.train_step.load_state_dict(ckpt["train_state"])
             self.start_epoch = int(ckpt["epoch"]) + 1
             self.evaluate_results = tuple(float(v) for v in ckpt.get("results", (0.0, 0.0)))
