@@ -48,7 +48,8 @@ Phases, each of which asserts:
      (the deploy models of phases 3 and 8) at b32@640 in bf16 at the eval
      protocol, and S again with ``infer_on_rect``: one kernel launch per
      batch, the tile walk in every image of every batch, the kernel's keep
-     equal to the plain emit-once keep on the first batch's candidates, COCO
+     equal to the plain emit-once keep on the counted run's first batch
+     with a candidate (its inputs recorded as it ran), COCO
      rows found and AP finite in [0, 1]; it logs imgs/s, the per-batch split
      (loader wait, the host's time to queue the batch function, copy, host
      conversion; also over batches built beforehand, with no loader thread
@@ -59,10 +60,13 @@ Phases, each of which asserts:
      YOLOv6-S (80 classes, the config's data_aug: mosaic 1.0, mixup 0.0)
      b32@640 in bf16 for 2 epochs, epoch 0 on the mosaic branch and epoch 1
      on the letterbox+affine branch, with one in-training eval of the 320
-     val images, then resumes from the epoch-1 checkpoint for a third epoch:
-     every loss finite, the checkpoints written, the resumed step's state
-     equal to the saved one and its first epoch 2, one kernel launch per
-     eval batch with the tile walk in every image, and the stripped final
+     val images (at conf 0 through the config's eval_params, so that the
+     barely trained model gives the kernel candidates), then resumes from
+     the epoch-1 checkpoint for a third epoch: every loss finite, the
+     checkpoints written, the resumed step's state equal to the saved one
+     and its first epoch 2, one kernel launch per eval batch with the tile
+     walk in every image, each run's first eval batch with a candidate kept
+     as the plain emit-once keep keeps it, and the stripped final
      checkpoint loaded into the deploy graph (strict) through the fold; it
      logs imgs/s per epoch with the loader, the loader wait and the step's
      time (CUDA events) a step, the augmentation's host ms an image (the C++
@@ -70,8 +74,11 @@ Phases, each of which asserts:
      epoch 0, and the in-training eval's imgs/s;
  13. the learning gate (``tools/learning_gate.py`` at its defaults: YOLOv6-N,
      160 px, 256 train and 64 val images, 4 classes, 30 epochs, batch 16,
-     seed 0, the exact-NMS pass on): final mAP50 > 0.75 and a gain > 0.20;
-     it logs the trajectory, the exact-NMS delta and the wall time.
+     seed 0, the exact-NMS pass on): final mAP50 > 0.75 and a gain > 0.20,
+     the tile walk in every image of its evals, and the first batch with a
+     candidate of its in-training eval, of its checkpoint evals and of its
+     exact-NMS pass each kept as the plain emit-once keep keeps it; it logs
+     the trajectory, the exact-NMS delta and the wall time.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -757,14 +764,18 @@ def perfect_mock_phase(data: dict, dev, card: str) -> None:
 
 
 class KeepRecorder:
-    """Records, while active, every launch of the default keep: its path and
-    tiles per image and its K (the eval paths' kernel checks)."""
+    """Records, while active, every launch of the default keep: its path,
+    tiles per image and K; and, for each ``label`` set while it is active,
+    the inputs and outputs of the first launch that has a candidate, which
+    ``check`` holds against the plain keep (the eval paths' kernel checks)."""
 
-    def __init__(self):
+    def __init__(self, label: str = "eval"):
         from yolov6_tpu_torch.ops import nms as nms_mod
 
         self.nms_mod = nms_mod
+        self.label = label
         self.walks = []
+        self.first = {}
 
     def __enter__(self):
         from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
@@ -772,11 +783,16 @@ class KeepRecorder:
         keep, self.rule = self.nms_mod._KEEPS[None]
         self.keep = keep
 
-        def recording_keep(boxes, scores, *args, **kwargs):
-            out = keep(boxes, scores, *args, **kwargs)
-            self.walks.append((greedy_nms.last_path.clone(), greedy_nms.last_tiles.clone(),
-                               boxes.shape[1]))
-            return out
+        def recording_keep(boxes, scores, max_det, iou_thres, emit_once=True):
+            idx, valid = keep(boxes, scores, max_det, iou_thres, emit_once=emit_once)
+            tiles = greedy_nms.last_tiles.clone()
+            self.walks.append((greedy_nms.last_path.clone(), tiles, boxes.shape[1]))
+            if self.label not in self.first and bool((scores > 0).any()):
+                self.first[self.label] = dict(
+                    boxes=boxes.clone(), scores=scores.clone(), max_det=max_det,
+                    iou_thres=iou_thres, emit_once=emit_once, idx=idx.clone(),
+                    valid=valid.clone(), tiles=tiles)
+            return idx, valid
 
         self.nms_mod._KEEPS[None] = (recording_keep, self.rule)
         return self
@@ -784,15 +800,36 @@ class KeepRecorder:
     def __exit__(self, *exc):
         self.nms_mod._KEEPS[None] = (self.keep, self.rule)
 
-    def check(self, what: str, n_images: int) -> dict:
+    def check(self, what: str, n_images: int, labels=("eval",)) -> dict:
+        """Every image took the tile walk and the walk visited tiles; for
+        each of ``labels``, its first launch with a candidate equals the
+        plain keep under its rule, and each of its images with a candidate
+        visited a tile. Returns the launches, the mean tiles an image, the
+        K seen, the largest index error and, by label, that first launch."""
         import torch
+
+        from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms_plain
 
         paths = torch.cat([p for p, _, _ in self.walks]).tolist()
         assert paths == [1] * len(paths), f"{what}: not every image took the tile walk"
         assert len(paths) >= n_images, f"{what}: {len(paths)} images walked, {n_images} evaluated"
-        return dict(launches=len(self.walks),
-                    tiles_visited=float(torch.cat([t for _, t, _ in self.walks]).float().mean()),
-                    K=sorted({k for _, _, k in self.walks}))
+        tiles = float(torch.cat([t for _, t, _ in self.walks]).float().mean())
+        assert tiles > 0, f"{what}: the walk visited no tile"
+        err = 0.0
+        for label in labels:
+            assert label in self.first, f"{what}: no launch of {label} had a candidate"
+            f = self.first[label]
+            idx_p, valid_p = greedy_nms_plain(f["boxes"], f["scores"], f["max_det"],
+                                              f["iou_thres"], emit_once=f["emit_once"])
+            assert torch.equal(f["idx"], idx_p) and torch.equal(f["valid"], valid_p), \
+                f"{what}: the kernel's keep differs from the plain keep on {label}'s candidates"
+            has = (f["scores"] > 0).any(1)
+            assert (f["tiles"][has] > 0).all(), f"{what}: an image of {label} visited no tile"
+            f["kept"] = int(f["valid"].sum())
+            err = max(err, float((f["idx"] - idx_p).abs().max()))
+        return dict(launches=len(self.walks), tiles_visited=tiles,
+                    K=sorted({k for _, _, k in self.walks}), max_abs_err=err,
+                    first={label: self.first[label] for label in labels})
 
 
 def split_per_batch(batch_split) -> dict:
@@ -809,12 +846,11 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     at b32@640 in bf16 at the eval protocol (conf 0.03, IoU 0.65,
     multi-label, max_nms 8192, max_det 300), with the asserts of the module
     doc, then a profiled pass for the device's own time and idle share, a
-    pass over batches built beforehand, and the kernel against the plain
-    emit-once keep on the first batch's candidates. Returns the numbers."""
+    pass over batches built beforehand, and the kernel timed on the counted
+    run's first batch with a candidate. Returns the numbers."""
     import torch
 
     from yolov6_tpu_torch.core.evaler import Evaler
-    from yolov6_tpu_torch.ops import nms as nms_mod
     from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
 
     tag = "[11]"
@@ -922,33 +958,24 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
         f"{device} (profiled pass); predict_model {n_img / wall:.1f} / {n_img / pre_wall:.1f} "
         f"imgs/s [{card}]")
 
-    # the kernel on the first batch's own candidates, against the plain keep
-    imgs = torch.as_tensor(next(iter(loader))[0]).to(dev)
-    with torch.inference_mode():
-        preds = evaler._decode(imgs)
-        _, nms_boxes, scores, _ = nms_mod._select_candidates(
-            preds, evaler.conf_thres, evaler.max_nms, True, False, None,
-            row_select=evaler.row_select)
-    nms_boxes, scores = nms_boxes.contiguous(), scores.contiguous()
-    md, iou = evaler.max_det, evaler.iou_thres
-    idx_k, valid_k = greedy_nms(nms_boxes, scores, md, iou)
-    idx_p, valid_p = greedy_nms_plain(nms_boxes, scores, md, iou, emit_once=True)
-    torch.cuda.synchronize()
-    assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p), \
-        f"{what}: the kernel's keep differs from the plain emit-once keep on eval candidates"
-    assert (greedy_nms.last_path == 1).all()
-    k_tiles = float(greedy_nms.last_tiles.float().mean())
+    # the kernel on the counted run's first batch with a candidate, which
+    # check() held against the plain emit-once keep
+    first = walk["first"]["eval"]
+    nms_boxes, scores, idx_k, valid_k = (first[k] for k in ("boxes", "scores", "idx", "valid"))
+    md, iou = first["max_det"], first["iou_thres"]
+    assert first["emit_once"] and (md, iou) == (evaler.max_det, evaler.iou_thres)
+    k_tiles = float(first["tiles"].float().mean())
     ms = cuda_ms(lambda: greedy_nms(nms_boxes, scores, md, iou), iters=20, queue_ahead=True)
     call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, scores, md, iou), iters=20)
     plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, scores, md, iou), iters=3, warmup=1)
     bound, by = bound_ms(*keep_work_sorted(nms_boxes, scores, idx_k, valid_k, TILE))
-    log(f"{tag} greedy_nms on {what}'s first eval batch B={BATCH} K={nms_boxes.shape[1]} "
+    log(f"{tag} greedy_nms on {what}'s first eval batch B={nms_boxes.shape[0]} K={nms_boxes.shape[1]} "
         f"max_det={md}: equal to the plain emit-once keep ({int(valid_k.sum())} kept, "
         f"{k_tiles:.2f} tiles/image); kernel {ms:.4f} ms, per call {call_ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}) [{card}]")
     out["kernel"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                          tiles_visited=k_tiles, K=int(nms_boxes.shape[1]), max_det=md,
-                         max_abs_err=float((idx_k - idx_p).abs().max()))
+                         max_abs_err=walk["max_abs_err"])
     return out
 
 
@@ -956,6 +983,11 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
 # sizes, from another seed
 TRAIN_SET = dict(n_train=320, seed=1, sizes=EVAL_SET["sizes"])
 TRAIN_CLI = dict(epochs=2, stop_aug_last_n_epoch=1, workers=8, profiled_steps=3)
+# the train CLI's in-training eval threshold, set through the config's
+# eval_params: after 3 epochs from random init S scores every anchor below
+# the protocol's 0.03, which would leave the kernel no candidate; at 0 every
+# one of the 8192 an image passes, as random weights give in phase 11
+TRAIN_CLI_EVAL = dict(conf_thres=0.0)
 GATE_BAR = dict(min_map50=0.75, min_gain=0.20)
 
 
@@ -1039,7 +1071,12 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
     from yolov6_tpu_torch.utils.events import load_yaml, save_yaml
 
     t = TRAIN_CLI
-    argv = ["--data-path", data_path, "--conf-file", os.path.join(ROOT, "configs", "yolov6s.py"),
+    conf_file = os.path.join(root, "yolov6s_train_cli.py")
+    with open(os.path.join(ROOT, "configs", "yolov6s.py")) as f:
+        text = f.read()
+    with open(conf_file, "w") as f:
+        f.write(f"{text}\neval_params = {TRAIN_CLI_EVAL!r}\n")
+    argv = ["--data-path", data_path, "--conf-file", conf_file,
             "--img-size", str(IMG), "--batch-size", str(BATCH), "--epochs", str(t["epochs"]),
             "--workers", str(t["workers"]), "--eval-final-only",
             "--stop_aug_last_n_epoch", str(t["stop_aug_last_n_epoch"]),
@@ -1054,6 +1091,7 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
     weights = os.path.join(args.save_dir, "weights")
     n_val = EVAL_SET["n_val"]
     walk = rec.check("[12] in-training eval", n_val)
+    first = walk["first"]["eval"]
     n_eval_batches = -(-n_val // BATCH)
     assert walk["launches"] == n_eval_batches, f"{walk['launches']} launches, {n_eval_batches} batches"
     assert len(trainer.eval_stats) == 1 and trainer.eval_stats[0]["images"] == n_val
@@ -1078,10 +1116,12 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
     else:
         log("[12] the profiler saw no device time; the idle share is not measured")
     ev = trainer.eval_stats[0]
-    log(f"[12] in-training eval of the EMA (train form, eval mode) at epoch {ev['epoch']}: "
-        f"{ev['images']} images in {ev['batches']} batches, {ev['predict_s']:.3f} s = "
-        f"{ev['imgs_per_s']:.1f} imgs/s; {walk['launches']} kernel launches, the tile walk in "
-        f"every image ({walk['tiles_visited']:.2f} tiles/image); AP50 {ev['ap50']:.5f}, AP "
+    log(f"[12] in-training eval of the EMA (train form, eval mode) at epoch {ev['epoch']}, "
+        f"conf {TRAIN_CLI_EVAL['conf_thres']}: {ev['images']} images in {ev['batches']} batches, "
+        f"{ev['predict_s']:.3f} s = {ev['imgs_per_s']:.1f} imgs/s; {walk['launches']} kernel "
+        f"launches, the tile walk in every image ({walk['tiles_visited']:.2f} tiles/image), "
+        f"the first batch's keep (B={first['boxes'].shape[0]} K={first['boxes'].shape[1]}, "
+        f"{first['kept']} kept) equal to the plain emit-once keep; AP50 {ev['ap50']:.5f}, AP "
         f"{ev['ap']:.5f}; the whole CLI run {wall:.1f} s [{card}]")
 
     # resume: the run's args.yaml, extended to a third epoch, wins over the
@@ -1107,7 +1147,7 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
     rstats = resumed.epoch_stats
     assert [e["epoch"] for e in rstats] == [t["epochs"]], rstats
     assert all(math.isfinite(v) for v in rstats[0]["mean_loss"])
-    rec2.check("[12] resumed run's eval", n_val)
+    rwalk = rec2.check("[12] resumed run's eval", n_val)
     model = load_state_dict_file(os.path.join(weights, "last_ckpt.pt"),
                                  Config.fromfile(os.path.join(ROOT, "configs", "yolov6s.py")),
                                  device=dev)
@@ -1119,7 +1159,7 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
         f"[{card}]")
     return dict(launches=walk["launches"], epochs=stats + rstats, eval=trainer.eval_stats,
                 profile=prof, tiles_visited=walk["tiles_visited"], wall_s=wall,
-                resume_wall_s=rwall)
+                resume_wall_s=rwall, max_abs_err=max(walk["max_abs_err"], rwalk["max_abs_err"]))
 
 
 def learning_gate_phase(root: str, card: str) -> dict:
@@ -1127,13 +1167,26 @@ def learning_gate_phase(root: str, card: str) -> dict:
     from yolov6_tpu_torch.tools import learning_gate
 
     args = learning_gate.get_args_parser().parse_args(["--out", os.path.join(root, "gate")])
-    with KeepRecorder() as rec:
-        t0 = time.perf_counter()
-        rc = learning_gate.main(args)
-        wall = time.perf_counter() - t0
+    eval_ckpt = learning_gate._eval_ckpt
+
+    def labelled_eval(*a, **kw):
+        # the checkpoint evals, at the default NMS and at the exact NMS
+        rec.label = "exact" if kw.get("max_nms") == 30000 else "default"
+        return eval_ckpt(*a, **kw)
+
+    learning_gate._eval_ckpt = labelled_eval
+    try:
+        with KeepRecorder("in-training") as rec:
+            t0 = time.perf_counter()
+            rc = learning_gate.main(args)
+            wall = time.perf_counter() - t0
+    finally:
+        learning_gate._eval_ckpt = eval_ckpt
     with open(os.path.join(args.out, "gate_result.json")) as f:
         result = json.load(f)
-    walk = rec.check("[13] gate evals", args.n_val)
+    walk = rec.check("[13] gate evals", args.n_val, labels=("in-training", "default", "exact"))
+    firsts = "; ".join(f"{k} B={f['boxes'].shape[0]} K={f['boxes'].shape[1]} {f['kept']} kept"
+                       for k, f in walk["first"].items())
     traj = [(p["epoch"], round(p["map50"], 4), round(p["map50_95"], 4))
             for p in result["trajectory"]]
     log(f"[13] learning gate (N, {args.img_size} px, {args.n_train}/{args.n_val} images, "
@@ -1141,10 +1194,13 @@ def learning_gate_phase(root: str, card: str) -> dict:
         f"mAP50, mAP50-95) {traj}; gain {result['gain']:.4f}; exact NMS mAP50 "
         f"{result['exact_nms']['map50']:.4f}, mAP50-95 {result['exact_nms']['map50_95']:.4f}, "
         f"delta mAP50-95 {result['nms_delta_map50_95']:+.4f}; training {result['train_s']:.1f} s, "
-        f"gate {wall:.1f} s; {walk['launches']} kernel launches in its evals [{card}]")
+        f"gate {wall:.1f} s; {walk['launches']} kernel launches in its evals, the tile walk in "
+        f"every image ({walk['tiles_visited']:.2f} tiles/image), the first batch's keep with a "
+        f"candidate equal to the plain emit-once keep in each pass ({firsts}) [{card}]")
     assert rc == 0 and result["passed"], f"the learning gate failed: {result}"
     assert result["final_map50"] > GATE_BAR["min_map50"] and result["gain"] > GATE_BAR["min_gain"]
-    return dict(launches=walk["launches"], wall_s=wall, **{
+    return dict(launches=walk["launches"], wall_s=wall, tiles_visited=walk["tiles_visited"],
+                max_abs_err=walk["max_abs_err"], **{
         k: result[k] for k in ("trajectory", "final_map50", "gain", "exact_nms",
                                "nms_delta_map50_95", "train_s")})
 
@@ -1312,7 +1368,8 @@ def main() -> int:
                              "learning_gate_eval": gate_launches},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
-                           *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect))),
+                           *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
+                           train_cli["max_abs_err"], gate["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],

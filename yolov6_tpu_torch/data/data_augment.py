@@ -300,10 +300,11 @@ def augment_hsv(im: np.ndarray, hgain=0.5, sgain=0.5, vgain=0.5, *, rng: Draws) 
 
 
 def mixup(im, labels, im2, labels2, rng: Draws):
-    """Beta(32, 32) blend of two images and their labels (JAX:
-    data_augment.py:100-104)."""
-    r = rng.np.beta(32.0, 32.0)
-    im = (im * r + im2 * (1 - r)).astype(np.uint8)
+    """Beta(32, 32) blend of two images, written into ``im`` by the C++
+    blend, and their labels (JAX: data_augment.py:100-104)."""
+    from yolov6_tpu_torch.data.native_aug import blend  # native_aug imports this module
+
+    blend(im, im2, rng.np.beta(32.0, 32.0))
     return im, np.concatenate((labels, labels2), 0)
 
 

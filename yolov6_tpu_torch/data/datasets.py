@@ -37,6 +37,7 @@ from yolov6_tpu_torch.data.data_augment import (
     Draws,
     augment_hsv_rgb,
     letterbox,
+    mixup,
     resize_area,
     resize_linear,
     sample_seed,
@@ -269,8 +270,7 @@ class TrainValDataset:
         if rng.py.random() < self.hyp.get("mixup", 0.0):
             img2, labels2 = self._one_mosaic(rng.py.randint(0, self.n - 1), target_hw, rng,
                                              flip_lr, flip_ud)
-            native_aug.blend(img, img2, rng.np.beta(32.0, 32.0))
-            labels = np.concatenate((labels, labels2), 0)
+            img, labels = mixup(img, labels, img2, labels2, rng)
         augment_hsv_rgb(img, native_aug.draw_hsv_gains(self.hyp, rng))
         return img, labels, flip_lr, flip_ud
 
