@@ -78,7 +78,29 @@ Phases, each of which asserts:
      the tile walk in every image of its evals, and the first batch with a
      candidate of its in-training eval, of its checkpoint evals and of its
      exact-NMS pass each kept as the plain emit-once keep keeps it; it logs
-     the trajectory, the exact-NMS delta and the wall time.
+     the trajectory, the exact-NMS delta and the wall time;
+ 14. the fuse-AB (anchor-aided) training step: YOLOv6-S with the fuse-AB head,
+     ``ComputeLossAB`` beside the anchor-free loss, on phase 6's cell; timed
+     as phase 6 with the loss split into its anchor-free and anchor-based
+     parts; then the fold (the anchor-based branch dropped) and the folded
+     serve at conf 0.001, its first keep held against the plain emit-once
+     keep;
+ 15. the distill-NS step: the DFL-switched S config, a fuse-AB S teacher
+     (train form in eval mode, weights from a seed) and the distill-NS
+     student, ``ComputeLossDistillNS`` with the channel-wise KD at
+     temperature 20, epoch 100 of 300; timed as phase 14 with the teacher's
+     forward its own part; the student folded with the original S config
+     (the DFL branch dropped) and served as in phase 14;
+ 16. the M KD step: YOLOv6-M with a fuse-AB M teacher, ``ComputeLossDistill``
+     with DFL and the channel-wise KD, 5 timed steps;
+ 17. the distill learning gate (``tools/learning_gate.py --distill`` at its
+     defaults but ``--teacher-epochs 10``: the fuse-AB N teacher 10 epochs,
+     then the distill-NS N student 30, 160 px, fp32): the student's final
+     mAP50 > 0.75 and a gain > 0.20, the tile
+     walk in every image of its evals, and the first keep with a candidate of
+     the teacher's in-training eval, the student's, its checkpoint evals and
+     its exact-NMS pass each held against the plain emit-once keep; it logs
+     the teacher's final mAP50, the trajectory and the wall time.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -129,6 +151,17 @@ TRAIN = dict(max_labels=32, labels=4, epoch=100, epochs=300, warmup_stepnum=10,
              max_stepnum=1000, warmup_steps=3, timed_steps=20, profiled_steps=3)
 ATSS_STEPS = 3  # M's steps on the ATSS branch (the trainer's warmup epochs)
 L_TIMED_STEPS = 5  # L's timed train steps, after TRAIN["warmup_steps"]
+M_KD_TIMED_STEPS = 5  # phase 16's timed steps
+# the distillation phases' KD (JAX tools/train.py's default temperature; the
+# channel-wise KD on, so that every KD term runs)
+DISTILL = dict(temperature=20, distill_feat=True)
+# phase 17's teacher stage, in epochs (the gate's --teacher-epochs): with the
+# default, as many as the student's 30, the student distilled from a teacher
+# at mAP50 1.0 read 0.74 and 0.88 at its first evaluated checkpoint, so the
+# gate's gain bar (0.20) passed in one of two runs (0.2585, 0.1140); with 10
+# the gains read 0.49-0.54 in three of three, and the phase takes about 110 s
+# less (PERF.md §6)
+DISTILL_GATE_TEACHER_EPOCHS = 10
 # the folded deploy graph against the train graph's eval forward, fp32, TF32
 # off: max |diff| over a head map at most this share of the map's max |value|
 # (an H100 read 3.6e-6 after 27 steps)
@@ -321,12 +354,13 @@ def profile_calls(fn, card: str, calls: int = 3, tag: str = "[5]",
 
 def init_train_weights(model, gen) -> None:
     """He-normal convs drawn by ``gen`` (a generator on the card); BNs and the
-    head's prior-probability init stay as built."""
+    head's prior-probability init (every ``*_preds*`` conv, the training
+    recipes' included) stay as built."""
     import torch
 
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() == 4 and ".cls_preds." not in name and ".reg_preds." not in name:
+            if p.dim() == 4 and "_preds" not in name:
                 fan_in = p[0].numel() if "upsample_transpose" not in name else p.shape[0] * 4
                 p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
                         * math.sqrt(2.0 / fan_in))
@@ -347,64 +381,133 @@ def bench_batch(batch: int, img: int, max_labels: int, labels: int, dev):
     return torch.from_numpy(images).to(dev), torch.from_numpy(targets).to(dev)
 
 
-def time_step_phases(step, images, targets, epoch):
-    """One step with CUDA events between its phases: (forward with the input
-    preparation, loss with the assignment, backward, optimizer+EMA) in ms.
-    The step's two public halves bound the optimizer phase; the loss is
-    bounded by wrapping the step's loss function."""
+def time_step_phases(step, images, targets, epoch) -> dict:
+    """One step with CUDA events between its phases, in ms by part (queue
+    work ahead of it, or the parts include the host's launch time): the
+    forward with the input preparation, the teacher's forward (a
+    distillation step), the loss with the assignment (with fuse-AB, the
+    anchor-free ``loss`` and the anchor-based ``loss AB``, its flattening
+    included), the backward, and optimizer+EMA. The step's two public
+    halves bound the optimizer phase; the rest is bounded by wrapping the
+    step's loss functions and the teacher's forward."""
     import torch
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    compute_loss = step.compute_loss
+    marks = []
 
-    def timed_loss(*args):
-        ev[1].record()
-        out = compute_loss(*args)
-        ev[2].record()
-        return out
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
 
-    step.compute_loss = timed_loss
+    def wrap(fn, enter, leave):
+        def timed(*args, **kwargs):
+            if enter:
+                mark(enter)
+            out = fn(*args, **kwargs)
+            if leave:
+                mark(leave)
+            return out
+        return timed
+
+    saved = step.compute_loss, step.compute_loss_ab
+    ab = step.compute_loss_ab is not None
+    step.compute_loss = wrap(saved[0], "loss", "loss AB" if ab else "backward")
+    if ab:
+        step.compute_loss_ab = wrap(saved[1], None, "backward")
+    if step.teacher is not None:
+        step.teacher.forward = wrap(step.teacher.forward, "teacher forward", None)
     try:
-        ev[0].record()
-        step.forward_backward(images, targets)
-        ev[3].record()
+        mark("forward")
+        step.forward_backward(images, targets, epoch=epoch)
+        mark("optimizer+EMA")
         step.update(epoch)
-        ev[4].record()
+        mark("end")
     finally:
-        step.compute_loss = compute_loss
+        step.compute_loss, step.compute_loss_ab = saved
+        if step.teacher is not None:
+            del step.teacher.forward
     torch.cuda.synchronize()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    split = {}
+    for (label, a), (_, b) in zip(marks, marks[1:]):
+        split[label] = split.get(label, 0.0) + a.elapsed_time(b)
+    return split
+
+
+def recipe_step(cfg, recipe, dev, gen, epochs: int):
+    """The train model and ``make_train_step``'s loss arguments of a recipe:
+    None (``ComputeLoss``), ``"fuse_ab"`` (the fuse-AB head and
+    ``ComputeLossAB``) or ``"distill"`` (a fuse-AB teacher of the same
+    config, train form in eval mode, its convs He-normal and its head spread
+    as in the CPU tests, and the distill-NS student with
+    ``ComputeLossDistillNS`` for N/S, a plain student with
+    ``ComputeLossDistill`` for M/L). Returns (model, loss, recipe kwargs)."""
+    import torch
+
+    from yolov6_tpu_torch.losses.loss import ComputeLoss
+    from yolov6_tpu_torch.losses.loss_distill import ComputeLossDistill
+    from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
+    from yolov6_tpu_torch.losses.loss_fuseab import ComputeLossAB
+    from yolov6_tpu_torch.models.yolo import build_model
+
+    head = cfg.model.head
+    ns = recipe == "distill" and cfg.model.type in ("YOLOv6n", "YOLOv6s")
+    model = build_model(cfg, num_classes=NUM_CLASSES, deploy=False, device=dev,
+                        fuse_ab=recipe == "fuse_ab", distill_ns=ns)
+    init_train_weights(model, gen)
+    common = dict(num_classes=NUM_CLASSES, ori_img_size=IMG, iou_type=head.iou_type)
+    loss_fn = ComputeLoss(warmup_epoch=0, use_dfl=head.use_dfl, reg_max=head.reg_max, **common)
+    if recipe == "fuse_ab":
+        return model, loss_fn, dict(compute_loss_ab=ComputeLossAB(
+            anchors_init=tuple(map(tuple, head.anchors_init)), **common))
+    if recipe == "distill":
+        teacher = build_model(cfg, num_classes=NUM_CLASSES, deploy=False, device=dev,
+                              fuse_ab=True)
+        init_train_weights(teacher, gen)
+        with torch.no_grad():
+            for name, p in teacher.named_parameters():
+                if "_preds" not in name:
+                    continue
+                if p.dim() == 4:
+                    p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.3
+                            / math.sqrt(p[0].numel()))
+                else:
+                    low, high = (-4.0, 1.0) if "cls_preds" in name else (1.0, 3.0)
+                    p.uniform_(low, high, generator=gen)
+        distill = (ComputeLossDistillNS if ns else ComputeLossDistill)(
+            warmup_epoch=0, use_dfl=head.use_dfl, reg_max=head.reg_max,
+            distill_weight=dict(head.distill_weight), max_epoch=epochs, **DISTILL, **common)
+        return model, None, dict(teacher=(teacher, distill))
+    return model, loss_fn, {}
 
 
 def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
-                profile: bool = True, atss_steps: int = 0):
-    """A training step at b32@640 in bf16 on the bench's cell (phases 6, 9
-    and 10): ``TRAIN["warmup_steps"]`` steps, ``timed_steps`` timed, one split
-    into its phases, optionally a profile window; then ``atss_steps`` steps on
-    the ATSS branch. Returns the step."""
+                profile: bool = True, atss_steps: int = 0, recipe=None):
+    """A training step at b32@640 in bf16 on the bench's cell (phases 6, 9,
+    10 and the recipes' 14-16, ``recipe`` as ``recipe_step`` takes it):
+    ``TRAIN["warmup_steps"]`` steps, ``timed_steps`` timed, one split into its
+    phases, optionally a profile window; then ``atss_steps`` steps on the
+    ATSS branch. Returns the step and its numbers."""
     import torch
 
     from yolov6_tpu_torch.core.train_step import make_train_step
-    from yolov6_tpu_torch.losses.loss import ComputeLoss
-    from yolov6_tpu_torch.models.yolo import build_model
     from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
 
     t = TRAIN
-    model = build_model(cfg, num_classes=NUM_CLASSES, deploy=False, device=dev)
-    init_train_weights(model, torch.Generator(device=dev).manual_seed(0))
     head, sol = cfg.model.head, cfg.solver
-    loss_fn = ComputeLoss(num_classes=NUM_CLASSES, ori_img_size=IMG, warmup_epoch=0,
-                          use_dfl=head.use_dfl, reg_max=head.reg_max, iou_type=head.iou_type)
+    model, loss_fn, recipe_kw = recipe_step(cfg, recipe, dev,
+                                            torch.Generator(device=dev).manual_seed(0),
+                                            t["epochs"])
     solver = scale_hyperparams_for_batch(dict(
         lr0=sol.lr0, lrf=sol.lrf, momentum=sol.momentum, weight_decay=sol.weight_decay,
         warmup_epochs=sol.warmup_epochs, warmup_momentum=sol.warmup_momentum,
         warmup_bias_lr=sol.warmup_bias_lr, lr_scheduler="Cosine"), BATCH)
     step = make_train_step(model, loss_fn, solver, t["max_stepnum"], t["epochs"], BATCH,
-                           t["warmup_stepnum"], (IMG, IMG), half=True, device=dev)
+                           t["warmup_stepnum"], (IMG, IMG), half=True, device=dev, **recipe_kw)
     n_params = sum(p.numel() for p in model.parameters())
     n_alpha = sum(1 for n, _ in model.named_parameters() if n.endswith(".alpha"))
     images, targets = bench_batch(BATCH, IMG, t["max_labels"], t["labels"], dev)
     epoch = t["epoch"]
+    names = ["total", "iou", "dfl", "cls"] + (["cwd"] if step.teacher is not None else [])
 
     losses, applied = [], []
 
@@ -427,25 +530,35 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
     end.synchronize()
     step_ms = start.elapsed_time(end) / timed_steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # one more step queued ahead of the split, so that the device has work
+    # while the host queues the split step: an idle queue would add the
+    # host's launch time to each part (M KD's parts summed to 387 ms against
+    # 234 ms a step from an idle queue)
+    one_step()
     split = time_step_phases(step, images, targets, epoch)
     applied_all = torch.stack(applied).tolist()
     rows = torch.stack(losses).tolist()
     n_applied = sum(applied_all)
     n_held = len(applied_all) - n_applied
+    what = {None: "", "fuse_ab": ", fuse-AB head + ComputeLossAB",
+            "distill": f", {type(step.compute_loss).__name__} against a fuse-AB teacher "
+                       f"(T {DISTILL['temperature']}, channel-wise KD, epoch {epoch} of "
+                       f"{t['epochs']})"}[recipe]
     log(f"{tag} trained {label} ({n_params / 1e6:.2f} M params, train form, {n_alpha} BottleRep "
-        f"alphas; DFL {bool(head.use_dfl)}) b{BATCH}@{IMG} bf16: {t['warmup_steps']} + "
+        f"alphas; DFL {bool(head.use_dfl)}{what}) b{BATCH}@{IMG} bf16: {t['warmup_steps']} + "
         f"{timed_steps} steps, {step_ms:.3f} ms/step = {BATCH / step_ms * 1e3:.1f} imgs/s [{card}]")
-    log(f"{tag} one step split: forward {split[0]:.3f} ms, loss with assignment {split[1]:.3f} "
-        f"ms, backward {split[2]:.3f} ms, optimizer+EMA {split[3]:.3f} ms (sum {sum(split):.3f}) "
-        f"[{card}]")
+    log(f"{tag} one step split: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f" (sum {sum(split.values()):.3f}) [{card}]")
     log(f"{tag} peak memory allocated {peak_gib:.2f} GiB over the timed steps; "
-        f"{n_applied} steps applied, {n_held} held; loss [total, iou, dfl, cls] first "
+        f"{n_applied} steps applied, {n_held} held; loss [{', '.join(names)}] first "
         f"{[round(x, 5) for x in rows[0]]}, last {[round(x, 5) for x in rows[-1]]}")
     assert all(math.isfinite(x) for row in rows for x in row), f"a loss is not finite: {rows}"
     assert n_applied > 0 and n_held > 0, f"applied {n_applied}, held {n_held}"
     assert int(step.step) == len(rows) + 1
     if head.use_dfl:
         assert all(row[2] > 0 for row in rows), "a DFL component is not positive"
+    if step.teacher is not None:
+        assert all(row[4] > 0 for row in rows), "the channel-wise KD is not positive"
     if profile:
         profile_calls(lambda: step(images, targets, epoch), card, calls=t["profiled_steps"],
                       tag=tag, what="bf16 train steps", unit="step")
@@ -460,19 +573,22 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
         atss_ms = start.elapsed_time(end) / atss_steps
         rows = torch.stack(losses).tolist()
         log(f"{tag} {atss_steps} steps on the ATSS branch: {atss_ms:.3f} ms/step = "
-            f"{BATCH / atss_ms * 1e3:.1f} imgs/s; loss [total, iou, dfl, cls] "
+            f"{BATCH / atss_ms * 1e3:.1f} imgs/s; loss [{', '.join(names)}] "
             f"{[[round(x, 5) for x in row] for row in rows]} [{card}]")
         assert all(math.isfinite(x) for row in rows for x in row), "ATSS: a loss is not finite"
         assert all(row[2] > 0 for row in rows) or not head.use_dfl
     torch.cuda.synchronize()
-    return step
+    return step, dict(step_ms=step_ms, imgs_per_s=BATCH / step_ms * 1e3, split_ms=split,
+                      peak_gib=peak_gib, applied=n_applied, held=n_held, params=n_params)
 
 
-def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str) -> int:
-    """Phases 7 and 9: fold the trained model and its EMA into the deploy
-    graph, hold each against its train form's eval forward in fp32, and
-    serve the folded model; returns the NMS kernel's launches in that
-    serve."""
+def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str) -> dict:
+    """Phases 7, 9, 14 and 15: fold the trained model and its EMA into the
+    deploy graph of ``cfg`` (the training recipes' train-only branches
+    dropped), hold each against its train form's eval forward in fp32, and
+    serve the folded model, its first keep with a candidate held against
+    the plain emit-once keep; returns the NMS kernel's launches in that
+    serve, its tiles an image and the keep's index error."""
     import torch
 
     from yolov6_tpu_torch.layers.reparam import fold_to_deploy
@@ -510,20 +626,23 @@ def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str
     serve = make_end2end_fn(deployed["model"], **FOLD_SERVE, with_preprocess=True, half=True,
                             device=dev)
     greedy_nms.launches = 0
-    num_dets, boxes, scores, _ = serve(images)
-    torch.cuda.synchronize()
+    with KeepRecorder("serve") as rec:
+        num_dets, boxes, scores, _ = serve(images)
+        torch.cuda.synchronize()
     launches = greedy_nms.launches
-    paths = greedy_nms.last_path.tolist()
-    tiles = float(greedy_nms.last_tiles.float().mean())
     assert launches > 0, "serving the folded model did not launch the NMS kernel"
-    assert paths == [1] * BATCH, f"folded serve: not every image took the tile walk: {paths}"
+    walk = rec.check(f"{tag} folded serve", BATCH, labels=("serve",))
+    first = walk["first"]["serve"]
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     total = int(num_dets.sum())
     assert total > 0, "serving the folded trained model found no detections"
     log(f"{tag} served the folded trained {label} b{BATCH}@{IMG} bf16 at {FOLD_SERVE}: {total} "
         f"detections, {launches} NMS kernel launch(es), the tile walk in all {BATCH} images, "
-        f"{tiles:.2f} tiles/image; max score {float(scores.max()):.4f}")
-    return launches
+        f"{walk['tiles_visited']:.2f} tiles/image, the keep (B={first['boxes'].shape[0]} "
+        f"K={first['boxes'].shape[1]}, {first['kept']} kept) equal to the plain emit-once keep; "
+        f"max score {float(scores.max()):.4f}")
+    return dict(launches=launches, tiles_visited=walk["tiles_visited"],
+                max_abs_err=walk["max_abs_err"])
 
 
 def forward_decode(x_uint8, model, half):
@@ -1205,6 +1324,112 @@ def learning_gate_phase(root: str, card: str) -> dict:
                                "nms_delta_map50_95", "train_s")})
 
 
+def distill_gate_phase(root: str, card: str) -> dict:
+    """Phase 17: ``tools/learning_gate.py --distill`` at its defaults on the
+    card; the launches of the teacher stage and of the rest are counted
+    apart."""
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.tools import learning_gate
+
+    args = learning_gate.get_args_parser().parse_args(
+        ["--out", os.path.join(root, "distill_gate"), "--distill",
+         "--teacher-epochs", str(DISTILL_GATE_TEACHER_EPOCHS)])
+    eval_ckpt, prestage = learning_gate._eval_ckpt, learning_gate._distill_prestage
+    counts = {}
+
+    def labelled_eval(*a, **kw):
+        rec.label = "exact" if kw.get("max_nms") == 30000 else "default"
+        return eval_ckpt(*a, **kw)
+
+    def labelled_prestage(*a, **kw):
+        # the teacher's in-training eval, then the student's
+        out = prestage(*a, **kw)
+        counts["teacher"] = greedy_nms.launches
+        rec.label = "in-training"
+        return out
+
+    learning_gate._eval_ckpt, learning_gate._distill_prestage = labelled_eval, labelled_prestage
+    try:
+        with KeepRecorder("teacher") as rec:
+            greedy_nms.launches = 0
+            t0 = time.perf_counter()
+            rc = learning_gate.main(args)
+            wall = time.perf_counter() - t0
+            counts["student"] = greedy_nms.launches - counts["teacher"]
+    finally:
+        learning_gate._eval_ckpt, learning_gate._distill_prestage = eval_ckpt, prestage
+    with open(os.path.join(args.out, "gate_result.json")) as f:
+        result = json.load(f)
+    labels = ("teacher", "in-training", "default", "exact")
+    walk = rec.check("[17] distill gate evals", args.n_val, labels=labels)
+    firsts = "; ".join(f"{k} B={f['boxes'].shape[0]} K={f['boxes'].shape[1]} {f['kept']} kept"
+                       for k, f in walk["first"].items())
+    teacher = result["teacher"]
+    traj = [(p["epoch"], round(p["map50"], 4), round(p["map50_95"], 4))
+            for p in result["trajectory"]]
+    log(f"[17] distill learning gate (N, {args.img_size} px, {args.n_train}/{args.n_val} "
+        f"images, {args.epochs} epochs, batch {args.batch_size}, seed {args.seed}): the fuse-AB "
+        f"teacher (DFL config, {args.teacher_epochs or args.epochs} epochs) trained in "
+        f"{teacher['train_s']:.1f} s, its final in-training "
+        f"mAP50 {teacher['final_map50']:.4f}; the distill-NS student's trajectory (epoch, "
+        f"mAP50, mAP50-95) {traj} with the original config; gain {result['gain']:.4f}; exact "
+        f"NMS mAP50 {result['exact_nms']['map50']:.4f}, delta mAP50-95 "
+        f"{result['nms_delta_map50_95']:+.4f}; student training {result['train_s']:.1f} s, gate "
+        f"{wall:.1f} s; kernel launches: {counts['teacher']} in the teacher's eval, "
+        f"{counts['student']} in the student's evals, the tile walk in every image "
+        f"({walk['tiles_visited']:.2f} tiles/image), the first keep with a candidate equal to "
+        f"the plain emit-once keep in each pass ({firsts}) [{card}]")
+    assert rc == 0 and result["passed"], f"the distill learning gate failed: {result}"
+    assert result["final_map50"] > GATE_BAR["min_map50"] and result["gain"] > GATE_BAR["min_gain"]
+    return dict(launches=walk["launches"], teacher_launches=counts["teacher"],
+                student_launches=counts["student"], wall_s=wall,
+                tiles_visited=walk["tiles_visited"], max_abs_err=walk["max_abs_err"],
+                teacher_final_map50=teacher["final_map50"], teacher_train_s=teacher["train_s"],
+                **{k: result[k] for k in ("trajectory", "final_map50", "gain", "exact_nms",
+                                          "nms_delta_map50_95", "train_s")})
+
+
+def recipe_phases(cfgs, images, dev, card: str) -> dict:
+    """Phases 14-16: the training recipes' steps at full width, and the
+    folded serve of the fuse-AB and distill-NS students."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.utils.config import Config
+
+    out = {}
+    greedy_nms.launches = 0
+    step, out["train_fuse_ab"] = train_phase(cfgs["s"], "YOLOv6-S fuse-AB", dev, card, "[14]",
+                                             TRAIN["timed_steps"], profile=False,
+                                             recipe="fuse_ab")
+    out["train_fuse_ab"]["launches"] = greedy_nms.launches
+    out["fuse_ab_fold_serve"] = fold_and_serve_phase(cfgs["s"], "YOLOv6-S fuse-AB", step, images,
+                                                     dev, card, "[14]")
+    del step
+    torch.cuda.empty_cache()
+
+    dfl_s = Config.fromfile(os.path.join(ROOT, "configs", "yolov6s.py"))
+    dfl_s.model.head.use_dfl, dfl_s.model.head.reg_max = True, 16
+    greedy_nms.launches = 0
+    step, out["train_distill_ns"] = train_phase(dfl_s, "YOLOv6-S distill-NS", dev, card, "[15]",
+                                                TRAIN["timed_steps"], profile=False,
+                                                recipe="distill")
+    out["train_distill_ns"]["launches"] = greedy_nms.launches
+    # the student ships its plain ltrb branch: folded with the original config
+    out["distill_ns_fold_serve"] = fold_and_serve_phase(cfgs["s"], "YOLOv6-S distill-NS", step,
+                                                        images, dev, card, "[15]")
+    del step
+    torch.cuda.empty_cache()
+
+    greedy_nms.launches = 0
+    step, out["train_m_kd"] = train_phase(cfgs["m"], "YOLOv6-M KD", dev, card, "[16]",
+                                          M_KD_TIMED_STEPS, profile=False, recipe="distill")
+    out["train_m_kd"]["launches"] = greedy_nms.launches
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1295,11 +1520,11 @@ def main() -> int:
 
     # ---- 6. the S training step at full width, bf16 (no kernel of this repo on its path)
     greedy_nms.launches = 0
-    step = train_phase(cfgs["s"], "YOLOv6-S", dev, card, "[6]", TRAIN["timed_steps"])
+    step, _ = train_phase(cfgs["s"], "YOLOv6-S", dev, card, "[6]", TRAIN["timed_steps"])
     train_launches = greedy_nms.launches
 
     # ---- 7. fold the trained S into the deploy graph and serve it
-    fold_launches = fold_and_serve_phase(cfgs["s"], "YOLOv6-S", step, images, dev, card, "[7]")
+    fold = fold_and_serve_phase(cfgs["s"], "YOLOv6-S", step, images, dev, card, "[7]")
     del step, model
 
     # ---- 8. YOLOv6-M served at full width: fp32 checks, the kernel on M's candidates, bf16
@@ -1311,10 +1536,10 @@ def main() -> int:
 
     # ---- 9. M's training step (TAL with DFL, then ATSS), the fold and the folded serve
     greedy_nms.launches = 0
-    step = train_phase(cfgs["m"], "YOLOv6-M", dev, card, "[9]", TRAIN["timed_steps"],
+    step, _ = train_phase(cfgs["m"], "YOLOv6-M", dev, card, "[9]", TRAIN["timed_steps"],
                        atss_steps=ATSS_STEPS)
     train_m_launches = greedy_nms.launches
-    fold_m_launches = fold_and_serve_phase(cfgs["m"], "YOLOv6-M", step, images, dev, card, "[9]")
+    fold_m = fold_and_serve_phase(cfgs["m"], "YOLOv6-M", step, images, dev, card, "[9]")
     del step
 
     # ---- 10. YOLOv6-L: bf16 serve through the kernel, then 3 + 5 train steps
@@ -1322,7 +1547,8 @@ def main() -> int:
     serve_l_launches = time_serve(model, "YOLOv6-L", images, dev, card, "[10]")
     del model
     greedy_nms.launches = 0
-    step = train_phase(cfgs["l"], "YOLOv6-L", dev, card, "[10]", L_TIMED_STEPS, profile=False)
+    step, _ = train_phase(cfgs["l"], "YOLOv6-L", dev, card, "[10]", L_TIMED_STEPS,
+                          profile=False)
     train_l_launches = greedy_nms.launches
     del step
 
@@ -1349,7 +1575,16 @@ def main() -> int:
         greedy_nms.launches = 0
         gate = learning_gate_phase(root, card)
         gate_launches = greedy_nms.launches
+
+        # ---- 14.-16. the training recipes' steps; 17. the distill gate
+        recipes = recipe_phases(cfgs, images, dev, card)
+        greedy_nms.launches = 0
+        distill_gate = distill_gate_phase(root, card)
+        distill_gate_launches = greedy_nms.launches
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
+    assert distill_gate_launches == distill_gate["launches"]
+    assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
+                                                     "train_m_kd"))
 
     kernels = [{
         "name": "greedy_nms",
@@ -1358,18 +1593,30 @@ def main() -> int:
         "replaces": "yolov6_tpu/ops/pallas/nms_kernel.py:27",
         "launches": main["launches"],
         "launches_by_path": {"serve": main["launches"], "train": train_launches,
-                             "serve_folded_trained": fold_launches,
+                             "serve_folded_trained": fold["launches"],
                              "serve_m": m_serve["launches"], "train_m": train_m_launches,
-                             "serve_m_folded_trained": fold_m_launches,
+                             "serve_m_folded_trained": fold_m["launches"],
                              "serve_l": serve_l_launches, "train_l": train_l_launches,
                              "eval_s": eval_s["launches"], "eval_m": eval_m["launches"],
                              "eval_s_rect": eval_s_rect["launches"],
                              "train_cli_eval": train_cli_launches,
-                             "learning_gate_eval": gate_launches},
+                             "learning_gate_eval": gate_launches,
+                             "train_fuse_ab": recipes["train_fuse_ab"]["launches"],
+                             "fuse_ab_fold_serve": recipes["fuse_ab_fold_serve"]["launches"],
+                             "train_distill_ns": recipes["train_distill_ns"]["launches"],
+                             "distill_ns_fold_serve":
+                                 recipes["distill_ns_fold_serve"]["launches"],
+                             "train_m_kd": recipes["train_m_kd"]["launches"],
+                             "distill_gate_teacher_eval": distill_gate["teacher_launches"],
+                             "distill_gate_eval": distill_gate["student_launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
-                           train_cli["max_abs_err"], gate["max_abs_err"]),
+                           train_cli["max_abs_err"], gate["max_abs_err"],
+                           fold["max_abs_err"], fold_m["max_abs_err"],
+                           recipes["fuse_ab_fold_serve"]["max_abs_err"],
+                           recipes["distill_ns_fold_serve"]["max_abs_err"],
+                           distill_gate["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -1391,6 +1638,14 @@ def main() -> int:
                  for name, e in (("s", eval_s), ("m", eval_m), ("s_rect", eval_s_rect))},
         "train_cli": dict(train_cli, augmentation_ms=aug_ms),
         "learning_gate": gate,
+        "tiles_by_path": {
+            "serve_folded_trained": fold["tiles_visited"],
+            "serve_m_folded_trained": fold_m["tiles_visited"],
+            "fuse_ab_fold_serve": recipes["fuse_ab_fold_serve"]["tiles_visited"],
+            "distill_ns_fold_serve": recipes["distill_ns_fold_serve"]["tiles_visited"],
+            "distill_gate_evals": distill_gate["tiles_visited"]},
+        "recipes": {k: v for k, v in recipes.items() if k.startswith("train_")},
+        "distill_gate": distill_gate,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """The port on the card: its CUDA kernels, its DFL decode and ATSS assigner,
-its training steps (S, and M with DFL), its Evaler and its trainer, against
-the same on the CPU.
+its training steps (S, and M with DFL), the training recipes' losses, its
+Evaler and its trainer, against the same on the CPU.
 Every test here needs an NVIDIA GPU and skips without one; none imports JAX,
 so they run where JAX is absent:
 
@@ -239,6 +239,67 @@ def test_atss_assigner_on_card_matches_cpu(cuda_device):
     assert fg_c.any()
     assert torch.equal(fg_g, fg_c) and torch.equal(lab_g, lab_c) and torch.equal(box_g, box_c)
     torch.testing.assert_close(sc_g, sc_c, rtol=1e-5, atol=1e-6)
+
+
+def _recipe_loss_inputs(seed):
+    """Seeded inputs of the recipes' losses at b4@640 with 80 classes: the
+    anchor-based branch's scores and boxes (25,200 anchors), the distill-NS
+    student's and a teacher's head maps, neck maps, and 4 labels an image."""
+    rng = np.random.default_rng(seed)
+    feats = [(80, 80), (40, 40), (20, 20)]
+    n_ab = 3 * sum(h * w for h, w in feats)
+    ab = (1 / (1 + np.exp(-rng.normal(-3, 1.5, (4, n_ab, 80)))),
+          np.concatenate([rng.normal(0, 0.6, (4, n_ab, 2)), rng.uniform(0.3, 8, (4, n_ab, 2))],
+                         -1))
+
+    def head(ns):
+        out = {"cls": [rng.normal(-3, 1.5, (4, 80, h, w)) for h, w in feats]}
+        dist = [rng.normal(0, 2, (4, 68, h, w)) for h, w in feats]
+        if ns:
+            out["reg"], out["reg_dist"] = [rng.uniform(0.3, 4, (4, 4, h, w)) for h, w in feats], dist
+        else:
+            out["reg"] = dist
+        return out
+
+    neck = [rng.normal(0, 1, (4, c, h, w)) for (h, w), c in zip(feats, (64, 128, 256))]
+    targets = np.full((4, 16, 5), -1.0)
+    targets[:, :4, 0] = rng.integers(0, 80, (4, 4))
+    targets[:, :4, 1:] = rng.uniform(0.2, 0.6, (4, 4, 4))
+    return feats, ab, head(True), head(False), neck, [n * 0.8 for n in neck], targets
+
+
+@pytest.mark.cuda
+def test_recipe_losses_on_card_match_cpu(cuda_device):
+    """``ComputeLossAB`` and ``ComputeLossDistillNS`` (with the channel-wise
+    KD, epoch 100 of 300) on the card and on the CPU, fp32 with TF32 off:
+    the loss and every component within 1e-5 relative."""
+    from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
+    from yolov6_tpu_torch.losses.loss_fuseab import ComputeLossAB
+
+    feats, ab, student, teacher, neck, t_neck, targets = _recipe_loss_inputs(3)
+    anchors_init = Config.fromfile(N_CONFIG).model.head.anchors_init
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda_device):
+            def t(a):
+                return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+            tree = lambda d: {k: [t(m) for m in v] for k, v in d.items()}  # noqa: E731
+            loss_ab = ComputeLossAB(num_classes=80, anchors_init=anchors_init)(
+                feats, t(ab[0]), t(ab[1]), t(targets), 640, 640)
+            loss_ns = ComputeLossDistillNS(num_classes=80, distill_feat=True, max_epoch=300,
+                                           temperature=20)(
+                feats, tree(student), tree(teacher), [t(n) for n in neck],
+                [t(n) for n in t_neck], t(targets), 100, 640, 640, False)
+            out[str(dev)] = [torch.cat([loss[None], comp]).cpu() for loss, comp in (loss_ab,
+                                                                                     loss_ns)]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, want, got in zip(("AB", "distill-NS"), out["cpu"], out[str(cuda_device)]):
+        assert bool((want[[0, 1, 3]] > 0).all()), (name, want)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7, msg=name)
 
 
 def _eval_set(tmp_path, n):

@@ -20,6 +20,8 @@ from yolov6_tpu.solver import build as jbuild
 from yolov6_tpu.utils.config import Config as JaxConfig
 from yolov6_tpu.utils.ema import ema_update as jax_ema_update
 
+from yolov6_tpu_torch.core.train_step import make_train_step
+from yolov6_tpu_torch.losses.loss import ComputeLoss
 from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.solver import build as tbuild
 from yolov6_tpu_torch.utils.config import Config
@@ -60,9 +62,9 @@ def test_warmup_accumulate_matches_jax(batch_size, warmup_stepnum):
         assert got[1] == 2 and got[3] == 2 and got[6] == 4 and got[20] == 4
 
 
-def _jax_group_ids(make_cfg):
+def _jax_group_ids(make_cfg, **build_kw):
     """The JAX ``build_param_groups`` of a small train graph, as port keys."""
-    jmodel = jax_build_model(make_cfg(JaxConfig), num_classes=3, deploy=False)
+    jmodel = jax_build_model(make_cfg(JaxConfig), num_classes=3, deploy=False, **build_kw)
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False))
     jgroups = jbuild.build_param_groups(shapes["params"])
@@ -95,6 +97,36 @@ def test_param_groups_of_alphas_match_jax():
     assert got == want
     alphas = [k for k in got if k.endswith(".alpha")]
     assert len(alphas) == 8 and {got[k] for k in alphas} == {tbuild.GROUP_BIAS}
+
+
+def _dfl_s_config(config_cls):
+    cfg = small_s_config(config_cls)
+    cfg.model.head.use_dfl, cfg.model.head.reg_max = True, 16
+    return cfg
+
+
+@pytest.mark.parametrize("recipe,make_cfg,branch", [
+    ("fuse_ab", small_s_config, "cls_preds_ab"),
+    ("distill_ns", _dfl_s_config, "reg_preds_dist"),
+])
+def test_param_groups_of_recipe_heads_match_jax(recipe, make_cfg, branch):
+    """The fuse-AB and distill-NS train graphs: the train-only prediction
+    convs' weights decayed, their biases on the warmup bias LR, as the JAX
+    groups put them; every parameter of the graph is in the step's buffers."""
+    want = _jax_group_ids(make_cfg, **{recipe: True})
+    model = build_model(make_cfg(Config), num_classes=3, deploy=False, device="cpu",
+                        **{recipe: True})
+    got = tbuild.param_groups(model)
+    assert got == want
+    for i in range(3):
+        assert got[f"detect.{branch}.{i}.weight"] == tbuild.GROUP_WEIGHT
+        assert got[f"detect.{branch}.{i}.bias"] == tbuild.GROUP_BIAS
+    step = make_train_step(model, ComputeLoss(num_classes=3, use_dfl=False, reg_max=0),
+                           dict(lr0=0.01, lrf=0.01, momentum=0.937, weight_decay=5e-4,
+                                warmup_epochs=3, warmup_momentum=0.8, warmup_bias_lr=0.1),
+                           10, 10, 32, 0, (64, 64), half=False, device="cpu")
+    assert set(step.momentum) == set(got) == set(step.grad_accum)
+    assert set(dict(step.ema.named_parameters())) == set(got)
 
 
 def _seeded_tree(seed):

@@ -132,16 +132,24 @@ def _close_rel(got, want, name, floor, rel=1e-3):
 
 
 def check_mid_schedule_step(jstep, variables, batch_size, warmup_stepnum,
-                            make_cfg=small_s_config, loss_kw=LOSS_KW, rel=1e-3):
+                            make_cfg=small_s_config, loss_kw=LOSS_KW, rel=1e-3, port_step=None,
+                            floor_scales_with_grad=False):
     """One applied step at epoch 1 of 10, from ``step`` counters past the
     warmup and the accumulator one call short of its count, so that the
     first call applies at the full weight LR before any noise compounds.
     Each leaf is held within ``rel`` of the JAX leaf's largest magnitude,
-    plus the floors. Returns the port's step and the JAX state after it."""
+    plus the floors. ``port_step`` builds the port's step when the plain
+    ``_port_step`` does not (the training recipes). ``MID_FLOOR`` was set
+    for the S step, whose largest gradient is 0.38; with
+    ``floor_scales_with_grad`` the floor is at least one fp32 ulp of the
+    step's largest JAX momentum (a raw gradient sum), for a loss whose
+    gradients are tens of times larger. Returns the port's step and the JAX
+    state after it."""
     accum_count = max(1, round(64 / batch_size)) - 1
     jstate = create_train_state(variables)._replace(
         step=jnp.asarray(MID_STEP, jnp.int32), accum_count=jnp.asarray(accum_count, jnp.int32))
-    step = _port_step(variables, batch_size, warmup_stepnum, make_cfg, loss_kw)
+    step = (port_step() if port_step is not None
+            else _port_step(variables, batch_size, warmup_stepnum, make_cfg, loss_kw))
     step.step.fill_(MID_STEP)
     step.accum_count.fill_(accum_count)
     images, targets = _batch()
@@ -158,14 +166,34 @@ def check_mid_schedule_step(jstep, variables, batch_size, warmup_stepnum,
     j_after = _jax_leaves({"params": jax.device_get(jstate.params)})
     j_momentum = _jax_leaves({"params": jax.device_get(jstate.opt.momentum_buf)})
     assert set(j_momentum) == set(step.momentum)
+    floor = MID_FLOOR
+    if floor_scales_with_grad:
+        largest = max(float(np.abs(m).max()) for m in j_momentum.values())
+        floor = max(MID_FLOOR, float(np.finfo(np.float32).eps) * largest)
     for name, p in step.model.named_parameters():
         # a change is read off fp32 parameters: each side rounds to its ulp
         ulp = float(np.spacing(np.abs(j_before[name]).max()))
         _close_rel((p.detach() - before[name]).numpy(), j_after[name] - j_before[name],
-                   f"mid-schedule {name}", MID_FLOOR * MID_LR + 2 * ulp, rel)
+                   f"mid-schedule {name}", floor * MID_LR + 2 * ulp, rel)
         _close_rel(step.momentum[name].numpy(), j_momentum[name],
-                   f"mid-schedule momentum {name}", MID_FLOOR, rel)
+                   f"mid-schedule momentum {name}", floor, rel)
     return step, jstate
+
+
+def check_ema_against_jax(step, jstate, what):
+    """The port's EMA (parameters and BN statistics) against the JAX state's:
+    each leaf within 1e-4 of the JAX leaf's largest magnitude, + 1e-6, and
+    an EMA parameter also within what its parameter differs by (the EMA
+    follows its parameter)."""
+    sd = step.model.state_dict()
+    j_params = _jax_leaves({"params": jax.device_get(jstate.params)})
+    j_ema = _jax_leaves({"params": jax.device_get(jstate.ema_params),
+                         "batch_stats": jax.device_get(jstate.ema_batch_stats)})
+    ema = step.ema.state_dict()
+    assert set(j_ema) == {k for k in ema if not k.endswith("num_batches_tracked")}
+    for name, want in j_ema.items():
+        gap = float(np.abs(sd[name].numpy() - j_params[name]).max()) if name in j_params else 0.0
+        _close_leaf(ema[name].numpy(), want, f"{what} ema {name}", gap)
 
 
 def check_steps_against_jax(batch_size, warmup_stepnum, seed, n_steps=3):
@@ -183,11 +211,6 @@ def check_steps_against_jax(batch_size, warmup_stepnum, seed, n_steps=3):
     jstate = create_train_state(variables)
     step = _port_step(variables, batch_size, warmup_stepnum)
     images, targets = _batch()
-
-    def ema_leaves(state):
-        return _jax_leaves({"params": jax.device_get(state.ema_params),
-                            "batch_stats": jax.device_get(state.ema_batch_stats)})
-
     applied = []
     for i in range(n_steps):
         j_before = _jax_leaves({"params": jax.device_get(jstate.params)})
@@ -210,14 +233,8 @@ def check_steps_against_jax(batch_size, warmup_stepnum, seed, n_steps=3):
         sd = step.model.state_dict()
         for name, want in _jax_leaves({"batch_stats": jax.device_get(jstate.batch_stats)}).items():
             _close_leaf(sd[name].numpy(), want, f"step {i} {name}")
-        # the EMA of a parameter follows the parameter: it may differ by what
-        # the parameter does, which the update check above bounds
-        ema = step.ema.state_dict()
-        j_ema = ema_leaves(jstate)
-        assert set(j_ema) == {k for k in ema if not k.endswith("num_batches_tracked")}
-        for name, want in j_ema.items():
-            gap = float(np.abs(sd[name].numpy() - j_after[name]).max()) if name in j_after else 0.0
-            _close_leaf(ema[name].numpy(), want, f"step {i} ema {name}", gap)
+        # the update check above bounds what each parameter differs by
+        check_ema_against_jax(step, jstate, f"step {i}")
         applied.append(int(jstate.ema_updates) > updates_before)
     return applied
 

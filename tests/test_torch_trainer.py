@@ -6,7 +6,11 @@ at 64 px with configs/yolov6n.py at full width.
 - ``--resume``, the run's saved ``args.yaml`` winning over the command line;
 - 2 epochs straight equal 1 epoch then a resume for the second, bit for bit,
   on every buffer of the step (parameters, BN statistics, momentum, EMA,
-  counters) and on the EMA's state dict.
+  counters) and on the EMA's state dict;
+- the training recipes: ``--fuse_ab`` for one epoch with the DFL config (the
+  distill recipe's teacher), then ``--distill --teacher_model_path`` against
+  its ``best_ckpt.pt``, whose stripped checkpoint ``tools/eval.py`` loads with
+  the original config; what still raises.
 """
 
 import os
@@ -133,7 +137,7 @@ def test_resume_continues_bit_for_bit(tiny_set, tmp_path):
     assert straight.evaluate_results == resumed.evaluate_results
 
 
-@pytest.mark.parametrize("flag,item", [("--fuse_ab", "item 8"), ("--distill", "item 8"),
+@pytest.mark.parametrize("flag,item", [("--calib", "item 8"),
                                        ("--quant", "item 8"), ("--ckpt-backend=orbax", "item 13"),
                                        ("--cache=ram", "item 1"), ("--write_trainbatch_tb",
                                                                    "item 1")])
@@ -156,3 +160,115 @@ def test_trainer_needs_a_device_without_cuda(tiny_set, tmp_path, monkeypatch):
     args.device = "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(args)
+
+
+# ------------------------------------------------------- the training recipes
+
+
+@pytest.fixture(scope="module")
+def dfl_config(tmp_path_factory):
+    """configs/yolov6n.py with DFL switched on, as the distill recipe trains
+    both its stages."""
+    path = tmp_path_factory.mktemp("conf") / "yolov6n_dfl.py"
+    with open(N_CONFIG) as f:
+        path.write_text(f.read().replace("use_dfl=False", "use_dfl=True")
+                        .replace("reg_max=0", "reg_max=16"))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def fuse_ab_run(tiny_set, dfl_config, tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("fuse_ab"))
+    args = _args(tiny_set, out, "--epochs", "1", "--fuse_ab")
+    args.conf_file = dfl_config
+    return args, train_cli.main(args)
+
+
+def test_fuse_ab_cli_one_epoch(fuse_ab_run, dfl_config):
+    """Anchor-aided training: the fuse-AB head's anchor-based branch trains
+    beside the anchor-free one (its loss adds to the components) and is
+    dropped at the fold."""
+    args, trainer = fuse_ab_run
+    assert type(trainer.model.detect).__name__ == "DetectFuseAB"
+    assert trainer.compute_loss_ab is not None and trainer.train_step.compute_loss_ab is not None
+    stats = trainer.epoch_stats
+    assert len(stats) == 1 and stats[0]["steps"] == 2 and len(stats[0]["mean_loss"]) == 3
+    assert all(v == v and v >= 0 for v in stats[0]["mean_loss"])
+    assert [e["epoch"] for e in trainer.eval_stats] == [0]
+    best = osp.join(args.save_dir, "weights", "best_ckpt.pt")
+    state = load_checkpoint(best)["model"]
+    assert any(k.startswith("detect.cls_preds_ab.") for k in state)
+    model = load_state_dict_file(best, Config.fromfile(dfl_config), device="cpu")
+    assert not any("_ab." in k for k in model.state_dict())
+
+
+def test_distill_cli_against_the_fuse_ab_teacher(fuse_ab_run, tiny_set, dfl_config, tmp_path):
+    """Self-distillation of N against the fuse-AB run's best checkpoint: the
+    distill-NS head, the four components, a teacher that does not move, and
+    a stripped checkpoint that tools/eval.py loads with the original config
+    (no DFL): the fold drops the train-only DFL branch."""
+    from yolov6_tpu_torch.tools.eval import run as eval_run
+
+    t_args, _ = fuse_ab_run
+    teacher_ckpt = osp.join(t_args.save_dir, "weights", "best_ckpt.pt")
+    args = _args(tiny_set, str(tmp_path), "--epochs", "1", "--distill", "--distill_feat",
+                 "--teacher_model_path", teacher_ckpt, "--temperature", "10")
+    args.conf_file = dfl_config
+    trainer = train_cli.main(args)
+    assert trainer.distill_ns and type(trainer.model.detect).__name__ == "DetectDistillNS"
+    assert type(trainer.teacher.detect).__name__ == "DetectFuseAB" and not trainer.teacher.training
+    loss = trainer.train_step.compute_loss
+    assert type(loss).__name__ == "ComputeLossDistillNS"
+    assert (loss.temperature, loss.distill_feat, loss.max_epoch) == (10, True, 1)
+    teacher_state = load_checkpoint(teacher_ckpt)["model"]
+    for key, value in trainer.teacher.state_dict().items():
+        assert torch.equal(value, teacher_state[key]), key
+    # a teacher trained without --fuse_ab lacks only the anchor-based branch,
+    # which the JAX partial load leaves at its init: tolerated
+    plain = str(tmp_path / "plain_teacher.pt")
+    torch.save({"model": {k: v for k, v in teacher_state.items() if "_ab." not in k}}, plain)
+    partial = trainer.load_teacher(plain)
+    assert torch.equal(partial.detect.reg_preds_ab[0].bias, torch.ones(12))
+    mean = trainer.epoch_stats[0]["mean_loss"]
+    assert len(mean) == 4 and all(v == v for v in mean) and mean[3] > 0
+    last = osp.join(args.save_dir, "weights", "last_ckpt.pt")
+    assert any(k.startswith("detect.reg_preds_dist.") for k in load_checkpoint(last)["model"])
+    (ap50, ap), _ = eval_run(tiny_set, weights=last, config=N_CONFIG, batch_size=4, img_size=64,
+                             half=False, save_dir=str(tmp_path / "eval"), device="cpu")
+    assert 0.0 <= ap50 <= 1.0 and 0.0 <= ap <= 1.0
+
+
+def test_distill_refuses_fuse_ab_and_a_missing_teacher(tiny_set, tmp_path, fuse_ab_run):
+    t_args, _ = fuse_ab_run
+    teacher_ckpt = osp.join(t_args.save_dir, "weights", "best_ckpt.pt")
+    with pytest.raises(ValueError, match="fuse_ab"):
+        train_cli.main(_args(tiny_set, str(tmp_path), "--epochs", "1", "--fuse_ab", "--distill",
+                             "--teacher_model_path", teacher_ckpt))
+    with pytest.raises(ValueError, match="teacher_model_path"):
+        train_cli.main(_args(tiny_set, str(tmp_path), "--epochs", "1", "--distill"))
+    assert not os.path.exists(osp.join(str(tmp_path), "run"))
+
+
+def test_distill_teacher_must_fit(tiny_set, tmp_path, fuse_ab_run):
+    """A teacher checkpoint of another graph (here the DFL run's, for the
+    config without DFL) raises instead of training against a half-loaded
+    teacher."""
+    t_args, _ = fuse_ab_run
+    teacher_ckpt = osp.join(t_args.save_dir, "weights", "best_ckpt.pt")
+    args = _args(tiny_set, str(tmp_path), "--epochs", "1", "--distill",
+                 "--teacher_model_path", teacher_ckpt)
+    with pytest.raises(ValueError, match="does not fit the teacher"):
+        train_cli.main(args)
+
+
+def test_repopt_config_and_the_gate_repopt_raise(tiny_set, tmp_path):
+    from yolov6_tpu_torch.tools import learning_gate
+
+    args = _args(tiny_set, str(tmp_path), "--epochs", "1")
+    args.conf_file = osp.join(REPO_ROOT, "configs", "repopt", "yolov6n_opt.py")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        train_cli.main(args)
+    gate_args = learning_gate.get_args_parser().parse_args(
+        ["--out", str(tmp_path / "gate"), "--repopt", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        learning_gate.main(gate_args)

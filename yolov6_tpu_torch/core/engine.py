@@ -8,10 +8,17 @@ queued while the step before it runs. The in-training eval runs the EMA
 (train form, eval mode, as the JAX package evaluates it with
 ``train=False``) through the port's ``Evaler`` and so through the NMS kernel.
 
-Not ported, and refused with ``NotImplementedError``: fuse-AB, distillation,
-quantisation and RepOpt configs (ROADMAP queue 1 item 8), the orbax
-checkpoint backend (item 13), more than one process (item 9), the RAM and
-disk image caches and TensorBoard with its train-batch plot.
+The training recipes of YOLOv6 v3.0 run through the same loop: ``fuse_ab``
+(anchor-aided training: the fuse-AB head and ``ComputeLossAB`` beside the
+anchor-free loss) and ``distill`` (self-distillation against the teacher at
+``teacher_model_path``, a fuse-AB model of the same config: the distill-NS
+head and ``ComputeLossDistillNS`` for N and S, ``ComputeLossDistill`` for
+M and L).
+
+Not ported, and refused with ``NotImplementedError``: quantisation and
+RepOpt configs (ROADMAP queue 1 item 8), the orbax checkpoint backend (item
+13), more than one process (item 9), the RAM and disk image caches and
+TensorBoard with its train-batch plot.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from yolov6_tpu_torch.core.evaler import Evaler
 from yolov6_tpu_torch.core.train_step import make_train_step
 from yolov6_tpu_torch.data.data_load import create_dataloader
 from yolov6_tpu_torch.losses.loss import ComputeLoss
+from yolov6_tpu_torch.losses.loss_distill import ComputeLossDistill
+from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
+from yolov6_tpu_torch.losses.loss_fuseab import ComputeLossAB
 from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
 from yolov6_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
@@ -35,12 +45,19 @@ from yolov6_tpu_torch.utils.events import LOGGER, load_yaml
 
 
 def check_supported(args, cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port's trainer does not do."""
-    for flag in ("fuse_ab", "distill", "quant", "calib"):
+    """Raise ``NotImplementedError`` for what the port's trainer does not do,
+    and ``ValueError`` for a recipe that cannot be: fuse-AB and distillation
+    together (as the JAX trainer), or distillation without a teacher."""
+    for flag in ("quant", "calib"):
         if getattr(args, flag, False):
             raise NotImplementedError(
-                f"--{flag} is not ported (fuse-AB, distillation and quantisation: ROADMAP "
-                "queue 1 item 8)")
+                f"--{flag} is not ported (quantisation: ROADMAP queue 1 item 8)")
+    if getattr(args, "distill", False):
+        if getattr(args, "fuse_ab", False):
+            raise ValueError("distill models should turn off fuse_ab: --distill trains "
+                             "against a fuse-AB teacher, --fuse_ab trains one")
+        if not getattr(args, "teacher_model_path", None):
+            raise ValueError("--distill needs --teacher_model_path (the teacher's .pt)")
     if cfg.get("training_mode", "repvgg") == "repopt":
         raise NotImplementedError("RepOpt configs are not ported (ROADMAP queue 1 item 8)")
     if getattr(args, "ckpt_backend", "torch") != "torch":
@@ -81,10 +98,16 @@ class Trainer:
         self.img_size = args.img_size
         self.batch_size = args.batch_size
 
+        self.fuse_ab = bool(getattr(args, "fuse_ab", False))
+        self.distill = bool(getattr(args, "distill", False))
+        self.distill_ns = self.distill and cfg.model.type in ("YOLOv6n", "YOLOv6s")
+
         # the weights' init: torch's (kaiming uniform, a=sqrt(5)), the
         # distribution of the JAX package's conv_kernel_init, from the seed
         torch.manual_seed(args.seed)
-        self.model = build_model(cfg, self.num_classes, deploy=False, device=self.device)
+        self.model = build_model(cfg, self.num_classes, deploy=False, device=self.device,
+                                 fuse_ab=self.fuse_ab, distill_ns=self.distill_ns)
+        self.teacher = self.load_teacher(args.teacher_model_path) if self.distill else None
 
         self.train_loader, self.val_loader = self.get_data_loader(args, cfg, self.data_dict)
         self.max_stepnum = len(self.train_loader)
@@ -96,16 +119,13 @@ class Trainer:
         self.warmup_stepnum = max(round(self.solver_cfg["warmup_epochs"] * self.max_stepnum),
                                   1000)
 
-        head = cfg.model.head
-        self.atss_warmup_epoch = head.get("atss_warmup_epoch", 4)
-        self.compute_loss = ComputeLoss(
-            fpn_strides=tuple(head.strides), num_classes=self.num_classes,
-            ori_img_size=self.img_size, warmup_epoch=self.atss_warmup_epoch,
-            use_dfl=head.use_dfl, reg_max=head.reg_max, iou_type=head.iou_type)
+        self.atss_warmup_epoch = cfg.model.head.get("atss_warmup_epoch", 4)
+        self.compute_loss, self.compute_loss_ab, self.distill_loss = self._build_losses(cfg)
         self.train_step = make_train_step(
             self.model, self.compute_loss, self.solver_cfg, self.max_stepnum, self.max_epoch,
             self.batch_size, self.warmup_stepnum, (self.img_size, self.img_size),
-            half=bool(args.bf16), device=self.device)
+            half=bool(args.bf16), device=self.device, compute_loss_ab=self.compute_loss_ab,
+            teacher=None if self.teacher is None else (self.teacher, self.distill_loss))
 
         self.start_epoch = 0
         self.best_ap = 0.0
@@ -127,6 +147,59 @@ class Trainer:
 
         self.epoch_stats, self.eval_stats = [], []
         self.profile_result: Optional[dict] = None
+
+    def _build_losses(self, cfg):
+        """The anchor-free loss, and the recipe's loss or ``None``: the AB
+        loss with ``fuse_ab``, the distillation loss with ``distill`` (JAX:
+        engine.py:288-323)."""
+        head = cfg.model.head
+        common = dict(fpn_strides=tuple(head.strides), num_classes=self.num_classes,
+                      ori_img_size=self.img_size, iou_type=head.iou_type)
+        loss = ComputeLoss(warmup_epoch=self.atss_warmup_epoch, use_dfl=head.use_dfl,
+                           reg_max=head.reg_max, **common)
+        loss_ab = distill = None
+        if self.fuse_ab:
+            loss_ab = ComputeLossAB(anchors_init=tuple(map(tuple, head.anchors_init)), **common)
+        if self.distill:
+            loss_cls = ComputeLossDistillNS if self.distill_ns else ComputeLossDistill
+            distill = loss_cls(
+                warmup_epoch=self.atss_warmup_epoch, use_dfl=head.use_dfl, reg_max=head.reg_max,
+                distill_weight=dict(head.distill_weight), distill_feat=self.args.distill_feat,
+                max_epoch=self.max_epoch, temperature=self.args.temperature, **common)
+        return loss, loss_ab, distill
+
+    def load_teacher(self, path: str):
+        """The distillation teacher: the config's train graph with the fuse-AB
+        head (the port builds 3-level heads only, for which JAX takes
+        ``fuse_ab``), on the device in eval mode, its weights from the
+        port's checkpoint at ``path`` (the EMA, else the model). Only the
+        anchor-based branch may be missing from it, as the JAX partial load
+        allows (a teacher trained without ``--fuse_ab``); any other missing
+        or unexpected key, or a tensor of another shape, raises."""
+        if not osp.exists(path):
+            raise FileNotFoundError(f"teacher checkpoint {path} not found (the port downloads "
+                                    "nothing)")
+        ckpt = load_checkpoint(path)
+        state = ckpt.get("ema") or ckpt.get("model")
+        if not isinstance(state, dict):
+            raise ValueError(f"{path}: no 'ema' or 'model' state dict")
+        teacher = build_model(self.cfg, self.num_classes, deploy=False, device=self.device,
+                              fuse_ab=True)
+        own = teacher.state_dict()
+        missing = [k for k in own if k not in state]
+        bad = [k for k in missing if not k.startswith(("detect.cls_preds_ab.",
+                                                       "detect.reg_preds_ab."))]
+        unexpected = [k for k in state if k not in own]
+        reshaped = [k for k in own if k in state and state[k].shape != own[k].shape]
+        if bad or unexpected or reshaped:
+            raise ValueError(f"{path} does not fit the teacher ({self.cfg.model.type} with the "
+                             f"fuse-AB head): missing {bad}, unexpected {unexpected}, other "
+                             f"shapes {reshaped}")
+        teacher.load_state_dict(state, strict=False)
+        LOGGER.info(f"Loaded the teacher from {path}"
+                    + (f" (no anchor-based branch: {len(missing)} keys left at init)"
+                       if missing else ""))
+        return teacher.eval().requires_grad_(False)
 
     def get_data_loader(self, args, cfg, data_dict):
         """The augmenting, shuffled train loader and the val loader, one
@@ -207,8 +280,8 @@ class Trainer:
             if step % log_interval == 0:
                 self.mean_loss = mean.cpu().numpy()
                 LOGGER.info(f"epoch {epoch_num}/{self.max_epoch - 1} step {step}/"
-                            f"{self.max_stepnum} iou/dfl/cls: "
-                            + "/".join(f"{v:.4g}" for v in self.mean_loss[:3]))
+                            f"{self.max_stepnum} iou/dfl/cls{'/cwd' * self.distill}: "
+                            + "/".join(f"{v:.4g}" for v in self.mean_loss))
             if prof is not None and step == profile_at.stop - 1:
                 self._stop_profile(prof, len(profile_at))
                 prof = None

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from yolov6_tpu_torch.models.effidehead import flatten_head_outputs
+from yolov6_tpu_torch.models.heads.effidehead_fuseab import flatten_ab_outputs
 from yolov6_tpu_torch.solver.build import (
     param_groups,
     sgd_update,
@@ -62,18 +63,32 @@ class TrainStep:
     move or cast the model, or set its gradients to ``None``
     (``model.zero_grad()``), while the step owns it; a step then raises.
     ``load_state_dict`` is fine. ``max_stepnum`` is taken to match the JAX
-    signature and unused."""
+    signature and unused.
+
+    The training recipes: with ``compute_loss_ab`` (fuse-AB) the loss is the
+    anchor-free loss plus the anchor-based one, and so are the components;
+    with ``teacher = (teacher_model, distill_loss)`` the teacher's forward
+    runs in eval mode without autograd, under the student's autocast, and
+    ``distill_loss`` (``ComputeLossDistill[NS]``, then ``compute_loss``)
+    takes both models' head and neck maps and the epoch. The teacher is not
+    part of the step's state."""
 
     def __init__(self, model: nn.Module, compute_loss, solver_cfg: Dict, max_stepnum: int,
                  epochs: int, batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
-                 half: bool = True, device="cuda"):
+                 half: bool = True, device="cuda", compute_loss_ab=None, teacher=None):
         device = resolve_device(device)
+        if teacher is not None and compute_loss_ab is not None:
+            raise ValueError("a distillation step takes no anchor-based loss (fuse-AB)")
         named = list(model.named_parameters())
         for name, p in named:
             if p.device.type != device.type or p.dtype != torch.float32:
                 raise ValueError(f"parameter {name} is {p.dtype} on {p.device}; the step "
                                  f"needs fp32 parameters on {device}")
         self.model, self.compute_loss, self.device = model, compute_loss, device
+        self.compute_loss_ab, self.teacher = compute_loss_ab, None
+        if teacher is not None:
+            self.teacher, self.compute_loss = teacher
+            self.teacher.eval().requires_grad_(False)
         self.solver_cfg = dict(solver_cfg)
         self.epochs, self.batch_size = epochs, batch_size
         self.warmup_stepnum, self.img_size, self.half = warmup_stepnum, tuple(img_size), half
@@ -126,9 +141,9 @@ class TrainStep:
 
     def __call__(self, images_u8, targets, epoch, use_atss: bool = False):
         """One step on ``images_u8 [b, H, W, 3]`` uint8 NHWC and padded
-        ``targets [b, M, 5]``; returns (loss, components [iou, dfl, cls]) as
-        device tensors."""
-        loss, components = self.forward_backward(images_u8, targets, use_atss)
+        ``targets [b, M, 5]``; returns (loss, components [iou, dfl, cls], and
+        with a teacher [iou, dfl, cls, cwd]) as device tensors."""
+        loss, components = self.forward_backward(images_u8, targets, use_atss, epoch)
         self.update(epoch)
         return loss, components
 
@@ -143,11 +158,14 @@ class TrainStep:
             raise ValueError("the model was moved or cast after make_train_step; the step "
                              "would update buffers the model no longer reads")
 
-    def forward_backward(self, images_u8, targets, use_atss: bool = False):
+    def forward_backward(self, images_u8, targets, use_atss: bool = False, epoch=None):
         """The first half of a step: the forward (BN statistics snapshotted
         first), the loss and the gradients, in the step's gradient buffer.
-        ``update`` is the second half."""
+        ``update`` is the second half. ``epoch`` (a number or a device
+        scalar) is read by the distillation loss only."""
         self._check_aliasing()
+        if self.teacher is not None and epoch is None:
+            raise ValueError("a distillation step needs the epoch: its KD terms decay with it")
         dev = self.device
         images = torch.as_tensor(images_u8, device=dev)
         if tuple(images.shape[1:3]) != self.img_size:
@@ -160,11 +178,26 @@ class TrainStep:
         self._stats_before.copy_(self._stats)
         self._grad.zero_()
         with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=self.half):
-            head_out, _ = self.model(x)
-        cls_scores, reg_distri = flatten_head_outputs(head_out)
+            head_out, neck_feats = self.model(x)
+            if self.teacher is not None:
+                self.teacher.eval()
+                with torch.no_grad():
+                    t_head_out, t_feats = self.teacher(x)
         feats_hw = [tuple(c.shape[2:4]) for c in head_out["cls"]]
-        loss, components = self.compute_loss(feats_hw, cls_scores, reg_distri, targets,
-                                             x.shape[2], x.shape[3], use_atss)
+        h, w = x.shape[2], x.shape[3]
+        if self.teacher is not None:
+            loss, components = self.compute_loss(feats_hw, head_out, t_head_out, neck_feats,
+                                                 t_feats, targets, epoch, h, w, use_atss)
+        else:
+            cls_scores, reg_distri = flatten_head_outputs(head_out)
+            loss, components = self.compute_loss(feats_hw, cls_scores, reg_distri, targets, h,
+                                                 w, use_atss)
+            if self.compute_loss_ab is not None:
+                detect = self.model.detect
+                cls_ab, reg_ab = flatten_ab_outputs(head_out, detect.anchors_init,
+                                                    detect.strides, detect.num_anchors)
+                loss_ab, comp_ab = self.compute_loss_ab(feats_hw, cls_ab, reg_ab, targets, h, w)
+                loss, components = loss + loss_ab, components + comp_ab
         loss.backward()
         return loss.detach(), components
 
@@ -249,12 +282,17 @@ class TrainStep:
 
 def make_train_step(model, compute_loss, solver_cfg: Dict, max_stepnum: int, epochs: int,
                     batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
-                    half: bool = True, device="cuda") -> TrainStep:
+                    half: bool = True, device="cuda", compute_loss_ab=None,
+                    teacher=None) -> TrainStep:
     """The step of ``model`` (``build_model(..., deploy=False, device=device)``)
     under ``compute_loss`` (``losses/loss.py::ComputeLoss``), with the JAX
     ``make_train_step``'s arguments (its ``group_ids`` come from the model
     here). ``half`` runs the forward under bf16 autocast with fp32
     parameters; the loss is fp32. ``batch_size`` is the per-step batch that
-    sets the accumulation (nominal 64)."""
+    sets the accumulation (nominal 64). ``compute_loss_ab``
+    (``losses/loss_fuseab.py::ComputeLossAB``, for a ``fuse_ab`` model) and
+    ``teacher = (teacher_model, distill_loss)`` (``compute_loss`` is then
+    unused, as in JAX) select the training recipes (see ``TrainStep``)."""
     return TrainStep(model, compute_loss, solver_cfg, max_stepnum, epochs, batch_size,
-                     warmup_stepnum, img_size, half=half, device=device)
+                     warmup_stepnum, img_size, half=half, device=device,
+                     compute_loss_ab=compute_loss_ab, teacher=teacher)

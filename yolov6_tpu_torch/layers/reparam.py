@@ -64,17 +64,24 @@ def repvgg_fold(dense_kernel, dense_bn, onexone_kernel, onexone_bn, identity_bn,
     return kernel, bias
 
 
+# the heads' branches that only the training recipes' losses read
+TRAIN_ONLY_BRANCHES = ("detect.cls_preds_ab.", "detect.reg_preds_ab.", "detect.reg_preds_dist.")
+
+
 def fold_to_deploy(train_state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The train graph's state dict -> the deploy graph's, as CPU float32
     tensors for ``load_state_dict(..., strict=True)``:
 
     - ``X.rbr_dense`` + ``X.rbr_1x1`` + ``X.rbr_identity`` -> ``X.rbr_reparam``;
     - ``X.conv`` + ``X.bn`` -> ``X.conv`` with a bias;
+    - the train-only branches of the fuse-AB and distill-NS heads
+      (``TRAIN_ONLY_BRANCHES``) are dropped: the deploy graph is ``Detect``'s;
     - every other tensor (Transpose, the prediction convs) passes through.
 
     BN ``num_batches_tracked`` counters are dropped with their BNs."""
     sd = {k: v.detach().to("cpu", torch.float32).numpy().copy()
-          for k, v in train_state_dict.items() if not k.endswith(".num_batches_tracked")}
+          for k, v in train_state_dict.items()
+          if not k.endswith(".num_batches_tracked") and not k.startswith(TRAIN_ONLY_BRANCHES)}
     used = set()
 
     def take(key):

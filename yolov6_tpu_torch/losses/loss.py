@@ -87,6 +87,8 @@ class ComputeLoss:
         self.loss_weight = dict(loss_weight)
         self._grids = {}
 
+    anchor_mode = "af"  # generate_anchors' mode; the fuse-AB loss's is "ab"
+
     def _grid(self, feats_hw, batch_height, batch_width, device):
         """Anchor boxes [A, 4] and points [A, 2] px, anchors per level,
         strides [A, 1] and the target scale, made once per input size and
@@ -94,7 +96,8 @@ class ComputeLoss:
         key = (tuple(map(tuple, feats_hw)), batch_height, batch_width, str(device))
         if key not in self._grids:
             anchors = generate_anchors(feats_hw, self.fpn_strides, self.grid_cell_size,
-                                       self.grid_cell_offset, device=device)
+                                       self.grid_cell_offset, mode=self.anchor_mode,
+                                       device=device)
             scale = torch.tensor([batch_width, batch_height, batch_width, batch_height],
                                  dtype=torch.float32, device=device)
             self._grids[key] = anchors + (scale,)

@@ -38,23 +38,32 @@ class Detect(nn.Module):
                                        for c in in_channels)
         self.reg_preds = nn.ModuleList(nn.Conv2d(c, 4 * (reg_max + num_anchors), 1)
                                        for c in in_channels)
-        # prior-probability init (reference effidehead.py:49-57): zero weights,
-        # cls bias at the logit of PRIOR_PROB, reg bias 1
-        with torch.no_grad():
-            for conv in self.cls_preds:
-                conv.weight.zero_()
-                conv.bias.fill_(-math.log((1 - PRIOR_PROB) / PRIOR_PROB))
-            for conv in self.reg_preds:
-                conv.weight.zero_()
-                conv.bias.fill_(1.0)
+        prior_init(self.cls_preds, self.reg_preds)
 
     def forward(self, feats):
-        cls_outputs, reg_outputs = [], []
+        out = {"cls": [], "reg": []}
         for i, x in enumerate(feats):
             x = self.stems[i](x)
-            cls_outputs.append(self.cls_preds[i](self.cls_convs[i](x)))
-            reg_outputs.append(self.reg_preds[i](self.reg_convs[i](x)))
-        return {"cls": cls_outputs, "reg": reg_outputs}
+            self._predict(out, i, self.cls_convs[i](x), self.reg_convs[i](x))
+        return out
+
+    def _predict(self, out: dict, i: int, cls_feat, reg_feat) -> None:
+        """Append level ``i``'s prediction maps to ``out``; the train-only
+        branches of the fuse-AB and distill-NS heads add theirs here."""
+        out["cls"].append(self.cls_preds[i](cls_feat))
+        out["reg"].append(self.reg_preds[i](reg_feat))
+
+
+def prior_init(cls_preds, reg_preds) -> None:
+    """Prior-probability init (reference effidehead.py:49-57): zero weights,
+    class biases at the logit of PRIOR_PROB, box biases 1."""
+    with torch.no_grad():
+        for conv in cls_preds:
+            conv.weight.zero_()
+            conv.bias.fill_(-math.log((1 - PRIOR_PROB) / PRIOR_PROB))
+        for conv in reg_preds:
+            conv.weight.zero_()
+            conv.bias.fill_(1.0)
 
 
 def _flatten_nhwc(m: torch.Tensor) -> torch.Tensor:
@@ -69,8 +78,13 @@ def flatten_head_outputs(outputs: dict):
     (distances, or the DFL logits for the loss), fp32, the levels
     concatenated in row-major (h, w) anchor order."""
     cls_scores = torch.cat([torch.sigmoid(_flatten_nhwc(c)) for c in outputs["cls"]], 1)
-    reg_dists = torch.cat([_flatten_nhwc(r) for r in outputs["reg"]], 1)
-    return cls_scores, reg_dists
+    return cls_scores, flatten_maps(outputs["reg"])
+
+
+def flatten_maps(maps) -> torch.Tensor:
+    """Per-level ``[b, c, h, w]`` maps -> ``[b, A, c]`` fp32, the levels
+    concatenated in row-major (h, w) anchor order."""
+    return torch.cat([_flatten_nhwc(m) for m in maps], 1)
 
 
 def dfl_project(reg_out: torch.Tensor, reg_max: int) -> torch.Tensor:

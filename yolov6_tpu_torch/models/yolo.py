@@ -1,7 +1,7 @@
 """Detector assembly (port of yolov6_tpu/models/yolo.py:29-166): the P5
 non-lite graphs (EfficientRep + RepBiFPANNeck for N/S, CSPBepBackbone +
-CSPRepBiFPANNeck for M/L, Detect with or without DFL), in the deploy or the
-train form."""
+CSPRepBiFPANNeck for M/L, Detect with or without DFL, or the fuse-AB and
+distill-NS heads of the training recipes), in the deploy or the train form."""
 
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from yolov6_tpu_torch.layers.common import get_block
 from yolov6_tpu_torch.models import efficientrep as _efficientrep  # noqa: F401 (registry)
 from yolov6_tpu_torch.models import reppan as _reppan  # noqa: F401 (registry)
 from yolov6_tpu_torch.models.effidehead import Detect, decode_eval
+from yolov6_tpu_torch.models.heads.effidehead_distill_ns import DetectDistillNS
+from yolov6_tpu_torch.models.heads.effidehead_fuseab import DetectFuseAB
 from yolov6_tpu_torch.utils.device import resolve_device
 from yolov6_tpu_torch.utils.registry import BACKBONES, NECKS
 
@@ -48,15 +50,21 @@ class Model(nn.Module):
         return decode_eval(head_out, self.num_classes, self.strides, self.use_dfl, self.reg_max)
 
 
-def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda") -> Model:
+def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda",
+                fuse_ab: bool = False, distill_ns: bool = False) -> Model:
     """Construct the detector from a config on ``device`` (reference:
-    yolo.py:55-138): the deploy graph in eval mode, or with ``deploy=False``
-    the train graph (BN, RepVGG's three branches, BottleRep alphas) in train
-    mode. Raises ``NotImplementedError`` on the parts of the model zoo not
-    ported: P6 heads (``num_layers != 3``), the lite family, MBLA stages and
-    block modes other than ``repvgg``, ``conv_relu`` and ``conv_silu``. The
-    JAX ``build_model``'s fuse-AB and distill heads (its ``fuse_ab`` and
-    ``distill_ns`` flags) have no counterpart here."""
+    yolo.py:55-138; JAX yolo.py:135-165): the deploy graph in eval mode, or
+    with ``deploy=False`` the train graph (BN, RepVGG's three branches,
+    BottleRep alphas) in train mode. ``fuse_ab`` gives the head the
+    anchor-based branch of anchor-aided training (``DetectFuseAB``);
+    ``distill_ns`` gives it the N/S self-distillation head
+    (``DetectDistillNS``), whose model decodes plain ltrb boxes
+    (``use_dfl=False``, ``reg_max=0``) while the config's ``reg_max`` sizes
+    the train-only DFL branch. With ``deploy=True`` either builds exactly
+    ``Detect``'s deploy graph. Raises ``NotImplementedError`` on the parts
+    of the model zoo not ported: P6 heads (``num_layers != 3``), the lite
+    family, MBLA stages and block modes other than ``repvgg``,
+    ``conv_relu`` and ``conv_silu``."""
     device = resolve_device(device)
     mcfg = cfg.model
     if mcfg.backbone.type == "Lite_EffiBackbone":
@@ -83,8 +91,16 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda") -> Mo
         neck_kwargs.update(csp_e=mcfg.neck.csp_e, stage_block_type=stage_block_type)
     backbone = BACKBONES.get(mcfg.backbone.type)(channels_list, num_repeat, **bb_kwargs)
     neck = NECKS.get(mcfg.neck.type)(channels_list, num_repeat, **neck_kwargs)
-    detect = Detect((channels_list[6], channels_list[8], channels_list[10]),
-                    num_classes=num_classes, reg_max=mcfg.head.reg_max, deploy=deploy)
-    model = Model(backbone, neck, detect, num_classes, bool(mcfg.head.use_dfl),
-                  mcfg.head.reg_max).to(device)
+    in_channels = (channels_list[6], channels_list[8], channels_list[10])
+    use_dfl, reg_max = bool(mcfg.head.use_dfl), mcfg.head.reg_max
+    if distill_ns:
+        detect = DetectDistillNS(in_channels, num_classes, reg_max=reg_max, deploy=deploy)
+        # the branch that ships is plain ltrb: the decode runs no DFL
+        use_dfl, reg_max = False, 0
+    elif fuse_ab:
+        detect = DetectFuseAB(in_channels, num_classes, reg_max=reg_max,
+                              anchors_init=mcfg.head.anchors_init, deploy=deploy)
+    else:
+        detect = Detect(in_channels, num_classes=num_classes, reg_max=reg_max, deploy=deploy)
+    model = Model(backbone, neck, detect, num_classes, use_dfl, reg_max).to(device)
     return model.eval() if deploy else model.train()

@@ -11,8 +11,16 @@ again at the reference's exact NMS protocol (``max_nms=30000``,
 ``row_select="topk"``). The bar is the JAX tool's (``resolve_thresholds``):
 final mAP50 above 0.75 and a gain over the earliest checkpoint above 0.20 at
 30 epochs or more, 0.50 and 0.10 below. Writes ``gate_result.json`` and exits
-1 when the gate fails. ``--fuse-ab``, ``--distill`` and ``--repopt`` raise:
-those recipes are ROADMAP queue 1 item 8.
+1 when the gate fails.
+
+``--fuse-ab`` trains with the anchor-aided branch and its loss. ``--distill``
+runs the N/S self-distillation recipe in two stages, as the JAX tool: the
+config is written with DFL switched on (``use_dfl=True``, ``reg_max=16``)
+for both; stage 1 trains a fuse-AB teacher for ``--teacher-epochs`` (0: as
+many as ``--epochs``), stage 2 the distill-NS student against the teacher's
+``best_ckpt.pt``; the student's checkpoints are evaluated with the original
+config, the fold dropping the train-only DFL branch. ``--repopt`` raises:
+RepOpt is ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -51,8 +59,14 @@ def get_args_parser(add_help=True):
     p.add_argument("--skip-exact-nms", action="store_true",
                    help="skip the eval at the exact NMS protocol")
     p.add_argument("--bf16", action="store_true")
-    p.add_argument("--fuse-ab", action="store_true", help="not ported (ROADMAP item 8)")
-    p.add_argument("--distill", action="store_true", help="not ported (ROADMAP item 8)")
+    p.add_argument("--fuse-ab", action="store_true",
+                   help="train with the anchor-based branch and its loss (anchor-aided "
+                        "training)")
+    p.add_argument("--distill", action="store_true",
+                   help="stage 1 trains a fuse-AB teacher, stage 2 the distill-NS student "
+                        "against it")
+    p.add_argument("--teacher-epochs", type=int, default=0,
+                   help="the distill teacher stage's epochs (0: as many as --epochs)")
     p.add_argument("--repopt", action="store_true", help="not ported (ROADMAP item 8)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu; cuda raises when there is no GPU")
@@ -78,12 +92,67 @@ def _eval_ckpt(data, ckpt, conf_file, img_size, batch_size, save_dir, device, **
     return float(map50), float(map50_95)
 
 
+def _train_argv(args, data, conf_file, epochs, out_dir, name):
+    """The train CLI's arguments of a gate stage."""
+    return [
+        "--data-path", data,
+        "--conf-file", conf_file,
+        "--img-size", str(args.img_size),
+        "--img-floor", str(args.img_size),
+        "--batch-size", str(args.batch_size),
+        "--epochs", str(epochs),
+        "--workers", str(args.workers),
+        "--eval-final-only",
+        "--heavy-eval-range", "0",
+        "--stop_aug_last_n_epoch", str(max(2, epochs // 6)),
+        "--output-dir", osp.join(args.out, out_dir),
+        "--name", name,
+        "--max-labels", str(args.max_labels),
+        "--seed", str(args.seed),
+        "--log-interval", "20",
+        "--device", args.device,
+    ] + (["--bf16"] if args.bf16 else [])
+
+
+def _write_dfl_config(args) -> str:
+    """The config with DFL switched on, for both distill stages (JAX:
+    tools/learning_gate.py:218-238): the reference's recipe opens
+    ``use_dfl``/``reg_max=16`` in the N/S config before training the
+    teacher and the student."""
+    with open(args.conf_file) as f:
+        src = f.read()
+    if "use_dfl=False" not in src or "reg_max=0" not in src:
+        raise ValueError(f"{args.conf_file}: --distill flips use_dfl=False and reg_max=0, "
+                         "and the config has not both")
+    dfl_conf = osp.join(args.out, "distill_conf.py")
+    with open(dfl_conf, "w") as f:
+        f.write(src.replace("use_dfl=False", "use_dfl=True").replace("reg_max=0", "reg_max=16"))
+    return dfl_conf
+
+
+def _distill_prestage(args, data, train_cli, conf_file, LOGGER):
+    """Distill stage 1: the fuse-AB teacher (JAX: tools/learning_gate.py:
+    144-180); returns its trainer and its ``best_ckpt.pt`` (``last_ckpt.pt``
+    when no eval made a best one)."""
+    t_epochs = args.teacher_epochs or args.epochs
+    t_args = train_cli.get_args_parser().parse_args(
+        _train_argv(args, data, conf_file, t_epochs, "train_teacher", "teacher") + ["--fuse_ab"])
+    LOGGER.info(f"Distill stage 1/2: fuse-AB teacher for {t_epochs} epochs")
+    trainer = train_cli.main(t_args)
+    ckpt = osp.join(t_args.save_dir, "weights", "best_ckpt.pt")
+    if not osp.exists(ckpt):
+        ckpt = osp.join(t_args.save_dir, "weights", "last_ckpt.pt")
+    if not osp.exists(ckpt):
+        raise FileNotFoundError(f"the teacher stage wrote no checkpoint: {ckpt}")
+    return trainer, ckpt
+
+
 def main(args) -> int:
-    for mode in ("fuse_ab", "distill", "repopt"):
-        if getattr(args, mode):
-            raise NotImplementedError(
-                f"--{mode.replace('_', '-')}: the fuse-AB, distill and RepOpt recipes are not "
-                "ported (ROADMAP queue 1 item 8)")
+    if args.repopt:
+        raise NotImplementedError("--repopt: the RepOpt recipe is not ported (ROADMAP queue 1 "
+                                  "item 8)")
+    if args.fuse_ab and args.distill:
+        raise ValueError("distill models turn off fuse_ab: pick one gate mode")
     from yolov6_tpu_torch.data.synth_detect import generate_synth_dataset
     from yolov6_tpu_torch.tools import train as train_cli
     from yolov6_tpu_torch.utils.events import LOGGER
@@ -98,32 +167,28 @@ def main(args) -> int:
         generate_synth_dataset(data_root, n_train=args.n_train, n_val=args.n_val,
                                img_size=args.img_size * 2, nc=args.nc, seed=args.seed)
 
-    train_args = train_cli.get_args_parser().parse_args([
-        "--data-path", data,
-        "--conf-file", args.conf_file,
-        "--img-size", str(args.img_size),
-        "--img-floor", str(args.img_size),
-        "--batch-size", str(args.batch_size),
-        "--epochs", str(args.epochs),
-        "--workers", str(args.workers),
-        "--eval-final-only",
-        "--heavy-eval-range", "0",
-        "--stop_aug_last_n_epoch", str(max(2, args.epochs // 6)),
-        "--save_ckpt_on_last_n_epoch", str(args.epochs),  # every epoch
-        "--output-dir", osp.join(args.out, "train"),
-        "--name", "gate",
-        "--max-labels", str(args.max_labels),
-        "--seed", str(args.seed),
-        "--log-interval", "20",
-        "--device", args.device,
-    ] + (["--bf16"] if args.bf16 else []))
+    conf_file, extra, teacher = args.conf_file, [], None
+    if args.fuse_ab:
+        extra.append("--fuse_ab")
+    if args.distill:
+        conf_file = _write_dfl_config(args)
+        t0 = time.perf_counter()
+        t_trainer, teacher_ckpt = _distill_prestage(args, data, train_cli, conf_file, LOGGER)
+        teacher = {"ckpt": teacher_ckpt, "train_s": time.perf_counter() - t0,
+                   "eval_stats": t_trainer.eval_stats, "epoch_stats": t_trainer.epoch_stats}
+        extra += ["--distill", "--teacher_model_path", teacher_ckpt]
+    train_args = train_cli.get_args_parser().parse_args(
+        _train_argv(args, data, conf_file, args.epochs, "train", "gate")
+        + ["--save_ckpt_on_last_n_epoch", str(args.epochs)] + extra)  # every epoch
     t0 = time.perf_counter()
     trainer = train_cli.main(train_args)
     train_s = time.perf_counter() - t0
     weights_dir = osp.join(train_args.save_dir, "weights")
 
     # early / mid / final checkpoints (0-indexed "<e>_ckpt.pt"; the stripped
-    # final is last_ckpt.pt)
+    # final is last_ckpt.pt), evaluated in every mode with the original
+    # config: the distilled student ships its plain ltrb branch, the fold
+    # dropping the DFL branch
     pts = sorted({max(0, round((i + 1) * (args.epochs - 1) / args.eval_points))
                   for i in range(args.eval_points)})
     trajectory = []
@@ -146,7 +211,12 @@ def main(args) -> int:
         "min_gain": args.min_gain,
         "train_s": train_s,
         "epoch_stats": trainer.epoch_stats,
+        "mode": "distill" if args.distill else "fuse_ab" if args.fuse_ab else "standard",
     }
+    if teacher is not None:
+        evals = teacher["eval_stats"]
+        teacher["final_map50"] = evals[-1]["ap50"] if evals else None
+        result["teacher"] = teacher
     if not args.skip_exact_nms:
         ckpt = osp.join(weights_dir, f"{pts[-1]}_ckpt.pt")
         if not osp.exists(ckpt):

@@ -10,8 +10,12 @@ epochs, ``best_stop_aug_ckpt.pt``); the final ``last_ckpt.pt`` and
 ``best_ckpt.pt`` hold the EMA only, and ``tools/eval.py`` reads them.
 ``--resume [ckpt]`` continues a run from its checkpoint (the latest
 ``last*_ckpt*`` under the working directory without one), with the run's
-saved ``args.yaml`` winning over the command line. Flags of later slices
-raise ``NotImplementedError`` (``core/engine.py::check_supported``); the JAX
+saved ``args.yaml`` winning over the command line. The YOLOv6 v3.0 recipes:
+``--fuse_ab`` (anchor-aided training), then ``--distill --teacher_model_path
+<the fuse-AB run's best_ckpt.pt> [--distill_feat] [--temperature T]`` (for N
+and S with the DFL config, ``use_dfl=True`` and ``reg_max=16``). Flags of
+later slices raise ``NotImplementedError``
+(``core/engine.py::check_supported``); the JAX
 CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,
 ``--check-images``/``--check-labels`` and the unused ``--dist_url``/
 ``--gpu_count`` are not in this parser.
@@ -52,8 +56,14 @@ def get_args_parser(add_help=True):
     parser.add_argument("--stop_aug_last_n_epoch", default=15, type=int)
     parser.add_argument("--save_ckpt_on_last_n_epoch", default=-1, type=int)
     parser.add_argument("--distill", action="store_true")
+    parser.add_argument("--distill_feat", action="store_true",
+                        help="add the channel-wise KD on the neck maps")
     parser.add_argument("--quant", action="store_true")
     parser.add_argument("--calib", action="store_true")
+    parser.add_argument("--teacher_model_path", type=str, default=None,
+                        help="the distillation teacher's checkpoint (the port's .pt)")
+    parser.add_argument("--temperature", type=int, default=20,
+                        help="the distillation's softmax temperature")
     parser.add_argument("--fuse_ab", action="store_true")
     parser.add_argument("--bs_per_device", default=None, type=int,
                         help="per-device batch used to rescale lr0 (reference --bs_per_gpu)")
