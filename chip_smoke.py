@@ -100,7 +100,31 @@ Phases, each of which asserts:
      walk in every image of its evals, and the first keep with a candidate of
      the teacher's in-training eval, the student's, its checkpoint evals and
      its exact-NMS pass each held against the plain emit-once keep; it logs
-     the teacher's final mAP50, the trajectory and the wall time.
+     the teacher's final mAP50, the trajectory and the wall time;
+ 18. the P6 family at 1280 (configs/yolov6{n6,s6,m6,l6}.py, four levels,
+     strides 8-64): each deploy graph serves 32 random uint8 images of
+     1280x1280 in bf16 at the serving defaults, whose 34,000 anchors an
+     image are capped at K = 30,000 NMS candidates; fwd+decode and serve
+     timed (10 calls after 3), the first keep held against the plain
+     emit-once keep and the kernel timed on those candidates beside its
+     plain version and its bound; N6's CPU decode of two images held against
+     the CUDA one in fp32 (TF32 off); L6's serve profiled (3 calls);
+ 19. P6 training at 1280: S6 (TAL, no DFL) at b32 and L6 (DFL, conv_silu) at
+     the largest of b32/b16/b8 whose peak, predicted from a probe at b8,
+     leaves 10% of the card free (the measured peak must too), each as phase
+     9 trains M (10 timed steps, the split, peak memory, then 3 ATSS steps),
+     then folded and served b32@1280 as in phase 7;
+ 20. L6 through the Evaler at its repro protocol (1280, shrink 41, conf
+     0.03, IoU 0.65, multi-label, max_det 300) over phase 11's 320 PNG
+     images, with phase 11's checks and numbers;
+ 21. the MBLA stage (configs/mbla/): X-MBLA's deploy graph serves b32@640
+     as in phase 18; S-MBLA's training step at b32@640 (DFL, TAL) as phase 6
+     (20 timed steps), then folded and served as in phase 7;
+ 22. N6 through the train CLI at 1280, batch 8, 2 epochs (both on the ATSS
+     branch) over the first 64 images of phase 12's split, with one
+     in-training eval of the 320 val images at conf 0: its first keep with a
+     candidate held against the plain emit-once keep; imgs/s an epoch,
+     loader wait and step time a step.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -169,6 +193,23 @@ FOLD_REL_TOL = 1e-4
 # serving the folded trained model: a low conf, so that the walk has work
 # while the trained scores are still near the head's prior (0.01)
 FOLD_SERVE = dict(conf_thres=0.001, iou_thres=0.65, max_det=300)
+
+
+# the P6 family and the MBLA stage (phases 18-22): P6 serves, trains and
+# evaluates at 1280, where its 160² + 80² + 40² + 20² = 34,000 anchors are
+# capped at the serve's max_nms of 30,000 NMS candidates an image
+P6_IMG = 1280
+P6_NAMES = ("n6", "s6", "m6", "l6")
+P6_SERVE_K = 30000
+P6_TIMED_STEPS = 10  # phase 19's timed train steps
+# phase 19: L6 trains at the largest of these batches whose peak, predicted
+# from a probe at the smallest, leaves 10% of the card's memory free
+L6_BATCHES = (32, 16, 8)
+L6_FREE_SHARE = 0.10
+# phase 20: the repro protocol's L6 row (configs/experiment/eval_640_repro.py)
+L6_EVAL_SHRINK = 41
+# phase 22: N6 through the train CLI on the first 64 images of phase 12's split
+P6_TRAIN_CLI = dict(n_train=64, batch=8, epochs=2, stop_aug_last_n_epoch=1, workers=8)
 
 
 def log(msg: str) -> None:
@@ -433,7 +474,7 @@ def time_step_phases(step, images, targets, epoch) -> dict:
     return split
 
 
-def recipe_step(cfg, recipe, dev, gen, epochs: int):
+def recipe_step(cfg, recipe, dev, gen, epochs: int, img: int = IMG):
     """The train model and ``make_train_step``'s loss arguments of a recipe:
     None (``ComputeLoss``), ``"fuse_ab"`` (the fuse-AB head and
     ``ComputeLossAB``) or ``"distill"`` (a fuse-AB teacher of the same
@@ -454,7 +495,8 @@ def recipe_step(cfg, recipe, dev, gen, epochs: int):
     model = build_model(cfg, num_classes=NUM_CLASSES, deploy=False, device=dev,
                         fuse_ab=recipe == "fuse_ab", distill_ns=ns)
     init_train_weights(model, gen)
-    common = dict(num_classes=NUM_CLASSES, ori_img_size=IMG, iou_type=head.iou_type)
+    common = dict(num_classes=NUM_CLASSES, ori_img_size=img, iou_type=head.iou_type,
+                  fpn_strides=tuple(head.strides))
     loss_fn = ComputeLoss(warmup_epoch=0, use_dfl=head.use_dfl, reg_max=head.reg_max, **common)
     if recipe == "fuse_ab":
         return model, loss_fn, dict(compute_loss_ab=ComputeLossAB(
@@ -481,12 +523,14 @@ def recipe_step(cfg, recipe, dev, gen, epochs: int):
 
 
 def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
-                profile: bool = True, atss_steps: int = 0, recipe=None):
-    """A training step at b32@640 in bf16 on the bench's cell (phases 6, 9,
-    10 and the recipes' 14-16, ``recipe`` as ``recipe_step`` takes it):
-    ``TRAIN["warmup_steps"]`` steps, ``timed_steps`` timed, one split into its
-    phases, optionally a profile window; then ``atss_steps`` steps on the
-    ATSS branch. Returns the step and its numbers."""
+                profile: bool = True, atss_steps: int = 0, recipe=None, batch: int = BATCH,
+                img: int = IMG):
+    """A training step at ``batch``@``img`` (b32@640 unless given) in bf16 on
+    the bench's cell (phases 6, 9, 10, the recipes' 14-16, 19 and 21,
+    ``recipe`` as ``recipe_step`` takes it): ``TRAIN["warmup_steps"]`` steps,
+    ``timed_steps`` timed, one split into its phases, optionally a profile
+    window; then ``atss_steps`` steps on the ATSS branch. Returns the step
+    and its numbers."""
     import torch
 
     from yolov6_tpu_torch.core.train_step import make_train_step
@@ -496,16 +540,16 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
     head, sol = cfg.model.head, cfg.solver
     model, loss_fn, recipe_kw = recipe_step(cfg, recipe, dev,
                                             torch.Generator(device=dev).manual_seed(0),
-                                            t["epochs"])
+                                            t["epochs"], img)
     solver = scale_hyperparams_for_batch(dict(
         lr0=sol.lr0, lrf=sol.lrf, momentum=sol.momentum, weight_decay=sol.weight_decay,
         warmup_epochs=sol.warmup_epochs, warmup_momentum=sol.warmup_momentum,
-        warmup_bias_lr=sol.warmup_bias_lr, lr_scheduler="Cosine"), BATCH)
-    step = make_train_step(model, loss_fn, solver, t["max_stepnum"], t["epochs"], BATCH,
-                           t["warmup_stepnum"], (IMG, IMG), half=True, device=dev, **recipe_kw)
+        warmup_bias_lr=sol.warmup_bias_lr, lr_scheduler="Cosine"), batch)
+    step = make_train_step(model, loss_fn, solver, t["max_stepnum"], t["epochs"], batch,
+                           t["warmup_stepnum"], (img, img), half=True, device=dev, **recipe_kw)
     n_params = sum(p.numel() for p in model.parameters())
     n_alpha = sum(1 for n, _ in model.named_parameters() if n.endswith(".alpha"))
-    images, targets = bench_batch(BATCH, IMG, t["max_labels"], t["labels"], dev)
+    images, targets = bench_batch(batch, img, t["max_labels"], t["labels"], dev)
     epoch = t["epoch"]
     names = ["total", "iou", "dfl", "cls"] + (["cwd"] if step.teacher is not None else [])
 
@@ -545,8 +589,8 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
                        f"(T {DISTILL['temperature']}, channel-wise KD, epoch {epoch} of "
                        f"{t['epochs']})"}[recipe]
     log(f"{tag} trained {label} ({n_params / 1e6:.2f} M params, train form, {n_alpha} BottleRep "
-        f"alphas; DFL {bool(head.use_dfl)}{what}) b{BATCH}@{IMG} bf16: {t['warmup_steps']} + "
-        f"{timed_steps} steps, {step_ms:.3f} ms/step = {BATCH / step_ms * 1e3:.1f} imgs/s [{card}]")
+        f"alphas; DFL {bool(head.use_dfl)}{what}) b{batch}@{img} bf16: {t['warmup_steps']} + "
+        f"{timed_steps} steps, {step_ms:.3f} ms/step = {batch / step_ms * 1e3:.1f} imgs/s [{card}]")
     log(f"{tag} one step split: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
         + f" (sum {sum(split.values()):.3f}) [{card}]")
     log(f"{tag} peak memory allocated {peak_gib:.2f} GiB over the timed steps; "
@@ -573,17 +617,18 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
         atss_ms = start.elapsed_time(end) / atss_steps
         rows = torch.stack(losses).tolist()
         log(f"{tag} {atss_steps} steps on the ATSS branch: {atss_ms:.3f} ms/step = "
-            f"{BATCH / atss_ms * 1e3:.1f} imgs/s; loss [{', '.join(names)}] "
+            f"{batch / atss_ms * 1e3:.1f} imgs/s; loss [{', '.join(names)}] "
             f"{[[round(x, 5) for x in row] for row in rows]} [{card}]")
         assert all(math.isfinite(x) for row in rows for x in row), "ATSS: a loss is not finite"
         assert all(row[2] > 0 for row in rows) or not head.use_dfl
     torch.cuda.synchronize()
-    return step, dict(step_ms=step_ms, imgs_per_s=BATCH / step_ms * 1e3, split_ms=split,
-                      peak_gib=peak_gib, applied=n_applied, held=n_held, params=n_params)
+    return step, dict(step_ms=step_ms, imgs_per_s=batch / step_ms * 1e3, split_ms=split,
+                      peak_gib=peak_gib, applied=n_applied, held=n_held, params=n_params,
+                      batch=batch, img=img)
 
 
 def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str) -> dict:
-    """Phases 7, 9, 14 and 15: fold the trained model and its EMA into the
+    """Phases 7, 9, 14, 15, 19 and 21: fold the trained model and its EMA into the
     deploy graph of ``cfg`` (the training recipes' train-only branches
     dropped), hold each against its train form's eval forward in fp32, and
     serve the folded model, its first keep with a candidate held against
@@ -631,18 +676,19 @@ def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str
         torch.cuda.synchronize()
     launches = greedy_nms.launches
     assert launches > 0, "serving the folded model did not launch the NMS kernel"
-    walk = rec.check(f"{tag} folded serve", BATCH, labels=("serve",))
+    batch, img = images.shape[0], images.shape[1]
+    walk = rec.check(f"{tag} folded serve", batch, labels=("serve",))
     first = walk["first"]["serve"]
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     total = int(num_dets.sum())
     assert total > 0, "serving the folded trained model found no detections"
-    log(f"{tag} served the folded trained {label} b{BATCH}@{IMG} bf16 at {FOLD_SERVE}: {total} "
-        f"detections, {launches} NMS kernel launch(es), the tile walk in all {BATCH} images, "
+    log(f"{tag} served the folded trained {label} b{batch}@{img} bf16 at {FOLD_SERVE}: {total} "
+        f"detections, {launches} NMS kernel launch(es), the tile walk in all {batch} images, "
         f"{walk['tiles_visited']:.2f} tiles/image, the keep (B={first['boxes'].shape[0]} "
         f"K={first['boxes'].shape[1]}, {first['kept']} kept) equal to the plain emit-once keep; "
         f"max score {float(scores.max()):.4f}")
     return dict(launches=launches, tiles_visited=walk["tiles_visited"],
-                max_abs_err=walk["max_abs_err"])
+                max_abs_err=walk["max_abs_err"], K=int(first["boxes"].shape[1]))
 
 
 def forward_decode(x_uint8, model, half):
@@ -786,10 +832,10 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
 
 
 def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=None):
-    """Phases 4/5, 8 and 10: bf16 fwd+decode and serve at b32@640 by CUDA
-    events (10 calls after 3), then a profile window when ``profile_tag`` is
-    given; returns the NMS kernel's launches in one serve call, which must
-    take the tile walk."""
+    """Phases 4/5, 8, 10 and 21: bf16 fwd+decode and serve of ``images`` (b32@640)
+    by CUDA events (10 calls after 3), then a profile window when
+    ``profile_tag`` is given; returns the NMS kernel's launches in one serve
+    call, which must take the tile walk, and the two times."""
     import torch
 
     from yolov6_tpu_torch.models.end2end import make_end2end_fn
@@ -802,18 +848,20 @@ def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=
     torch.cuda.synchronize()
     launches = greedy_nms.launches
     assert launches > 0, f"{label}: bf16 serving did not launch the NMS kernel"
-    assert greedy_nms.last_path.tolist() == [1] * BATCH, f"{label} bf16: not every image walked"
+    batch, img = images.shape[0], images.shape[1]
+    assert greedy_nms.last_path.tolist() == [1] * batch, f"{label} bf16: not every image walked"
     assert int(n16.sum()) > 0, f"{label}: bf16 serving found no detections"
     with torch.inference_mode():
         fd_ms = cuda_ms(lambda: forward_decode(images, model, half=True), iters=10, warmup=3)
     sv_ms = cuda_ms(lambda: serve16(images), iters=10, warmup=3)
-    log(f"{tag} bf16 {label} b{BATCH}@{IMG}: fwd+decode {fd_ms:.3f} ms = "
-        f"{BATCH / fd_ms * 1e3:.1f} imgs/s; fwd+decode+NMS (serve) {sv_ms:.3f} ms = "
-        f"{BATCH / sv_ms * 1e3:.1f} imgs/s; {int(n16.sum())} detections, {launches} NMS kernel "
-        f"launch(es) a call, the tile walk in all {BATCH} images [{card}]")
+    log(f"{tag} bf16 {label} b{batch}@{img}: fwd+decode {fd_ms:.3f} ms = "
+        f"{batch / fd_ms * 1e3:.1f} imgs/s; fwd+decode+NMS (serve) {sv_ms:.3f} ms = "
+        f"{batch / sv_ms * 1e3:.1f} imgs/s; {int(n16.sum())} detections, {launches} NMS kernel "
+        f"launch(es) a call, the tile walk in all {batch} images [{card}]")
     if profile_tag:
         profile_calls(lambda: serve16(images), card, tag=profile_tag)
-    return launches
+    return dict(launches=launches, fwd_decode_ms=fd_ms, serve_ms=sv_ms,
+                imgs_per_s=batch / sv_ms * 1e3)
 
 
 # the eval phase's set: 320 PNG images in four sizes (w, h), so that the
@@ -960,9 +1008,11 @@ def split_per_batch(batch_split) -> dict:
                 convert_ms=sum(r["convert_s"] for r in batch_split) / n * 1e3)
 
 
-def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False) -> dict:
+def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False,
+               img: int = IMG, shrink: int = 0, tag: str = "[11]") -> dict:
     """``Evaler.init_data``, ``predict_model`` and ``eval_model`` of ``model``
-    at b32@640 in bf16 at the eval protocol (conf 0.03, IoU 0.65,
+    at b32@``img`` (640 unless given; ``shrink`` the repro protocol's
+    ``shrink_size``) in bf16 at the eval protocol (conf 0.03, IoU 0.65,
     multi-label, max_nms 8192, max_det 300), with the asserts of the module
     doc, then a profiled pass for the device's own time and idle share, a
     pass over batches built beforehand, and the kernel timed on the counted
@@ -972,11 +1022,10 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     from yolov6_tpu_torch.core.evaler import Evaler
     from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
 
-    tag = "[11]"
-    what = f"{label}{' rect' if rect else ''}"
+    what = f"{label}{' rect' if rect else ''}{f' shrink {shrink}' if shrink else ''}"
     torch.backends.cudnn.allow_tf32 = True
-    evaler = Evaler(dict(data), batch_size=BATCH, img_size=IMG, half=True, infer_on_rect=rect,
-                    device=dev)
+    evaler = Evaler(dict(data), batch_size=BATCH, img_size=img, half=True, infer_on_rect=rect,
+                    shrink_size=shrink, device=dev)
     evaler.init_model(model)
     t0 = time.perf_counter()
     loader = evaler.init_data(None, "val")
@@ -1009,7 +1058,7 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     tiles, ks = walk["tiles_visited"], walk["K"]
     shapes = sorted(set(shapes_seen))
     if rect:
-        assert any(s != (IMG, IMG) for s in shapes), f"{what}: only {shapes} reached the kernel"
+        assert any(s != (img, img) for s in shapes), f"{what}: only {shapes} reached the kernel"
     assert len(rows) > 0, f"{what}: no COCO rows"
 
     t0 = time.perf_counter()
@@ -1019,7 +1068,7 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
 
     split = split_per_batch(evaler.batch_split)
     fwd_ms, all_ms = evaler.measure_speed(BATCH, iters=10)
-    log(f"{tag} eval {what} b{BATCH}@{IMG} bf16 at the eval protocol: init_data {init_s:.2f} s; "
+    log(f"{tag} eval {what} b{BATCH}@{img} bf16 at the eval protocol: init_data {init_s:.2f} s; "
         f"predict_model {n_img} images in {n_batches} batches {wall:.3f} s = "
         f"{n_img / wall:.1f} imgs/s with the loader; {len(rows)} COCO rows; {launches} kernel "
         f"launches, the tile walk in all {n_img} images, {tiles:.2f} tiles/image; K seen {ks}; "
@@ -1430,6 +1479,262 @@ def recipe_phases(cfgs, images, dev, card: str) -> dict:
     return out
 
 
+def p6_images(dev, seed: int = 0):
+    """b32 random uint8 NHWC images at ``P6_IMG``, drawn on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (BATCH, P6_IMG, P6_IMG, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+
+def timed_serve_phase(cfg, label: str, model, images, dev, card: str, tag: str,
+                      cpu_decode: bool = False, profile: bool = False) -> dict:
+    """Phases 18 and 21: ``model`` serves ``images`` in bf16 through
+    ``make_end2end_fn`` at the serving defaults; the first call's keep with a
+    candidate must equal the plain emit-once keep; then ``time_serve`` (with
+    a profile of 3 calls when ``profile``), and the kernel timed on those
+    served candidates against its plain version and its bound. With
+    ``cpu_decode`` the fp32 decode of two images on the CPU is held against
+    the CUDA one (TF32 off), as in phase 3. Returns the numbers."""
+    import torch
+
+    from yolov6_tpu_torch.models.end2end import make_end2end_fn
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+
+    torch.backends.cudnn.allow_tf32 = True
+    serve16 = make_end2end_fn(model, **SERVE, with_preprocess=True, half=True, device=dev)
+    with KeepRecorder("serve") as rec:
+        serve16(images)
+        torch.cuda.synchronize()
+    walk = rec.check(f"{tag} {label} serve", images.shape[0], labels=("serve",))
+    first = walk["first"]["serve"]
+    out = time_serve(model, label, images, dev, card, tag, profile_tag=tag if profile else None)
+
+    nms_boxes, cand_scores, idx_k, valid_k = (first[k] for k in ("boxes", "scores", "idx",
+                                                                  "valid"))
+    md, iou = first["max_det"], first["iou_thres"]
+    ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
+    plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, cand_scores, md, iou), iters=3,
+                       warmup=1)
+    bound, by = bound_ms(*keep_work_sorted(nms_boxes, cand_scores, idx_k, valid_k, TILE))
+    tiles = float(first["tiles"].float().mean())
+    out.update(params=sum(p.numel() for p in model.parameters()), ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by, K=int(nms_boxes.shape[1]),
+               max_det=md, tiles_visited=tiles, max_abs_err=walk["max_abs_err"])
+    log(f"{tag} greedy_nms on {label}'s served candidates B={nms_boxes.shape[0]} K={out['K']} "
+        f"max_det={md}: equal to the plain emit-once keep ({int(valid_k.sum())} kept, "
+        f"{tiles:.2f} tiles/image); kernel {ms:.4f} ms, per call {call_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}) [{card}]")
+
+    if cpu_decode:
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cpu_model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device="cpu")
+            cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            with torch.inference_mode():
+                preds_gpu = forward_decode(images[:2], model, half=False).cpu()
+                preds_cpu = forward_decode(images[:2].cpu(), cpu_model, half=False)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.testing.assert_close(preds_cpu[..., :4], preds_gpu[..., :4], **DECODE_BOX_TOL)
+        torch.testing.assert_close(preds_cpu[..., 4:], preds_gpu[..., 4:], **DECODE_SCORE_TOL)
+        out["decode_box_err"] = float((preds_cpu[..., :4] - preds_gpu[..., :4]).abs().max())
+        out["decode_score_err"] = float((preds_cpu[..., 4:] - preds_gpu[..., 4:]).abs().max())
+        log(f"{tag} {label} fp32 decode of 2 images at {images.shape[1]}, CPU vs CUDA (TF32 "
+            f"off): max |box| diff {out['decode_box_err']:.3e} px, max |score| diff "
+            f"{out['decode_score_err']:.3e} (tolerance boxes {DECODE_BOX_TOL}, scores "
+            f"{DECODE_SCORE_TOL})")
+    return out
+
+
+def p6_serve_phases(cfgs, dev, card: str) -> dict:
+    """Phase 18: N6, S6, M6 and L6 deploy graphs serve b32@1280 in bf16 at the
+    serving defaults, K = 30,000 NMS candidates an image."""
+    import torch
+
+    images = p6_images(dev)
+    out = {}
+    for i, name in enumerate(P6_NAMES):
+        model = deploy_model(cfgs[name], 10 + i, dev)
+        out[name] = timed_serve_phase(cfgs[name], f"YOLOv6-{name.upper()}", model, images, dev,
+                                      card, "[18]", cpu_decode=name == "n6",
+                                      profile=name == "l6")
+        assert out[name]["K"] == P6_SERVE_K, out[name]["K"]
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def l6_batch(cfg, dev, card: str) -> int:
+    """Phase 19's L6 batch: two steps at the smallest of ``L6_BATCHES`` give
+    the peak; the memory the step holds between steps (weights, gradients,
+    momentum, EMA) plus the rest scaled by the batch predicts the others'."""
+    import torch
+
+    from yolov6_tpu_torch.core.train_step import make_train_step
+    from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
+
+    probe = min(L6_BATCHES)
+    model, loss_fn, _ = recipe_step(cfg, None, dev, torch.Generator(device=dev).manual_seed(0),
+                                    TRAIN["epochs"], P6_IMG)
+    solver = scale_hyperparams_for_batch(dict(cfg.solver), probe)
+    step = make_train_step(model, loss_fn, solver, TRAIN["max_stepnum"], TRAIN["epochs"], probe,
+                           TRAIN["warmup_stepnum"], (P6_IMG, P6_IMG), half=True, device=dev)
+    images, targets = bench_batch(probe, P6_IMG, TRAIN["max_labels"], TRAIN["labels"], dev)
+    step(images, targets, TRAIN["epoch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(images, targets, TRAIN["epoch"])
+    torch.cuda.synchronize()
+    peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    del step, model, images, targets
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_image = (peak - held) / probe
+    predicted = {b: held + b * per_image for b in L6_BATCHES}
+    batch = max(b for b in L6_BATCHES
+                if b == probe or predicted[b] <= (1 - L6_FREE_SHARE) * total)
+    log(f"[19] L6 memory probe at b{probe}@{P6_IMG}: peak {peak / 2**30:.2f} GiB, held between "
+        f"steps {held / 2**30:.2f} GiB; predicted peaks " + ", ".join(
+            f"b{b} {v / 2**30:.2f} GiB" for b, v in predicted.items())
+        + f" of {total / 2**30:.2f} GiB; L6 trains at b{batch} [{card}]")
+    return batch
+
+
+def p6_train_phases(cfgs, dev, card: str) -> dict:
+    """Phase 19: S6 (TAL, no DFL) at b32@1280 and L6 (DFL, conv_silu) at the
+    batch ``l6_batch`` picks, on the bench's data at epoch 100 of 300, then 3
+    ATSS steps; each trained model and its EMA folded and served at conf
+    0.001 through the kernel."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+    images = p6_images(dev, seed=1)
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for name in ("s6", "l6"):
+        batch = BATCH if name == "s6" else l6_batch(cfgs[name], dev, card)
+        greedy_nms.launches = 0
+        step, out[f"train_{name}"] = train_phase(
+            cfgs[name], f"YOLOv6-{name.upper()}", dev, card, "[19]", P6_TIMED_STEPS,
+            profile=False, atss_steps=ATSS_STEPS, batch=batch, img=P6_IMG)
+        out[f"train_{name}"]["launches"] = greedy_nms.launches
+        if name == "l6":
+            peak = out["train_l6"]["peak_gib"] * 2**30
+            assert peak <= (1 - L6_FREE_SHARE) * total, \
+                f"L6 b{batch} peaked at {peak / 2**30:.2f} GiB of {total / 2**30:.2f}"
+        torch.cuda.empty_cache()
+        out[f"{name}_fold_serve"] = fold_and_serve_phase(
+            cfgs[name], f"YOLOv6-{name.upper()}", step, images, dev, card, "[19]")
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
+def mbla_phases(dev, card: str, images) -> dict:
+    """Phase 21: X-MBLA's deploy graph serves b32@640 in bf16; S-MBLA's
+    training step at b32@640 (DFL, TAL), 20 timed steps; S-MBLA folded and
+    served at conf 0.001 through the kernel."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.utils.config import Config
+
+    cfgs = {k: Config.fromfile(os.path.join(ROOT, "configs", "mbla", f"yolov6{k}_mbla.py"))
+            for k in ("s", "x")}
+    out = {}
+    model = deploy_model(cfgs["x"], 20, dev)
+    out["serve_x"] = timed_serve_phase(cfgs["x"], "YOLOv6-X-MBLA", model, images, dev, card,
+                                       "[21]")
+    del model
+    torch.cuda.empty_cache()
+    greedy_nms.launches = 0
+    step, out["train_s"] = train_phase(cfgs["s"], "YOLOv6-S-MBLA", dev, card, "[21]",
+                                       TRAIN["timed_steps"], profile=False)
+    out["train_s"]["launches"] = greedy_nms.launches
+    out["s_fold_serve"] = fold_and_serve_phase(cfgs["s"], "YOLOv6-S-MBLA", step, images, dev,
+                                               card, "[21]")
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def p6_train_cli_phase(root: str, dev, card: str) -> dict:
+    """Phase 22: N6 through ``tools/train.py`` at 1280, batch 8, 2 epochs over
+    the first 64 images of phase 12's split (both epochs on ATSS, the first
+    on the mosaic branch), with one in-training eval of the 320 val images at
+    conf 0 (through the config's eval_params, as phase 12); its first keep
+    with a candidate held against the plain emit-once keep."""
+    import glob
+    import shutil
+
+    from yolov6_tpu_torch.tools import train as train_cli
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    t = P6_TRAIN_CLI
+    data = load_data_config(os.path.join(root, "data80.json"))
+    sub = f"train{t['n_train']}"
+    for kind in ("images", "labels"):
+        os.makedirs(os.path.join(root, kind, sub))
+    for path in sorted(glob.glob(os.path.join(data["train"], "*.png")))[:t["n_train"]]:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        shutil.copy(path, os.path.join(root, "images", sub))
+        shutil.copy(os.path.join(root, "labels", "train", f"{stem}.txt"),
+                    os.path.join(root, "labels", sub))
+    data["train"] = os.path.join(root, "images", sub)
+    data_path = os.path.join(root, "data80_p6.json")
+    with open(data_path, "w") as f:
+        json.dump(data, f)
+    conf_file = os.path.join(root, "yolov6n6_train_cli.py")
+    with open(os.path.join(ROOT, "configs", "yolov6n6.py")) as f:
+        text = f.read()
+    with open(conf_file, "w") as f:
+        f.write(f"{text}\neval_params = {TRAIN_CLI_EVAL!r}\n")
+    argv = ["--data-path", data_path, "--conf-file", conf_file, "--img-size", str(P6_IMG),
+            "--batch-size", str(t["batch"]), "--epochs", str(t["epochs"]),
+            "--workers", str(t["workers"]), "--eval-final-only",
+            "--stop_aug_last_n_epoch", str(t["stop_aug_last_n_epoch"]),
+            "--output-dir", os.path.join(root, "train"), "--name", "n6", "--bf16",
+            "--log-interval", "4", "--seed", "0", "--device", "cuda"]
+    args = train_cli.get_args_parser().parse_args(argv)
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args)
+        wall = time.perf_counter() - t0
+    n_val = EVAL_SET["n_val"]
+    walk = rec.check("[22] N6 in-training eval", n_val)
+    first = walk["first"]["eval"]
+    assert walk["launches"] == -(-n_val // t["batch"]), walk["launches"]
+    assert trainer.atss_warmup_epoch > t["epochs"] - 1 and trainer.model.strides[-1] == 64
+    stats = trainer.epoch_stats
+    assert [e["epoch"] for e in stats] == list(range(t["epochs"]))
+    assert all(math.isfinite(v) for e in stats for v in e["mean_loss"]), stats
+    assert stats[0]["steps"] == t["n_train"] // t["batch"]
+    for e in stats:
+        log(f"[22] train CLI N6 epoch {e['epoch']} ({'mosaic' if e['epoch'] == 0 else 'letterbox'}"
+            f"+affine, ATSS): {e['steps']} steps of b{t['batch']}@{P6_IMG} bf16 in "
+            f"{e['wall_s']:.3f} s = {e['imgs_per_s']:.1f} imgs/s with the loader (host clock); "
+            f"loader wait {e['loader_wait_s'] / e['steps'] * 1e3:.2f} ms a step; step "
+            f"{e['step_ms']:.3f} ms (CUDA events); mean loss [iou, dfl, cls] "
+            f"{[round(v, 5) for v in e['mean_loss']]} [{card}]")
+    ev = trainer.eval_stats[0]
+    log(f"[22] in-training eval of N6's EMA at {P6_IMG}, conf {TRAIN_CLI_EVAL['conf_thres']}: "
+        f"{ev['images']} images in {ev['batches']} batches, {ev['predict_s']:.3f} s = "
+        f"{ev['imgs_per_s']:.1f} imgs/s; {walk['launches']} kernel launches, the tile walk in "
+        f"every image ({walk['tiles_visited']:.2f} tiles/image), the first batch's keep "
+        f"(B={first['boxes'].shape[0]} K={first['boxes'].shape[1]}, {first['kept']} kept) equal "
+        f"to the plain emit-once keep; AP50 {ev['ap50']:.5f}; the whole CLI run {wall:.1f} s "
+        f"[{card}]")
+    return dict(launches=walk["launches"], epochs=stats, eval=trainer.eval_stats,
+                tiles_visited=walk["tiles_visited"], wall_s=wall,
+                max_abs_err=walk["max_abs_err"])
+
+
 def main() -> int:
     try:
         import torch
@@ -1544,7 +1849,7 @@ def main() -> int:
 
     # ---- 10. YOLOv6-L: bf16 serve through the kernel, then 3 + 5 train steps
     model = deploy_model(cfgs["l"], 2, dev)
-    serve_l_launches = time_serve(model, "YOLOv6-L", images, dev, card, "[10]")
+    serve_l_launches = time_serve(model, "YOLOv6-L", images, dev, card, "[10]")["launches"]
     del model
     greedy_nms.launches = 0
     step, _ = train_phase(cfgs["l"], "YOLOv6-L", dev, card, "[10]", L_TIMED_STEPS,
@@ -1581,10 +1886,29 @@ def main() -> int:
         greedy_nms.launches = 0
         distill_gate = distill_gate_phase(root, card)
         distill_gate_launches = greedy_nms.launches
+
+        # ---- 18.-20. the P6 family at 1280: serve, train and fold, evaluate
+        p6_cfgs = {name: Config.fromfile(os.path.join(ROOT, "configs", f"yolov6{name}.py"))
+                   for name in P6_NAMES}
+        p6_serve = p6_serve_phases(p6_cfgs, dev, card)
+        p6_train = p6_train_phases(p6_cfgs, dev, card)
+        model = deploy_model(p6_cfgs["l6"], 13, dev)
+        eval_l6 = eval_phase(model, "YOLOv6-L6", data, dev, card, img=P6_IMG,
+                             shrink=L6_EVAL_SHRINK, tag="[20]")
+        del model
+        torch.cuda.empty_cache()
+
+        # ---- 21. the MBLA stage; 22. N6 through the train CLI at 1280
+        mbla = mbla_phases(dev, card, images)
+        greedy_nms.launches = 0
+        p6_cli = p6_train_cli_phase(root, dev, card)
+        p6_cli_launches = greedy_nms.launches
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert distill_gate_launches == distill_gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
                                                      "train_m_kd"))
+    assert p6_train["train_s6"]["launches"] == p6_train["train_l6"]["launches"] == 0
+    assert mbla["train_s"]["launches"] == 0 and p6_cli_launches == p6_cli["launches"]
 
     kernels = [{
         "name": "greedy_nms",
@@ -1608,7 +1932,18 @@ def main() -> int:
                                  recipes["distill_ns_fold_serve"]["launches"],
                              "train_m_kd": recipes["train_m_kd"]["launches"],
                              "distill_gate_teacher_eval": distill_gate["teacher_launches"],
-                             "distill_gate_eval": distill_gate["student_launches"]},
+                             "distill_gate_eval": distill_gate["student_launches"],
+                             **{f"serve_{name}": p6_serve[name]["launches"]
+                                for name in P6_NAMES},
+                             "train_s6": p6_train["train_s6"]["launches"],
+                             "s6_fold_serve": p6_train["s6_fold_serve"]["launches"],
+                             "train_l6": p6_train["train_l6"]["launches"],
+                             "l6_fold_serve": p6_train["l6_fold_serve"]["launches"],
+                             "eval_l6": eval_l6["launches"],
+                             "serve_x_mbla": mbla["serve_x"]["launches"],
+                             "train_s_mbla": mbla["train_s"]["launches"],
+                             "s_mbla_fold_serve": mbla["s_fold_serve"]["launches"],
+                             "train_cli_n6_eval": p6_cli_launches},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -1616,7 +1951,12 @@ def main() -> int:
                            fold["max_abs_err"], fold_m["max_abs_err"],
                            recipes["fuse_ab_fold_serve"]["max_abs_err"],
                            recipes["distill_ns_fold_serve"]["max_abs_err"],
-                           distill_gate["max_abs_err"]),
+                           distill_gate["max_abs_err"],
+                           *(p6_serve[name]["max_abs_err"] for name in P6_NAMES),
+                           p6_train["s6_fold_serve"]["max_abs_err"],
+                           p6_train["l6_fold_serve"]["max_abs_err"],
+                           eval_l6["kernel"]["max_abs_err"], mbla["serve_x"]["max_abs_err"],
+                           mbla["s_fold_serve"]["max_abs_err"], p6_cli["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -1646,6 +1986,11 @@ def main() -> int:
             "distill_gate_evals": distill_gate["tiles_visited"]},
         "recipes": {k: v for k, v in recipes.items() if k.startswith("train_")},
         "distill_gate": distill_gate,
+        "on_p6_serve_candidates": p6_serve,
+        "p6_train": p6_train,
+        "eval_l6": eval_l6,
+        "mbla": mbla,
+        "p6_train_cli": p6_cli,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -105,8 +105,13 @@ BLOCK_CASES = [
 def test_csp_block_matches_jax(case, form):
     """Deploy form: the output. Train form: train mode (outputs and updated
     BN statistics), then eval mode."""
+    check_block_matches_jax(case, form == "deploy")
+
+
+def check_block_matches_jax(case, deploy):
+    """A block case ``(id, JAX module(deploy), port module(deploy), input
+    shape NHWC)`` in one form, as ``test_csp_block_matches_jax`` holds it."""
     _, make_jax, make_port, in_shape = case
-    deploy = form == "deploy"
     x = np.random.default_rng(31).standard_normal(in_shape).astype(np.float32)
     jmod = make_jax(deploy)
     shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
@@ -298,8 +303,6 @@ def test_full_width_parameter_count_matches_jax(path, published):
 
 
 @pytest.mark.parametrize("path,match", [
-    ("configs/mbla/yolov6m_mbla.py", "MBLA"),
-    ("configs/yolov6m6.py", "P6"),
     ("configs/yolov6_lite/yolov6_lite_s.py", "lite"),
     ("configs/qarepvgg/yolov6m_qa.py", "qarepvgg"),
 ])

@@ -77,9 +77,9 @@ LOSS_KW = dict(num_classes=NC, ori_img_size=IMG, warmup_epoch=0, use_dfl=False, 
                iou_type="giou")
 
 
-def _batch(seed=0):
+def _batch(seed=0, img=IMG):
     rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+    images = rng.integers(0, 256, (B, img, img, 3), dtype=np.uint8)
     targets = np.zeros((B, M, 5), np.float32)
     targets[:, :, 0] = -1
     targets[0, :3] = [[0, 0.3, 0.35, 0.4, 0.5], [2, 0.7, 0.6, 0.3, 0.35], [1, 0.5, 0.5, 0.2, 0.2]]
@@ -87,19 +87,20 @@ def _batch(seed=0):
     return images, targets
 
 
-def _train_variables(seed, make_cfg=small_s_config):
+def _train_variables(seed, make_cfg=small_s_config, img=IMG):
     jmodel = jax_build_model(make_cfg(JaxConfig), num_classes=NC, deploy=False)
     shapes = jax.eval_shape(
-        lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)), train=False))
+        lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, img, img, 3)), train=False))
     return jmodel, random_jax_variables(shapes, seed=seed)
 
 
-def _port_step(variables, batch_size, warmup_stepnum, make_cfg=small_s_config, loss_kw=LOSS_KW):
+def _port_step(variables, batch_size, warmup_stepnum, make_cfg=small_s_config, loss_kw=LOSS_KW,
+               img=IMG):
     model = build_model(make_cfg(Config), num_classes=NC, deploy=False, device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     solver = scale_hyperparams_for_batch(S_SOLVER, batch_size)
     return make_train_step(model, ComputeLoss(**loss_kw), solver, 100, EPOCHS, batch_size,
-                           warmup_stepnum, (IMG, IMG), half=False, device="cpu")
+                           warmup_stepnum, (img, img), half=False, device="cpu")
 
 
 def _params(step):
@@ -133,7 +134,7 @@ def _close_rel(got, want, name, floor, rel=1e-3):
 
 def check_mid_schedule_step(jstep, variables, batch_size, warmup_stepnum,
                             make_cfg=small_s_config, loss_kw=LOSS_KW, rel=1e-3, port_step=None,
-                            floor_scales_with_grad=False):
+                            floor_scales_with_grad=False, img=IMG, use_atss=False):
     """One applied step at epoch 1 of 10, from ``step`` counters past the
     warmup and the accumulator one call short of its count, so that the
     first call applies at the full weight LR before any noise compounds.
@@ -143,20 +144,21 @@ def check_mid_schedule_step(jstep, variables, batch_size, warmup_stepnum,
     for the S step, whose largest gradient is 0.38; with
     ``floor_scales_with_grad`` the floor is at least one fp32 ulp of the
     step's largest JAX momentum (a raw gradient sum), for a loss whose
-    gradients are tens of times larger. Returns the port's step and the JAX
-    state after it."""
+    gradients are tens of times larger. ``img`` is the images' size and
+    ``use_atss`` picks the assigner of both steps. Returns the port's step
+    and the JAX state after it."""
     accum_count = max(1, round(64 / batch_size)) - 1
     jstate = create_train_state(variables)._replace(
         step=jnp.asarray(MID_STEP, jnp.int32), accum_count=jnp.asarray(accum_count, jnp.int32))
     step = (port_step() if port_step is not None
-            else _port_step(variables, batch_size, warmup_stepnum, make_cfg, loss_kw))
+            else _port_step(variables, batch_size, warmup_stepnum, make_cfg, loss_kw, img))
     step.step.fill_(MID_STEP)
     step.accum_count.fill_(accum_count)
-    images, targets = _batch()
+    images, targets = _batch(img=img)
     before = _params(step)
     jstate, loss_j, comp_j = jstep(jstate, jnp.asarray(images), jnp.asarray(targets),
-                                   jnp.asarray(MID_EPOCH), use_atss=False)
-    loss_t, comp_t = step(images, targets, MID_EPOCH)
+                                   jnp.asarray(MID_EPOCH), use_atss=use_atss)
+    loss_t, comp_t = step(images, targets, MID_EPOCH, use_atss=use_atss)
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(comp_t.numpy(), np.asarray(comp_j), rtol=1e-4, atol=1e-6)
     assert int(step.ema_updates) == int(jstate.ema_updates) == 1

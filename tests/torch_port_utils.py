@@ -11,6 +11,11 @@ N_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6n.py")
 S_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6s.py")
 M_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6m.py")
 L_CONFIG = os.path.join(REPO_ROOT, "configs", "yolov6l.py")
+# the P6 family at 1280 and the MBLA configs at 640, by short name
+P6_CONFIGS = {k: os.path.join(REPO_ROOT, "configs", f"yolov6{k}.py")
+              for k in ("n6", "s6", "m6", "l6")}
+MBLA_CONFIGS = {k: os.path.join(REPO_ROOT, "configs", "mbla", f"yolov6{k}_mbla.py")
+                for k in ("s", "m", "l", "x")}
 REPLAY_CHUNK = 1000  # equations a compiled piece of ``jax_in_float64``
 
 
@@ -19,6 +24,14 @@ def _small(config_cls, path):
     cfg.model.depth_multiple = 0.1
     cfg.model.width_multiple = 0.125
     return cfg
+
+
+def small_config(config_cls, path):
+    """The config at ``path`` cut as small S is: depth 0.1, width 0.125. Cut
+    so, a P6 or MBLA graph keeps every kind of block: each stage one unit
+    (a RepVGG/ConvBN block, a BepC3 of one BottleRep, or an MBLABlock of one
+    BottleRep3 branch), the sixth stage and the third BiFusion of P6."""
+    return _small(config_cls, path)
 
 
 def small_n_config(config_cls):

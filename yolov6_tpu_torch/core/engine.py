@@ -11,7 +11,7 @@ queued while the step before it runs. The in-training eval runs the EMA
 The training recipes of YOLOv6 v3.0 run through the same loop: ``fuse_ab``
 (anchor-aided training: the fuse-AB head and ``ComputeLossAB`` beside the
 anchor-free loss) and ``distill`` (self-distillation against the teacher at
-``teacher_model_path``, a fuse-AB model of the same config: the distill-NS
+``teacher_model_path``, a model of the same config, fuse-AB but for P6: the distill-NS
 head and ``ComputeLossDistillNS`` for N and S, ``ComputeLossDistill`` for
 M and L).
 
@@ -169,13 +169,14 @@ class Trainer:
         return loss, loss_ab, distill
 
     def load_teacher(self, path: str):
-        """The distillation teacher: the config's train graph with the fuse-AB
-        head (the port builds 3-level heads only, for which JAX takes
-        ``fuse_ab``), on the device in eval mode, its weights from the
-        port's checkpoint at ``path`` (the EMA, else the model). Only the
-        anchor-based branch may be missing from it, as the JAX partial load
-        allows (a teacher trained without ``--fuse_ab``); any other missing
-        or unexpected key, or a tensor of another shape, raises."""
+        """The distillation teacher: the config's train graph, with the fuse-AB
+        head for a 3-level head and the plain head for a P6 one, which has no
+        anchors to aid it (JAX: engine.py:110), on the device in eval mode,
+        its weights from the port's checkpoint at ``path`` (the EMA, else the
+        model). Only the anchor-based branch may be missing from it, as the
+        JAX partial load allows (a teacher trained without ``--fuse_ab``);
+        any other missing or unexpected key, or a tensor of another shape,
+        raises."""
         if not osp.exists(path):
             raise FileNotFoundError(f"teacher checkpoint {path} not found (the port downloads "
                                     "nothing)")
@@ -183,8 +184,9 @@ class Trainer:
         state = ckpt.get("ema") or ckpt.get("model")
         if not isinstance(state, dict):
             raise ValueError(f"{path}: no 'ema' or 'model' state dict")
+        fuse_ab = self.cfg.model.head.num_layers == 3
         teacher = build_model(self.cfg, self.num_classes, deploy=False, device=self.device,
-                              fuse_ab=True)
+                              fuse_ab=fuse_ab)
         own = teacher.state_dict()
         missing = [k for k in own if k not in state]
         bad = [k for k in missing if not k.startswith(("detect.cls_preds_ab.",
@@ -192,9 +194,10 @@ class Trainer:
         unexpected = [k for k in state if k not in own]
         reshaped = [k for k in own if k in state and state[k].shape != own[k].shape]
         if bad or unexpected or reshaped:
-            raise ValueError(f"{path} does not fit the teacher ({self.cfg.model.type} with the "
-                             f"fuse-AB head): missing {bad}, unexpected {unexpected}, other "
-                             f"shapes {reshaped}")
+            head = "the fuse-AB head" if fuse_ab else "the plain head"
+            raise ValueError(f"{path} does not fit the teacher ({self.cfg.model.type} with "
+                             f"{head}): missing {bad}, unexpected {unexpected}, other shapes "
+                             f"{reshaped}")
         teacher.load_state_dict(state, strict=False)
         LOGGER.info(f"Loaded the teacher from {path}"
                     + (f" (no anchor-based branch: {len(missing)} keys left at init)"

@@ -6,8 +6,9 @@ the JAX parameter paths (utils/weights.py). Every block takes ``deploy``:
 ``True`` (the default) builds the deploy form, each conv carrying its folded
 BN as a bias; ``False`` builds the train form, conv without bias + BatchNorm,
 and RepVGGBlock's three branches. layers/reparam.py folds the second into the
-first. Ported: the blocks of the P5 EfficientRep/CSPBep graphs (N/S/M/L);
-the QARepVGG, RepOpt, MBLA and lite families are not.
+first. Ported: the blocks of the EfficientRep/CSPBep graphs, P5 and P6
+(N/S/M/L, N6/S6/M6/L6), and the MBLA stage; the QARepVGG, RepOpt and lite
+families are not.
 """
 
 from __future__ import annotations
@@ -162,12 +163,12 @@ class CSPSPPF(SimCSPSPPF):
     block = ConvBNSiLU
 
 
-def sppf_cls(block, cspsppf: bool):
-    """The stage-5 layer of the P5 backbones (JAX: efficientrep.py:32-36):
-    SiLU variants after ``ConvBNSiLU`` blocks, ReLU ones otherwise."""
+def sppf_cls(silu: bool, cspsppf: bool):
+    """The last stage's SPPF layer of the backbones (JAX: efficientrep.py:32-36):
+    the SiLU variants when ``silu``, the ReLU ones otherwise."""
     if cspsppf:
-        return CSPSPPF if block is ConvBNSiLU else SimCSPSPPF
-    return SPPF if block is ConvBNSiLU else SimSPPF
+        return CSPSPPF if silu else SimCSPSPPF
+    return SPPF if silu else SimSPPF
 
 
 class Transpose(nn.Module):
@@ -213,23 +214,37 @@ class RepVGGBlock(nn.Module):
 
 
 class BottleRep(nn.Module):
-    """Two ``basic_block``s and a residual (JAX: common.py:697-717). With
-    ``weight`` the residual is scaled by a learnable ``alpha`` of shape (1,),
-    initialised to 1; the residual exists only when in == out."""
+    """``n_convs`` ``basic_block``s and a residual (JAX: common.py:697-717;
+    BottleRep3, three of them: :721-742). With ``weight`` the residual is
+    scaled by a learnable ``alpha`` of shape (1,), initialised to 1; the
+    residual exists only when in == out."""
+
+    n_convs = 2
 
     def __init__(self, in_channels: int, out_channels: int, basic_block=RepVGGBlock,
                  weight: bool = False, deploy: bool = True):
         super().__init__()
-        self.conv1 = basic_block(in_channels, out_channels, deploy=deploy)
-        self.conv2 = basic_block(out_channels, out_channels, deploy=deploy)
+        for i in range(self.n_convs):
+            setattr(self, f"conv{i + 1}",
+                    basic_block(in_channels if i == 0 else out_channels, out_channels,
+                                deploy=deploy))
         self.shortcut = in_channels == out_channels
         self.alpha = nn.Parameter(torch.ones(1)) if self.shortcut and weight else None
 
     def forward(self, x):
-        y = self.conv2(self.conv1(x))
+        y = x
+        for i in range(self.n_convs):
+            y = getattr(self, f"conv{i + 1}")(y)
         if not self.shortcut:
             return y
         return y + (x if self.alpha is None else self.alpha.to(x.dtype) * x)
+
+
+class BottleRep3(BottleRep):
+    """BottleRep of three ``basic_block``s, the MBLA block's unit (JAX:
+    common.py:721-742)."""
+
+    n_convs = 3
 
 
 class RepBlock(nn.Module):
@@ -278,20 +293,61 @@ class BepC3(nn.Module):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
 
 
+class MBLABlock(nn.Module):
+    """Multi-branch layer aggregation (JAX: common.py:803-843): ``cv1`` writes
+    ``len(n_list)`` chunks of the hidden width ``int(out_channels * e)``;
+    chunk 0 passes as it is, and chunk ``k`` feeds a chain of ``n_list[k]``
+    BottleRep3s (``m.{k-1}.{j}``, each with its ``alpha``) whose every output
+    is kept; ``cv2`` merges the chunks and the chains' outputs. ``n_list`` is
+    ``[0, 1]`` for ``n // 2 <= 1``, else ``[0, s, n // 2]`` with ``s`` the
+    largest power of two below ``n // 2``. The 1x1 convs are ``ConvModule``s
+    with SiLU when ``block`` is ``ConvBNSiLU``, else ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1, e: float = 0.5,
+                 block=RepVGGBlock, deploy: bool = True):
+        super().__init__()
+        n = max(n // 2, 1)
+        if n == 1:
+            n_list = [0, 1]
+        else:
+            extra_branch_steps = 1
+            while extra_branch_steps * 2 < n:
+                extra_branch_steps *= 2
+            n_list = [0, extra_branch_steps, n]
+        self.c_ = c_ = int(out_channels * e)
+        act = "silu" if block is ConvBNSiLU else "relu"
+        self.cv1 = ConvModule(in_channels, len(n_list) * c_, 1, 1, act, deploy=deploy)
+        self.m = nn.ModuleList(
+            nn.ModuleList(BottleRep3(c_, c_, block, weight=True, deploy=deploy)
+                          for _ in range(steps))
+            for steps in n_list[1:])
+        self.cv2 = ConvModule((len(n_list) + sum(n_list)) * c_, out_channels, 1, 1, act,
+                              deploy=deploy)
+
+    def forward(self, x):
+        ys = torch.split(self.cv1(x), self.c_, 1)
+        all_y = [ys[0]]
+        for chunk, chain in zip(ys[1:], self.m):
+            all_y.append(chunk)
+            for unit in chain:
+                all_y.append(unit(all_y[-1]))
+        return self.cv2(torch.cat(all_y, 1))
+
+
 def stage_factory(csp: bool, block, csp_e: float = 0.5, stage_block_type: str = "BepC3",
                   deploy: bool = True):
     """The stage block of the rep backbones and necks (JAX: reppan.py:36-56):
-    ``RepBlock`` of ``block``, or with ``csp`` the CSP stage block with its
-    ``(n, e)``. Returns ``make(in_channels, out_channels, n)``."""
-    if csp and stage_block_type != "BepC3":
-        if stage_block_type == "MBLABlock":
-            raise NotImplementedError("the MBLABlock stage (configs/mbla/) is not ported: it "
-                                      "waits for the MBLA slice of the port")
+    ``RepBlock`` of ``block``, or with ``csp`` the CSP stage block
+    (``BepC3`` or ``MBLABlock``) with its ``(n, e)``. Returns
+    ``make(in_channels, out_channels, n)``."""
+    stage_blocks = {"BepC3": BepC3, "MBLABlock": MBLABlock}
+    if csp and stage_block_type not in stage_blocks:
         raise ValueError(f"unknown stage_block_type {stage_block_type!r}")
 
     def make(in_channels: int, out_channels: int, n: int) -> nn.Module:
         if csp:
-            return BepC3(in_channels, out_channels, n, csp_e, block, deploy=deploy)
+            return stage_blocks[stage_block_type](in_channels, out_channels, n, csp_e, block,
+                                                  deploy=deploy)
         return RepBlock(in_channels, out_channels, n, block, deploy=deploy)
 
     return make

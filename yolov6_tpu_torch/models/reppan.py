@@ -1,6 +1,7 @@
 """BiFPAN necks (port of yolov6_tpu/models/reppan.py::RepBiFPANNeck,
-CSPRepBiFPANNeck): one class body, whose stage block is a RepBlock or, in the
-CSP neck, a BepC3."""
+CSPRepBiFPANNeck, RepBiFPANNeck6, CSPRepBiFPANNeck_P6): one class body for
+each level count, whose stage block is a RepBlock or, in the CSP necks, a
+BepC3 or an MBLABlock."""
 
 from __future__ import annotations
 
@@ -55,6 +56,62 @@ class RepBiFPANNeck(nn.Module):
 
 @NECKS.register()
 class CSPRepBiFPANNeck(RepBiFPANNeck):
-    """The BiFPAN neck of M/L (JAX: reppan.py:229): BepC3 stages."""
+    """The BiFPAN neck of M/L and the MBLA configs (JAX: reppan.py:229): BepC3
+    or MBLABlock stages."""
+
+    csp = True
+
+
+@NECKS.register()
+class RepBiFPANNeck6(nn.Module):
+    """BiFusion PAN over 5 backbone levels (JAX: reppan.py:174-214, :241).
+
+    Takes the backbone's ``(x4, x3, x2, x1, x0)`` (P2..P6) and returns
+    ``[pan_out3, pan_out2, pan_out1, pan_out0]`` (P3..P6); the neck's
+    widths are ``channels_list[6:12]``. ``csp_e`` and ``stage_block_type``
+    are read only by the CSP subclass."""
+
+    csp = False
+
+    def __init__(self, channels_list: Sequence[int], num_repeats: Sequence[int],
+                 block=RepVGGBlock, csp_e: float = 0.5, stage_block_type: str = "BepC3",
+                 deploy: bool = True):
+        super().__init__()
+        ch, nr, d = channels_list, num_repeats, deploy
+        stage = stage_factory(self.csp, block, csp_e, stage_block_type, deploy)
+        self.reduce_layer0 = ConvBNReLU(ch[5], ch[6], 1, 1, deploy=d)
+        self.Bifusion0 = BiFusion((ch[4], ch[3]), ch[6], deploy=d)
+        self.Rep_p5 = stage(ch[6], ch[6], nr[6])
+        self.reduce_layer1 = ConvBNReLU(ch[6], ch[7], 1, 1, deploy=d)
+        self.Bifusion1 = BiFusion((ch[3], ch[2]), ch[7], deploy=d)
+        self.Rep_p4 = stage(ch[7], ch[7], nr[7])
+        self.reduce_layer2 = ConvBNReLU(ch[7], ch[8], 1, 1, deploy=d)
+        self.Bifusion2 = BiFusion((ch[2], ch[1]), ch[8], deploy=d)
+        self.Rep_p3 = stage(ch[8], ch[8], nr[8])
+        self.downsample2 = ConvBNReLU(ch[8], ch[8], 3, 2, deploy=d)
+        self.Rep_n4 = stage(ch[8] + ch[8], ch[9], nr[9])
+        self.downsample1 = ConvBNReLU(ch[9], ch[9], 3, 2, deploy=d)
+        self.Rep_n5 = stage(ch[9] + ch[7], ch[10], nr[10])
+        self.downsample0 = ConvBNReLU(ch[10], ch[10], 3, 2, deploy=d)
+        self.Rep_n6 = stage(ch[10] + ch[6], ch[11], nr[11])
+
+    def forward(self, inputs):
+        x4, x3, x2, x1, x0 = inputs
+        fpn_out0 = self.reduce_layer0(x0)
+        f_out0 = self.Rep_p5(self.Bifusion0([fpn_out0, x1, x2]))
+        fpn_out1 = self.reduce_layer1(f_out0)
+        f_out1 = self.Rep_p4(self.Bifusion1([fpn_out1, x2, x3]))
+        fpn_out2 = self.reduce_layer2(f_out1)
+        pan_out3 = self.Rep_p3(self.Bifusion2([fpn_out2, x3, x4]))
+        pan_out2 = self.Rep_n4(torch.cat([self.downsample2(pan_out3), fpn_out2], 1))
+        pan_out1 = self.Rep_n5(torch.cat([self.downsample1(pan_out2), fpn_out1], 1))
+        pan_out0 = self.Rep_n6(torch.cat([self.downsample0(pan_out1), fpn_out0], 1))
+        return [pan_out3, pan_out2, pan_out1, pan_out0]
+
+
+@NECKS.register()
+class CSPRepBiFPANNeck_P6(RepBiFPANNeck6):
+    """The BiFPAN neck of M6/L6 (JAX: reppan.py:245): BepC3 or MBLABlock
+    stages."""
 
     csp = True

@@ -1,7 +1,9 @@
-"""Detector assembly (port of yolov6_tpu/models/yolo.py:29-166): the P5
-non-lite graphs (EfficientRep + RepBiFPANNeck for N/S, CSPBepBackbone +
-CSPRepBiFPANNeck for M/L, Detect with or without DFL, or the fuse-AB and
-distill-NS heads of the training recipes), in the deploy or the train form."""
+"""Detector assembly (port of yolov6_tpu/models/yolo.py:29-166): the P5 and
+P6 non-lite graphs (EfficientRep + RepBiFPANNeck for N/S, CSPBepBackbone +
+CSPRepBiFPANNeck for M/L and the MBLA configs, EfficientRep6 +
+RepBiFPANNeck6 for N6/S6, CSPBepBackbone_P6 + CSPRepBiFPANNeck_P6 for
+M6/L6; Detect with or without DFL, or the fuse-AB and distill-NS heads of
+the training recipes), in the deploy or the train form."""
 
 from __future__ import annotations
 
@@ -61,18 +63,23 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda",
     (``DetectDistillNS``), whose model decodes plain ltrb boxes
     (``use_dfl=False``, ``reg_max=0``) while the config's ``reg_max`` sizes
     the train-only DFL branch. With ``deploy=True`` either builds exactly
-    ``Detect``'s deploy graph. Raises ``NotImplementedError`` on the parts
-    of the model zoo not ported: P6 heads (``num_layers != 3``), the lite
-    family, MBLA stages and block modes other than ``repvgg``,
-    ``conv_relu`` and ``conv_silu``."""
+    ``Detect``'s deploy graph. A 4-level head (P6) reads the neck's last four
+    widths and strides 8-64. Raises ``ValueError`` for ``distill_ns`` on a
+    P6 config and for ``fuse_ab`` on a config without ``head.anchors_init``
+    (the JAX package builds neither), and ``NotImplementedError`` on the
+    parts of the model zoo not ported: the lite family and block modes
+    other than ``repvgg``, ``conv_relu`` and ``conv_silu``."""
     device = resolve_device(device)
     mcfg = cfg.model
     if mcfg.backbone.type == "Lite_EffiBackbone":
         raise NotImplementedError("the lite family (Lite_EffiBackbone, DetectLite) is not ported")
-    if mcfg.head.num_layers != 3:
-        raise NotImplementedError(
-            f"a {mcfg.head.num_layers}-level head (P6) is not ported; the port builds the "
-            "3-level P5 graphs")
+    num_layers = mcfg.head.num_layers
+    if num_layers not in (3, 4):
+        raise ValueError(f"head.num_layers {num_layers}: the graphs have 3 (P5) or 4 (P6)")
+    if distill_ns and num_layers != 3:
+        raise ValueError("distill_ns head only supports 3-layer (P5) models")
+    if fuse_ab and not mcfg.head.get("anchors_init"):
+        raise ValueError(f"fuse_ab needs head.anchors_init, which {mcfg.type} does not set")
     num_repeat = [
         (max(round(i * mcfg.depth_multiple), 1) if i > 1 else i)
         for i in (list(mcfg.backbone.num_repeats) + list(mcfg.neck.num_repeats))
@@ -91,7 +98,9 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda",
         neck_kwargs.update(csp_e=mcfg.neck.csp_e, stage_block_type=stage_block_type)
     backbone = BACKBONES.get(mcfg.backbone.type)(channels_list, num_repeat, **bb_kwargs)
     neck = NECKS.get(mcfg.neck.type)(channels_list, num_repeat, **neck_kwargs)
-    in_channels = (channels_list[6], channels_list[8], channels_list[10])
+    # the neck's outputs: every other width of the P5 neck, the last four of the P6 one
+    in_channels = (tuple(channels_list[6:11:2]) if num_layers == 3
+                   else tuple(channels_list[8:12]))
     use_dfl, reg_max = bool(mcfg.head.use_dfl), mcfg.head.reg_max
     if distill_ns:
         detect = DetectDistillNS(in_channels, num_classes, reg_max=reg_max, deploy=deploy)
