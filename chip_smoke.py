@@ -124,7 +124,20 @@ Phases, each of which asserts:
      branch) over the first 64 images of phase 12's split, with one
      in-training eval of the 320 val images at conf 0: its first keep with a
      candidate held against the plain emit-once keep; imgs/s an epoch,
-     loader wait and step time a step.
+     loader wait and step time a step;
+ 23. inference: the repository's demo JPEGs (data/images) decode to the
+     sha256 of cv2.imread's pixels (host decode timed); the infer CLI
+     (``tools/infer.py::run``, in-process) runs full-width S with seeded
+     weights over data/images at its defaults (conf 0.4, IoU 0.45, max_det
+     1000, max_nms 2000: K = 2000 candidates an image), in fp32 and with
+     ``--half``, then with ``--classes 0 2`` and ``--agnostic-nms``: one
+     kernel launch an image, each keep equal to the plain emit-once keep, a
+     PNG at the source's size and a label row a detection; a second run in
+     each precision times the loop's steps (decode, letterbox, device, draw,
+     write) and its imgs/s; the kernel is timed on the first image's
+     candidates beside its plain version and bound; then the infer CLI with
+     phase 13's trained N on the gate's 64 val images at 160 px must find
+     most GT boxes (a detection of their class at IoU >= 0.5).
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -162,6 +175,7 @@ KEEP_SHAPES = [
     ("eval_protocol", 32, 8192, 300, 0.65),
     ("serving", 32, 8400, 100, 0.45),
     ("multi_label_max_nms", 4, 30000, 300, 0.65),
+    ("infer", 1, 2000, 1000, 0.45),  # the infer CLI: one image, max_nms 2000, --max-det 1000
 ]
 # CPU vs CUDA fp32 decode (TF32 off): the two sum the convolutions in other
 # orders through ~40 layers
@@ -210,6 +224,26 @@ L6_FREE_SHARE = 0.10
 L6_EVAL_SHRINK = 41
 # phase 22: N6 through the train CLI on the first 64 images of phase 12's split
 P6_TRAIN_CLI = dict(n_train=64, batch=8, epochs=2, stop_aug_last_n_epoch=1, workers=8)
+
+# phase 23: the infer CLI at its defaults (conf 0.4, IoU 0.45, max_det 1000;
+# the inferer's max_nms 2000) over data/images: random S scores each of its
+# 8400 anchors above 0.4, so every image hands the keep the full 2000
+# candidates. Then the learning gate's N on the gate's val images at 160 px,
+# conf 0.25: most GT boxes must be found by a detection of their class at
+# IoU >= 0.5 (the rescale to source pixels and the label rows)
+INFER_CLI = dict(conf_thres=0.4, iou_thres=0.45, max_det=1000, max_nms=2000)
+INFER_GATE = dict(img_size=160, conf_thres=0.25, iou=0.5, min_recall=0.5)
+# phase 23: sha256 of cv2.imread(path).tobytes() for the repository's demo
+# JPEGs (OpenCV 5.0.0 with libjpeg-turbo 3.1.2; tests/test_torch_jpeg.py holds
+# the same constants against cv2), with the (h, w, 3) shape
+DEMO_JPEGS = {
+    "data/images/image1.jpg":
+        ((480, 640, 3), "179170bc06d9e2340a9a7f6d74321566b7020dcfa33bcde37ce81e0bd7c7a99e"),
+    "data/images/image2.jpg":
+        ((640, 480, 3), "2c9baaefd517360019124d1be1cc52fc8e546442cbe2c8bd0adf0dd615ac4d82"),
+    "data/images/image3.jpg":
+        ((576, 768, 3), "29c29eae8982481328cc7c18c0667459c81644129c07adf210b5fc6177dd310f"),
+}
 
 
 def log(msg: str) -> None:
@@ -936,13 +970,15 @@ class KeepRecorder:
     the inputs and outputs of the first launch that has a candidate, which
     ``check`` holds against the plain keep (the eval paths' kernel checks)."""
 
-    def __init__(self, label: str = "eval"):
+    def __init__(self, label: str = "eval", record_all: bool = False):
         from yolov6_tpu_torch.ops import nms as nms_mod
 
         self.nms_mod = nms_mod
         self.label = label
         self.walks = []
         self.first = {}
+        self.record_all = record_all  # keep every launch's inputs (``check_all``)
+        self.all = []
 
     def __enter__(self):
         from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
@@ -954,6 +990,10 @@ class KeepRecorder:
             idx, valid = keep(boxes, scores, max_det, iou_thres, emit_once=emit_once)
             tiles = greedy_nms.last_tiles.clone()
             self.walks.append((greedy_nms.last_path.clone(), tiles, boxes.shape[1]))
+            if self.record_all:
+                self.all.append(dict(boxes=boxes.clone(), scores=scores.clone(), max_det=max_det,
+                                     iou_thres=iou_thres, emit_once=emit_once, idx=idx.clone(),
+                                     valid=valid.clone(), tiles=tiles))
             if self.label not in self.first and bool((scores > 0).any()):
                 self.first[self.label] = dict(
                     boxes=boxes.clone(), scores=scores.clone(), max_det=max_det,
@@ -997,6 +1037,25 @@ class KeepRecorder:
         return dict(launches=len(self.walks), tiles_visited=tiles,
                     K=sorted({k for _, _, k in self.walks}), max_abs_err=err,
                     first={label: self.first[label] for label in labels})
+
+
+    def check_all(self, what: str):
+        """Every recorded launch took the tile walk and equals the plain keep
+        under its rule; returns the launches and the largest index error."""
+        import torch
+
+        from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms_plain
+
+        assert self.record_all and len(self.all) == len(self.walks) > 0, what
+        err = 0.0
+        for i, f in enumerate(self.all):
+            assert bool((self.walks[i][0] == 1).all()), f"{what}: launch {i} took no tile walk"
+            idx_p, valid_p = greedy_nms_plain(f["boxes"], f["scores"], f["max_det"],
+                                              f["iou_thres"], emit_once=f["emit_once"])
+            assert torch.equal(f["idx"], idx_p) and torch.equal(f["valid"], valid_p), \
+                f"{what}: launch {i}'s keep differs from the plain keep"
+            err = max(err, float((f["idx"] - idx_p).abs().max()))
+        return self.all, err
 
 
 def split_per_batch(batch_split) -> dict:
@@ -1735,6 +1794,223 @@ def p6_train_cli_phase(root: str, dev, card: str) -> dict:
                 max_abs_err=walk["max_abs_err"])
 
 
+class StepTimer:
+    """Times, while active, the steps of the inferer's per-image loop as the
+    infer CLI runs them (host clock): decode (``LoadData``'s ``imread``),
+    letterbox (``process_image``), device (the infer function, synchronised:
+    the loop's copy of the detections to the host waits for it anyway),
+    draw (``plot_box_and_label``), write (``imwrite_png``) and the whole
+    loop (``Inferer.infer``; the rest of it is the rescale and the label
+    rows)."""
+
+    STEPS = ("decode", "letterbox", "device", "draw", "write", "loop")
+
+    def __init__(self):
+        from yolov6_tpu_torch.core import inferer as inferer_mod
+        from yolov6_tpu_torch.data import datasets
+
+        self.inferer_mod, self.datasets = inferer_mod, datasets
+        self.s = dict.fromkeys(self.STEPS, 0.0)
+
+    def _timed(self, step, fn, sync=False):
+        import torch
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.s[step] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    def __enter__(self):
+        mod, datasets = self.inferer_mod, self.datasets
+        cls = mod.Inferer
+        self.saved = [(datasets, "imread", datasets.imread),
+                      (mod, "imwrite_png", mod.imwrite_png),
+                      (mod, "make_infer_fn", mod.make_infer_fn),
+                      (cls, "process_image", cls.process_image),
+                      (cls, "plot_box_and_label", cls.__dict__["plot_box_and_label"]),
+                      (cls, "infer", cls.infer)]
+        make = mod.make_infer_fn
+        datasets.imread = self._timed("decode", datasets.imread)
+        mod.imwrite_png = self._timed("write", mod.imwrite_png)
+        mod.make_infer_fn = lambda *a, **kw: self._timed("device", make(*a, **kw), sync=True)
+        cls.process_image = self._timed("letterbox", cls.process_image)
+        cls.plot_box_and_label = staticmethod(self._timed("draw", cls.plot_box_and_label))
+        cls.infer = self._timed("loop", cls.infer)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+
+def infer_phase(root: str, dev, card: str) -> dict:
+    """Phase 23: the demo JPEGs decode to cv2's pixels (sha256); the infer
+    CLI (``tools/infer.py::run``, in-process) on full-width S with seeded
+    weights over data/images at its defaults, in fp32 and bf16 (``--half``),
+    then with ``--classes 0 2`` and with ``--agnostic-nms``: every image's
+    keep (B=1, K=2000 filled, max_det 1000) equal to the plain keep, a PNG at
+    the source's size and a label row for each detection; the steps of the
+    loop timed on a second run of each precision; then the learning gate's
+    N on its val images, whose detections must find most GT boxes."""
+    import glob
+    import hashlib
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.tools import infer as infer_cli
+    from yolov6_tpu_torch.utils.config import Config
+
+    decode_ms = {}
+    for name, (shape, digest) in DEMO_JPEGS.items():
+        path = os.path.join(ROOT, name)
+        img = imread(path)
+        assert img.shape == shape, f"{name}: decoded to {img.shape}, cv2 gives {shape}"
+        assert hashlib.sha256(img.tobytes()).hexdigest() == digest, \
+            f"{name}: the decode differs from cv2.imread's"
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            imread(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[name] = statistics.median(times)
+    log("[23] the demo JPEGs decode to cv2.imread's pixels (sha256); host decode, median of 7: "
+        + ", ".join(f"{os.path.basename(n)} {DEMO_JPEGS[n][0][1]}x{DEMO_JPEGS[n][0][0]} "
+                    f"{ms:.2f} ms" for n, ms in decode_ms.items()) + f" [{card}]")
+
+    cfg_path = os.path.join(ROOT, "configs", "yolov6s.py")
+    model = deploy_model(Config.fromfile(cfg_path), 0, dev)
+    weights = os.path.join(root, "infer_s.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+    del model
+    source = os.path.join(ROOT, "data", "images")
+    stems = [os.path.splitext(os.path.basename(n))[0] for n in sorted(DEMO_JPEGS)]
+    src_shapes = [DEMO_JPEGS[n][0] for n in sorted(DEMO_JPEGS)]
+
+    def cli(name, *extra, timed=False):
+        out = os.path.join(root, "infer", name)
+        args = infer_cli.get_args_parser().parse_args([
+            "--weights", weights, "--config", cfg_path, "--source", source, "--save-txt",
+            "--save-dir", out, "--device", "cuda", *extra])
+        assert (args.conf_thres, args.iou_thres, args.max_det) == (
+            INFER_CLI["conf_thres"], INFER_CLI["iou_thres"], INFER_CLI["max_det"])
+        with KeepRecorder(record_all=not timed) as rec, StepTimer() as timer:
+            infer_cli.run(args)
+        res = dict(launches=len(rec.walks), steps_ms={
+            k: v * 1e3 / len(stems) for k, v in timer.s.items()},
+            imgs_per_s=len(stems) / timer.s["loop"])
+        if timed:
+            return res
+        launches, res["max_abs_err"] = rec.check_all(f"[23] infer {name}")
+        assert len(launches) == len(stems), f"[23] {name}: {len(launches)} keeps for 3 images"
+        res["kept"], res["pos"] = [], []
+        for stem, shape, f in zip(stems, src_shapes, launches):
+            assert f["boxes"].shape == (1, INFER_CLI["max_nms"], 4) and f["max_det"] == \
+                INFER_CLI["max_det"] and f["emit_once"]
+            n_pos, kept = int((f["scores"] > 0).sum()), int(f["valid"].sum())
+            assert n_pos == INFER_CLI["max_nms"], f"[23] {name} {stem}: {n_pos} candidates"
+            drawn = imread(os.path.join(out, "images", f"{stem}.png"))
+            assert drawn.shape == shape, f"[23] {name} {stem}: PNG {drawn.shape}, source {shape}"
+            with open(os.path.join(out, "images", "labels", f"{stem}.txt")) as fh:
+                rows = [list(map(float, line.split())) for line in fh]
+            assert len(rows) == kept > 0 and all(len(r) == 6 for r in rows)
+            if "--classes" in extra:
+                assert {int(r[0]) for r in rows} <= {0, 2}, f"[23] {name}: classes outside 0, 2"
+            res["kept"].append(kept)
+            res["pos"].append(n_pos)
+        res["first"] = launches[0]
+        return res
+
+    runs = {"fp32": cli("fp32"), "fp32_timed": cli("fp32_timed", timed=True),
+            "half": cli("half", "--half"), "half_timed": cli("half_timed", "--half", timed=True),
+            "classes": cli("classes", "--classes", "0", "2"),
+            "agnostic": cli("agnostic", "--agnostic-nms")}
+    for name in ("fp32", "half", "classes", "agnostic"):
+        r = runs[name]
+        log(f"[23] infer CLI {name} (YOLOv6-S, 640, conf {INFER_CLI['conf_thres']}, IoU "
+            f"{INFER_CLI['iou_thres']}, max_det {INFER_CLI['max_det']}) over data/images: "
+            f"{r['launches']} kernel launches (B=1 each), K {r['pos']} candidates an image "
+            f"(the cap), {r['kept']} kept, each keep equal to the plain emit-once keep; a PNG at "
+            f"the source size and a label row a detection for each image [{card}]")
+    for name in ("fp32_timed", "half_timed"):
+        r = runs[name]
+        log(f"[23] infer CLI {name[:-6]}, second run: {r['imgs_per_s']:.2f} imgs/s; ms an image: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["steps_ms"].items())
+            + f" (host clock) [{card}]")
+
+    # the kernel on the fp32 run's first image's candidates; these launches
+    # time it and are not the path's, so the count is put back after them
+    n_path = greedy_nms.launches
+    f = runs["fp32"]["first"]
+    boxes, scores, idx_k, valid_k = f["boxes"], f["scores"], f["idx"], f["valid"]
+    md, iou = f["max_det"], f["iou_thres"]
+    ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20)
+    plain_ms = cuda_ms(lambda: greedy_nms_plain(boxes, scores, md, iou), iters=3, warmup=1)
+    bound, by = bound_ms(*keep_work_sorted(boxes, scores, idx_k, valid_k, TILE))
+    tiles = float(f["tiles"].float().mean())
+    greedy_nms.launches = n_path
+    log(f"[23] greedy_nms on the infer CLI's candidates (image1, B=1 K={boxes.shape[1]} "
+        f"max_det={md}): {int(valid_k.sum())} kept, {tiles:.2f} tiles; kernel {ms:.4f} ms, per "
+        f"call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({by}) [{card}]")
+    kernel = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                  tiles_visited=tiles, K=int(boxes.shape[1]), max_det=md)
+
+    # the learning gate's N (phase 13) on the gate's val images
+    gate_ckpt = glob.glob(os.path.join(root, "gate", "**", "weights", "last_ckpt.pt"),
+                          recursive=True)
+    assert len(gate_ckpt) == 1, f"[23] the gate's checkpoint: {gate_ckpt}"
+    gate_data = os.path.join(root, "gate", "dataset", "data.json")
+    with open(gate_data) as fh:
+        val_dir = json.load(fh)["val"]
+    out = os.path.join(root, "infer", "gate")
+    g = INFER_GATE
+    args = infer_cli.get_args_parser().parse_args([
+        "--weights", gate_ckpt[0], "--config", os.path.join(ROOT, "configs", "yolov6n.py"),
+        "--source", val_dir, "--yaml", gate_data, "--img-size", str(g["img_size"]),
+        "--conf-thres", str(g["conf_thres"]), "--save-txt", "--not-save-img", "--save-dir", out,
+        "--device", "cuda"])
+    with KeepRecorder() as rec:
+        infer_cli.run(args)
+    n_gt = found = 0
+    label_dir = os.path.join(os.path.dirname(os.path.dirname(val_dir)), "labels", "val")
+    pred_dir = os.path.join(out, os.path.basename(val_dir), "labels")
+    for gt_file in sorted(glob.glob(os.path.join(label_dir, "*.txt"))):
+        gt = np.loadtxt(gt_file, ndmin=2).reshape(-1, 5)
+        pred_file = os.path.join(pred_dir, os.path.basename(gt_file))
+        pred = (np.loadtxt(pred_file, ndmin=2).reshape(-1, 6) if os.path.exists(pred_file)
+                else np.zeros((0, 6)))
+        for c, x, y, w, h in gt:
+            same = pred[pred[:, 0] == c]
+            ix = np.clip(np.minimum(x + w / 2, same[:, 1] + same[:, 3] / 2)
+                         - np.maximum(x - w / 2, same[:, 1] - same[:, 3] / 2), 0, None)
+            iy = np.clip(np.minimum(y + h / 2, same[:, 2] + same[:, 4] / 2)
+                         - np.maximum(y - h / 2, same[:, 2] - same[:, 4] / 2), 0, None)
+            inter = ix * iy
+            ious = inter / (w * h + same[:, 3] * same[:, 4] - inter)
+            found += bool((ious >= g["iou"]).any())
+            n_gt += 1
+    recall = found / max(n_gt, 1)
+    log(f"[23] infer CLI with the learning gate's N on its {len(rec.walks)} val images "
+        f"({g['img_size']} px, conf {g['conf_thres']}): {found} of {n_gt} GT boxes found by a "
+        f"detection of their class at IoU >= {g['iou']} (recall {recall:.4f}, need > "
+        f"{g['min_recall']}) [{card}]")
+    assert recall > g["min_recall"], f"[23] the gate's N found {found} of {n_gt} GT boxes"
+    for r in runs.values():
+        r.pop("first", None)
+    return dict(launches=sum(r["launches"] for r in runs.values()), gate_launches=len(rec.walks),
+                decode_ms=decode_ms, runs=runs, kernel=kernel, gate_recall=recall,
+                gate_gt=n_gt, max_abs_err=max(r.get("max_abs_err", 0.0) for r in runs.values()))
+
+
 def main() -> int:
     try:
         import torch
@@ -1903,12 +2179,18 @@ def main() -> int:
         greedy_nms.launches = 0
         p6_cli = p6_train_cli_phase(root, dev, card)
         p6_cli_launches = greedy_nms.launches
+
+        # ---- 23. inference: the demo JPEGs, the infer CLI on S, the gate's N
+        greedy_nms.launches = 0
+        infer = infer_phase(root, dev, card)
+        infer_launches = greedy_nms.launches
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert distill_gate_launches == distill_gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
                                                      "train_m_kd"))
     assert p6_train["train_s6"]["launches"] == p6_train["train_l6"]["launches"] == 0
     assert mbla["train_s"]["launches"] == 0 and p6_cli_launches == p6_cli["launches"]
+    assert infer_launches == infer["launches"] + infer["gate_launches"]
 
     kernels = [{
         "name": "greedy_nms",
@@ -1943,7 +2225,8 @@ def main() -> int:
                              "serve_x_mbla": mbla["serve_x"]["launches"],
                              "train_s_mbla": mbla["train_s"]["launches"],
                              "s_mbla_fold_serve": mbla["s_fold_serve"]["launches"],
-                             "train_cli_n6_eval": p6_cli_launches},
+                             "train_cli_n6_eval": p6_cli_launches,
+                             "infer": infer["launches"], "infer_gate": infer["gate_launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -1956,7 +2239,8 @@ def main() -> int:
                            p6_train["s6_fold_serve"]["max_abs_err"],
                            p6_train["l6_fold_serve"]["max_abs_err"],
                            eval_l6["kernel"]["max_abs_err"], mbla["serve_x"]["max_abs_err"],
-                           mbla["s_fold_serve"]["max_abs_err"], p6_cli["max_abs_err"]),
+                           mbla["s_fold_serve"]["max_abs_err"], p6_cli["max_abs_err"],
+                           infer["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -1991,6 +2275,8 @@ def main() -> int:
         "eval_l6": eval_l6,
         "mbla": mbla,
         "p6_train_cli": p6_cli,
+        "on_infer_candidates": infer["kernel"],
+        "infer": {k: v for k, v in infer.items() if k != "kernel"},
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

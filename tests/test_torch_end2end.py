@@ -123,23 +123,28 @@ print("MODULES", len([n for n in sys.modules if n.startswith("yolov6_tpu_torch")
 
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
-    """Importing every module of the port (its eval and train CLIs, the
-    trainer, the learning gate, the data modules and the training recipes'
-    heads and losses included) and chip_smoke
+    """Importing every module of the port (its eval, train and infer CLIs,
+    the hub, the trainer, the learning gate, the data modules and the
+    training recipes' heads and losses included) and chip_smoke
     loads none of jax, jaxlib, flax, cv2, PIL, yaml or the JAX package; the
     host augmentation library's source includes only the C++ standard
-    library and its build links nothing else."""
+    library and its build links nothing else, and so does the JPEG
+    decoder's."""
     res = subprocess.run([sys.executable, "-c", PORT_IMPORT_CHECK], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
-    assert int(res.stdout.split("MODULES")[1]) >= 58
+    assert int(res.stdout.split("MODULES")[1]) >= 63
 
-    from yolov6_tpu_torch.data import native_aug
+    from yolov6_tpu_torch.data import jpeg, native_aug
 
     with open(native_aug.SOURCE) as f:
         includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
     assert includes and set(includes) <= {"algorithm", "cmath", "cstdint", "cstring"}, includes
+    with open(jpeg.SOURCE) as f:  # the JPEG decoder: the C++ standard library only
+        includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
+    assert includes and set(includes) <= {"cstdint", "cstdio", "cstring", "exception", "new",
+                                          "vector"}, includes
     assert not any(flag.startswith(("-l", "-L", "-I")) for flag in native_aug.CXX_FLAGS)
     assert os.path.dirname(native_aug.lib_path()) == os.path.join(REPO_ROOT, "build", "host")

@@ -24,6 +24,7 @@ import os
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -180,6 +181,40 @@ def test_evaler_matches_jax_on_resized_images(sets, models, tmp_path):
     loader_j, dataset_j = jax_create_dataloader(
         sets["resized"]["val"], EVAL_IMG_SIZE, BATCH, data_dict=dict(sets["resized"]),
         task="val")
+    for (imgs, *_), (imgs_j, *_) in zip(loader, loader_j):
+        np.testing.assert_array_equal(np.asarray(imgs), imgs_j)
+    rows, rows_j = ours.predict_model(model, loader), theirs.predict_model(jmodel, loader_j)
+    _assert_rows_equal(rows, rows_j)
+    stats_j = JaxCOCOEvaluator(dataset_j.data_dict["anno_path"]).evaluate(rows_j)
+    np.testing.assert_allclose(ours.eval_model(rows, model, loader),
+                               (stats_j["AP50"], stats_j["AP"]), rtol=0, atol=AP_TOL)
+
+
+@pytest.fixture(scope="module")
+def jpeg_set(tmp_path_factory):
+    """A native-size set written as JPEG: the generator's PNGs re-encoded by
+    cv2 at quality 90 (4:2:0), the labels as generated."""
+    root = tmp_path_factory.mktemp("evaler_jpeg")
+    data = load_data_config(generate_synth_dataset(
+        str(root), n_train=0, n_val=6, img_size=EVAL_IMG_SIZE, seed=24, sizes=NATIVE_SIZES))
+    for name in os.listdir(data["val"]):
+        png = os.path.join(data["val"], name)
+        assert cv2.imwrite(png[:-4] + ".jpg", cv2.imread(png), [cv2.IMWRITE_JPEG_QUALITY, 90])
+        os.unlink(png)
+    return data
+
+
+def test_evaler_matches_jax_on_a_jpeg_set(jpeg_set, models, tmp_path):
+    """Each package's own loader over a JPEG set (cv2.imread against the
+    port's decoder): the same pixels, so the same rows and AP."""
+    jmodel, theirs, model = models
+    theirs.infer_on_rect = theirs.do_pr_metric = False
+    ours = _evaler(jpeg_set, tmp_path)
+    ours.init_model(model)
+    loader = ours.init_data(None, "val")
+    loader_j, dataset_j = jax_create_dataloader(
+        jpeg_set["val"], EVAL_IMG_SIZE, BATCH, data_dict=dict(jpeg_set), task="val")
+    assert all(p.endswith(".jpg") for p in loader.dataset.img_paths)
     for (imgs, *_), (imgs_j, *_) in zip(loader, loader_j):
         np.testing.assert_array_equal(np.asarray(imgs), imgs_j)
     rows, rows_j = ours.predict_model(model, loader), theirs.predict_model(jmodel, loader_j)

@@ -116,10 +116,11 @@ def test_imwrite_png_round_trips_through_cv2(tmp_path, shape):
 def test_unreadable_formats_raise_value_error(tmp_path):
     img = _image((16, 16, 3), seed=4)
     jpg, bmp = str(tmp_path / "a.jpg"), str(tmp_path / "a.bmp")
-    assert cv2.imwrite(jpg, img) and cv2.imwrite(bmp, img)
-    with pytest.raises(ValueError, match=r"a\.jpg: JPEG"):
+    # baseline JPEG is read (tests/test_torch_jpeg.py); progressive is not
+    assert cv2.imwrite(jpg, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]) and cv2.imwrite(bmp, img)
+    with pytest.raises(ValueError, match=r"a\.jpg: progressive JPEG"):
         imread(jpg)
-    with pytest.raises(ValueError, match="JPEG"):
+    with pytest.raises(ValueError, match="progressive JPEG"):
         image_size(jpg)
     with pytest.raises(ValueError, match="BMP"):
         imread(bmp)

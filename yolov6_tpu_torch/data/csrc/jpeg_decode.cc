@@ -1,0 +1,821 @@
+// Baseline JPEG decoder that returns exactly what cv2.imread returns for the
+// files it accepts: libjpeg-turbo's default decompression (jdhuff.c's
+// Huffman decoding, jidctint.c's accurate integer IDCT, jdsample.c's
+// "fancy" upsampling, jdcolor.c's fixed-point YCbCr->RGB), written out as
+// BGR, with the Exif orientation read as OpenCV reads it (the first APP1
+// segment). Written from ITU-T T.81 and the integer pipeline of those files.
+//
+// Accepted: SOF0/SOF1 (sequential, Huffman) at 8-bit precision with 1 or 3
+// components, interleaved and non-interleaved scans, DRI with RST0-7. The
+// rest (progressive, lossless, hierarchical, arithmetic coding, 12-bit,
+// 4 components) and any truncated or corrupt stream give an error: no entry
+// point returns a partial image.
+//
+// C interface, safe to call from several threads at once: every function
+// takes a byte buffer and fills caller-owned memory, returns 0 on success
+// and otherwise an error code with a message in `err`. Nothing aborts.
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <exception>
+#include <new>
+#include <vector>
+
+namespace {
+
+enum Code { OK = 0, UNSUPPORTED = 1, CORRUPT = 2, TRUNCATED = 3, INTERNAL = 4 };
+
+struct Fail {
+  int code;
+  char msg[200];
+};
+
+[[noreturn]] void fail(int code, const char* fmt, int a = 0, int b = 0) {
+  Fail f;
+  f.code = code;
+  std::snprintf(f.msg, sizeof(f.msg), fmt, a, b);
+  throw f;
+}
+
+// zigzag index -> natural (row-major) index
+const int kNatural[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// ------------------------------------------------------------ Huffman
+
+constexpr int kLookBits = 9;
+
+struct Huff {
+  bool defined = false;
+  uint8_t vals[256];
+  int32_t maxcode[18];    // largest code of each length, -1 if none
+  int32_t valoffset[18];  // vals index = code + valoffset[length]
+  uint16_t look[1 << kLookBits];  // (length << 8) | symbol; 0: longer code
+};
+
+// jdhuff.c jpeg_make_d_derived_tbl
+void build_huff(Huff& t, const uint8_t* bits, const uint8_t* vals, int nvals, bool dc) {
+  int huffsize[257];
+  uint32_t huffcode[257];
+  int p = 0;
+  for (int l = 1; l <= 16; l++)
+    for (int i = 0; i < bits[l]; i++) huffsize[p++] = l;
+  huffsize[p] = 0;
+  uint32_t code = 0;
+  int si = huffsize[0];
+  p = 0;
+  while (huffsize[p]) {
+    while (huffsize[p] == si) huffcode[p++] = code++;
+    if (code >= (1u << si)) fail(CORRUPT, "corrupt JPEG data: bad Huffman table");
+    code <<= 1;
+    si++;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; l++) {
+    if (bits[l]) {
+      t.valoffset[l] = p - static_cast<int32_t>(huffcode[p]);
+      p += bits[l];
+      t.maxcode[l] = static_cast<int32_t>(huffcode[p - 1]);
+    } else {
+      t.maxcode[l] = -1;
+    }
+  }
+  t.maxcode[17] = 0x7FFFFFFF;
+  std::memset(t.look, 0, sizeof(t.look));
+  p = 0;
+  for (int l = 1; l <= kLookBits; l++) {
+    for (int i = 1; i <= bits[l]; i++, p++) {
+      int look = static_cast<int>(huffcode[p]) << (kLookBits - l);
+      for (int ctr = 1 << (kLookBits - l); ctr > 0; ctr--)
+        t.look[look++] = static_cast<uint16_t>((l << 8) | vals[p]);
+    }
+  }
+  std::memcpy(t.vals, vals, nvals);
+  if (dc)
+    for (int i = 0; i < nvals; i++)
+      if (vals[i] > 15) fail(CORRUPT, "corrupt JPEG data: bad Huffman table");
+}
+
+// The entropy-coded bytes of a scan, unstuffed on the fly. At a marker (or
+// the end of the buffer) it supplies zero bits, as libjpeg does, and counts
+// them: consuming one of them is an error, so a short scan never yields an
+// image.
+struct Bits {
+  const uint8_t* d;
+  size_t n;
+  size_t pos;
+  uint64_t buf = 0;  // valid bits at the top
+  int cnt = 0;
+  int fake = 0;  // zero bits appended past the data
+  bool at_marker = false;
+
+  void fill() {
+    while (cnt <= 56) {
+      uint32_t c = 0;
+      if (at_marker) {
+        fake += 8;
+      } else if (pos >= n) {
+        at_marker = true;
+        fake += 8;
+      } else if (d[pos] != 0xFF) {
+        c = d[pos++];
+      } else {
+        size_t q = pos + 1;
+        while (q < n && d[q] == 0xFF) q++;  // fill bytes
+        if (q < n && d[q] == 0) {  // FF 00: a data byte of FF
+          c = 0xFF;
+          pos = q + 1;
+        } else {  // a marker: pos stays on its first FF
+          at_marker = true;
+          fake += 8;
+        }
+      }
+      buf |= static_cast<uint64_t>(c) << (56 - cnt);
+      cnt += 8;
+    }
+  }
+  uint32_t peek(int k) {
+    if (cnt < k) fill();
+    return static_cast<uint32_t>(buf >> (64 - k));
+  }
+  void skip(int k) {
+    buf <<= k;
+    cnt -= k;
+    if (cnt < fake) fail(TRUNCATED, "truncated or corrupt JPEG data: the scan ends early");
+  }
+  int get(int k) {
+    if (k == 0) return 0;
+    uint32_t v = peek(k);
+    skip(k);
+    return static_cast<int>(v);
+  }
+  int decode(const Huff& t) {
+    uint32_t look = peek(16);
+    uint16_t e = t.look[look >> (16 - kLookBits)];
+    if (e) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    int l = kLookBits + 1;
+    int32_t code = static_cast<int32_t>(look >> (16 - l));
+    while (code > t.maxcode[l]) {
+      l++;
+      if (l > 16) fail(CORRUPT, "corrupt JPEG data: bad Huffman code");
+      code = static_cast<int32_t>(look >> (16 - l));
+    }
+    skip(l);
+    return t.vals[code + t.valoffset[l]];
+  }
+  // drop what is buffered and move `pos` to the next marker, skipping any
+  // extraneous bytes before it (libjpeg skips them with a warning)
+  void to_marker() {
+    buf = 0;
+    cnt = 0;
+    fake = 0;
+    at_marker = false;
+    while (pos + 1 < n) {
+      if (d[pos] == 0xFF) {
+        size_t q = pos + 1;
+        while (q < n && d[q] == 0xFF) q++;
+        if (q < n && d[q] != 0) {
+          pos = q - 1;  // on the FF right before the marker code
+          return;
+        }
+        pos = q;
+      } else {
+        pos++;
+      }
+    }
+    pos = n;
+  }
+};
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v + (-(1 << s)) + 1 : v; }
+
+// ---------------------------------------------------------------- IDCT
+
+// jidctint.c jpeg_idct_islow: CONST_BITS 13, PASS1_BITS 2
+constexpr int kConstBits = 13;
+constexpr int kPass1Bits = 2;
+constexpr int64_t FIX_0_298631336 = 2446;
+constexpr int64_t FIX_0_390180644 = 3196;
+constexpr int64_t FIX_0_541196100 = 4433;
+constexpr int64_t FIX_0_765366865 = 6270;
+constexpr int64_t FIX_0_899976223 = 7373;
+constexpr int64_t FIX_1_175875602 = 9633;
+constexpr int64_t FIX_1_501321110 = 12299;
+constexpr int64_t FIX_1_847759065 = 15137;
+constexpr int64_t FIX_1_961570560 = 16069;
+constexpr int64_t FIX_2_053119869 = 16819;
+constexpr int64_t FIX_2_562915447 = 20995;
+constexpr int64_t FIX_3_072711026 = 25172;
+
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+
+// jdmaster.c prepare_range_limit_table, the post-IDCT part: the output
+// sample for a descaled value masked to 10 bits
+struct IdctLimit {
+  uint8_t t[1024];
+  IdctLimit() {
+    for (int i = 0; i < 1024; i++) {
+      int x = i < 512 ? i : i - 1024;  // the signed value the mask kept
+      int v = x + 128;
+      t[i] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+};
+const IdctLimit kIdctLimit;
+
+void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  int ws[64];
+  for (int c = 0; c < 8; c++) {
+    const int16_t* in = coef + c;
+    const uint16_t* qt = q + c;
+    int* w = ws + c;
+    auto dq = [&](int r) -> int64_t {
+      return static_cast<int64_t>(in[8 * r]) * static_cast<int16_t>(qt[8 * r]);
+    };
+    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
+      int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; r++) w[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = dq(2), z3 = dq(6);
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * (-FIX_1_847759065);
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = dq(0);
+    z3 = dq(4);
+    int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
+    int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = dq(7);
+    tmp1 = dq(5);
+    tmp2 = dq(3);
+    tmp3 = dq(1);
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits - kPass1Bits;
+    w[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
+    w[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
+    w[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
+    w[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
+    w[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
+    w[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
+    w[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
+    w[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+  }
+  const uint8_t* lim = kIdctLimit.t;
+  for (int r = 0; r < 8; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      uint8_t v = lim[descale(w[0], kPass1Bits + 3) & 1023];
+      for (int c = 0; c < 8; c++) o[c] = v;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * (-FIX_1_847759065);
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = (int64_t(w[0]) + w[4]) * (int64_t(1) << kConstBits);
+    int64_t tmp1 = (int64_t(w[0]) - w[4]) * (int64_t(1) << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits + kPass1Bits + 3;
+    o[0] = lim[descale(tmp10 + tmp3, sh) & 1023];
+    o[7] = lim[descale(tmp10 - tmp3, sh) & 1023];
+    o[1] = lim[descale(tmp11 + tmp2, sh) & 1023];
+    o[6] = lim[descale(tmp11 - tmp2, sh) & 1023];
+    o[2] = lim[descale(tmp12 + tmp1, sh) & 1023];
+    o[5] = lim[descale(tmp12 - tmp1, sh) & 1023];
+    o[3] = lim[descale(tmp13 + tmp0, sh) & 1023];
+    o[4] = lim[descale(tmp13 - tmp0, sh) & 1023];
+  }
+}
+
+// ------------------------------------------------------------- colour
+
+// jdcolor.c build_ycc_rgb_table: SCALEBITS 16, ONE_HALF rounding
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int64_t one_half = int64_t(1) << 15;
+    auto fix = [](double x) { return static_cast<int64_t>(x * 65536.0 + 0.5); };
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + one_half) >> 16);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + one_half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + one_half;
+    }
+  }
+};
+const YccTables kYcc;
+
+inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// -------------------------------------------------------------- parser
+
+struct Comp {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int td = 0, ta = 0;
+  int w = 0, hgt = 0;  // samples of the component (downsampled size)
+  int stride = 0, rows = 0;  // plane size, whole MCUs
+  bool scanned = false;
+  uint16_t q[64];  // quantisation table, latched at the component's first scan
+  std::vector<uint8_t> plane;
+};
+
+struct Decoder {
+  const uint8_t* d;
+  size_t n;
+  size_t pos = 0;
+  uint16_t qt[4][64];
+  bool qt_defined[4] = {false, false, false, false};
+  Huff dc[4], ac[4];
+  int restart_interval = 0;
+  bool jfif = false, adobe = false;
+  int adobe_transform = -1;
+  bool saw_app1 = false;
+  int orientation = 1;
+  bool frame = false;
+  int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  Comp comp[3];
+
+  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
+
+  int u8() {
+    if (pos >= n) fail(TRUNCATED, "truncated JPEG file: it ends inside a header");
+    return d[pos++];
+  }
+  int u16() {
+    int hi = u8();
+    return (hi << 8) | u8();
+  }
+  // the code of the next marker; fill bytes are skipped, other bytes raise
+  int next_marker() {
+    if (u8() != 0xFF) fail(CORRUPT, "corrupt JPEG file: a marker was expected");
+    int m;
+    do m = u8(); while (m == 0xFF);
+    return m;
+  }
+  // the payload of a segment: [pos, end)
+  size_t segment() {
+    int len = u16();
+    if (len < 2 || pos + len - 2 > n)
+      fail(TRUNCATED, "truncated JPEG file: a segment of %d bytes runs past the end", len);
+    return pos + len - 2;
+  }
+
+  void dqt(size_t end) {
+    while (pos < end) {
+      int pq_tq = u8();
+      int pq = pq_tq >> 4, tq = pq_tq & 15;
+      if (tq > 3 || pq > 1) fail(CORRUPT, "corrupt JPEG file: bad DQT");
+      for (int k = 0; k < 64; k++) qt[tq][kNatural[k]] = static_cast<uint16_t>(pq ? u16() : u8());
+      qt_defined[tq] = true;
+    }
+    if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad DQT length");
+  }
+
+  void dht(size_t end) {
+    while (pos < end) {
+      int tc_th = u8();
+      int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) fail(CORRUPT, "corrupt JPEG file: bad DHT");
+      uint8_t bits[17];
+      bits[0] = 0;
+      int count = 0;
+      for (int l = 1; l <= 16; l++) count += (bits[l] = static_cast<uint8_t>(u8()));
+      if (count > 256) fail(CORRUPT, "corrupt JPEG file: bad DHT");
+      uint8_t vals[256];
+      for (int i = 0; i < count; i++) vals[i] = static_cast<uint8_t>(u8());
+      Huff& t = tc ? ac[th] : dc[th];
+      build_huff(t, bits, vals, count, tc == 0);
+      t.defined = true;
+    }
+    if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad DHT length");
+  }
+
+  void sof(size_t end) {
+    if (frame) fail(CORRUPT, "corrupt JPEG file: a second SOF");
+    int precision = u8();
+    height = u16();
+    width = u16();
+    ncomp = u8();
+    if (precision != 8)
+      fail(UNSUPPORTED, "%d-bit JPEG; the port decodes 8-bit JPEG only", precision);
+    if (ncomp == 4)
+      fail(UNSUPPORTED, "4-component (CMYK/YCCK) JPEG; the port decodes grey and colour only");
+    if (ncomp != 1 && ncomp != 3)
+      fail(UNSUPPORTED, "%d-component JPEG; the port decodes 1 and 3 components", ncomp);
+    if (width == 0 || height == 0)
+      fail(UNSUPPORTED, "JPEG of size %dx%d (a DNL-defined height is not supported)", width,
+           height);
+    for (int i = 0; i < ncomp; i++) {
+      Comp& c = comp[i];
+      c.id = u8();
+      int hv = u8();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+        fail(CORRUPT, "corrupt JPEG file: bad SOF component");
+    }
+    if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad SOF length");
+    if (ncomp == 1) comp[0].h = comp[0].v = 1;  // one component: one block an MCU
+    hmax = vmax = 1;
+    for (int i = 0; i < ncomp; i++) {
+      if (comp[i].h > hmax) hmax = comp[i].h;
+      if (comp[i].v > vmax) vmax = comp[i].v;
+    }
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; i++) {
+      Comp& c = comp[i];
+      c.w = static_cast<int>((int64_t(width) * c.h + hmax - 1) / hmax);
+      c.hgt = static_cast<int>((int64_t(height) * c.v + vmax - 1) / vmax);
+      c.stride = mcux * c.h * 8;
+      c.rows = mcuy * c.v * 8;
+    }
+    frame = true;
+  }
+
+  void app(int marker, size_t end) {
+    size_t len = end - pos;
+    const uint8_t* p = d + pos;
+    if (marker == 0xE0 && len >= 14 && !std::memcmp(p, "JFIF\0", 5)) jfif = true;
+    if (marker == 0xEE && len >= 12 && !std::memcmp(p, "Adobe", 5)) {
+      adobe = true;
+      adobe_transform = p[11];
+    }
+    if (marker == 0xE1 && !saw_app1) {  // OpenCV parses the first APP1 only
+      saw_app1 = true;
+      if (len > 6) orientation = exif_orientation(p + 6, len - 6);
+    }
+    pos = end;
+  }
+
+  // OpenCV's ExifReader: the TIFF header after the 6 bytes of "Exif\0\0"
+  // (not checked), IFD0's first orientation entry; 1 when anything is off
+  static int exif_orientation(const uint8_t* t, size_t len) {
+    if (len < 8) return 1;
+    bool le;
+    if (t[0] == 'I' && t[1] == 'I') le = true;
+    else if (t[0] == 'M' && t[1] == 'M') le = false;
+    else return 1;
+    auto rd16 = [&](size_t o) -> int {
+      return le ? (t[o] | (t[o + 1] << 8)) : ((t[o] << 8) | t[o + 1]);
+    };
+    if (rd16(2) != 0x2A) return 1;
+    uint32_t off = le ? (t[4] | (t[5] << 8) | (t[6] << 16) | (uint32_t(t[7]) << 24))
+                      : ((uint32_t(t[4]) << 24) | (t[5] << 16) | (t[6] << 8) | t[7]);
+    if (size_t(off) + 2 > len) return 1;
+    int entries = rd16(off);
+    for (int i = 0; i < entries; i++) {
+      size_t e = size_t(off) + 2 + 12 * size_t(i);
+      if (e + 10 > len) return 1;
+      if (rd16(e) == 0x0112) {
+        int v = rd16(e + 8);
+        return v >= 1 && v <= 8 ? v : 1;
+      }
+    }
+    return 1;
+  }
+
+  // the markers up to the first SOS (or EOI); returns the marker that ended it
+  int headers() {
+    if (n < 3 || d[0] != 0xFF || d[1] != 0xD8) fail(CORRUPT, "not a JPEG file (no SOI)");
+    pos = 2;
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xDA || m == 0xD9) return m;
+      segment_marker(m);
+    }
+  }
+
+  void segment_marker(int m) {
+    switch (m) {
+      case 0xC0: case 0xC1: { size_t e = segment(); sof(e); return; }
+      case 0xC2: fail(UNSUPPORTED, "progressive JPEG (SOF2); the port decodes baseline and "
+                                   "extended sequential JPEG only");
+      case 0xC3: fail(UNSUPPORTED, "lossless JPEG (SOF3) is not supported");
+      case 0xC5: case 0xC6: case 0xC7:
+        fail(UNSUPPORTED, "hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
+      case 0xC9: case 0xCA: case 0xCB: case 0xCC: case 0xCD: case 0xCE: case 0xCF:
+        fail(UNSUPPORTED, "arithmetic-coded JPEG (marker 0x%02X) is not supported", m);
+      case 0xC4: { size_t e = segment(); dht(e); return; }
+      case 0xDB: { size_t e = segment(); dqt(e); return; }
+      case 0xDD: {
+        size_t e = segment();
+        restart_interval = u16();
+        if (pos != e) fail(CORRUPT, "corrupt JPEG file: bad DRI length");
+        return;
+      }
+      case 0xFE: { size_t e = segment(); pos = e; return; }
+      case 0xDC: fail(UNSUPPORTED, "JPEG with a DNL marker is not supported");
+      default:
+        if (m >= 0xE0 && m <= 0xEF) {
+          size_t e = segment();
+          app(m, e);
+          return;
+        }
+        fail(CORRUPT, "corrupt JPEG file: unexpected marker 0x%02X", m);
+    }
+  }
+
+  // one scan, from its SOS header; leaves pos on the marker after it
+  void scan() {
+    if (!frame) fail(CORRUPT, "corrupt JPEG file: SOS before SOF");
+    size_t end = segment();
+    int ns = u8();
+    if (ns < 1 || ns > ncomp) fail(CORRUPT, "corrupt JPEG file: bad SOS");
+    Comp* sc[4];
+    for (int i = 0; i < ns; i++) {
+      int id = u8(), tdta = u8();
+      Comp* c = nullptr;
+      for (int k = 0; k < ncomp; k++)
+        if (comp[k].id == id) c = &comp[k];
+      if (!c) fail(CORRUPT, "corrupt JPEG file: SOS names an unknown component");
+      c->td = tdta >> 4;
+      c->ta = tdta & 15;
+      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
+        fail(CORRUPT, "corrupt JPEG file: a scan uses an undefined Huffman table");
+      sc[i] = c;
+    }
+    u8();  // Ss, Se, Ah/Al: libjpeg decodes a sequential scan whatever they say
+    u8();
+    u8();
+    if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad SOS length");
+    int blocks_in_mcu = 0;
+    for (int i = 0; i < ns; i++) {
+      Comp& c = *sc[i];
+      if (!c.scanned) {  // jdinput.c latch_quant_tables
+        if (!qt_defined[c.tq]) fail(CORRUPT, "corrupt JPEG file: undefined quantisation table");
+        std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+        c.scanned = true;
+      }
+      if (c.plane.empty()) c.plane.assign(size_t(c.stride) * c.rows, 0);
+      blocks_in_mcu += ns == 1 ? 1 : c.h * c.v;
+    }
+    if (blocks_in_mcu > 10) fail(CORRUPT, "corrupt JPEG file: more than 10 blocks an MCU");
+    int bw = mcux, bh = mcuy;
+    if (ns == 1) {
+      bw = (sc[0]->w + 7) / 8;
+      bh = (sc[0]->hgt + 7) / 8;
+    }
+    Bits bits{d, n, pos};
+    int pred[4] = {0, 0, 0, 0};
+    int next_rst = 0;
+    int16_t blk[64];
+    const int64_t total = int64_t(bw) * bh;
+    for (int64_t m = 0; m < total; m++) {
+      if (restart_interval && m > 0 && m % restart_interval == 0) {
+        bits.to_marker();
+        if (bits.pos + 1 >= n || d[bits.pos + 1] != 0xD0 + next_rst)
+          fail(CORRUPT, "corrupt JPEG data: restart marker RST%d missing", next_rst);
+        bits.pos += 2;
+        next_rst = (next_rst + 1) & 7;
+        pred[0] = pred[1] = pred[2] = pred[3] = 0;
+      }
+      int mx = static_cast<int>(m % bw), my = static_cast<int>(m / bw);
+      for (int i = 0; i < ns; i++) {
+        Comp& c = *sc[i];
+        int bh_c = ns == 1 ? 1 : c.v, bw_c = ns == 1 ? 1 : c.h;
+        for (int y = 0; y < bh_c; y++)
+          for (int x = 0; x < bw_c; x++) {
+            std::memset(blk, 0, sizeof(blk));
+            int s = bits.decode(dc[c.td]);
+            int diff = s ? extend(bits.get(s), s) : 0;
+            pred[i] = static_cast<int>(static_cast<uint32_t>(pred[i]) + static_cast<uint32_t>(diff));
+            blk[0] = static_cast<int16_t>(pred[i]);
+            const Huff& a = ac[c.ta];
+            for (int k = 1; k < 64; k++) {
+              int rs = bits.decode(a);
+              int r = rs >> 4;
+              s = rs & 15;
+              if (s) {
+                k += r;
+                if (k > 63) fail(CORRUPT, "corrupt JPEG data: coefficient index past 63");
+                blk[kNatural[k]] = static_cast<int16_t>(extend(bits.get(s), s));
+              } else {
+                if (r != 15) break;
+                k += 15;
+              }
+            }
+            int bx = mx * bw_c + x, by = my * bh_c + y;
+            idct_islow(blk, c.q, c.plane.data() + size_t(by) * 8 * c.stride + size_t(bx) * 8,
+                       c.stride);
+          }
+      }
+    }
+    bits.to_marker();
+    pos = bits.pos;
+  }
+
+  // headers, then every scan, up to EOI
+  void decode() {
+    int m = headers();
+    if (m == 0xD9 || !frame) fail(CORRUPT, "corrupt JPEG file: no image before EOI");
+    for (;;) {
+      if (m == 0xDA) scan();
+      else if (m == 0xD9) break;
+      else segment_marker(m);
+      if (pos >= n) fail(TRUNCATED, "truncated JPEG file: no EOI after the scan data");
+      m = next_marker();
+    }
+    for (int i = 0; i < ncomp; i++)
+      if (!comp[i].scanned) fail(CORRUPT, "corrupt JPEG file: a component was never scanned");
+  }
+
+  // the component upsampled to the image size (jdsample.c's choice of method)
+  std::vector<uint8_t> upsample(const Comp& c) const {
+    std::vector<uint8_t> out(size_t(width) * height);
+    if (hmax % c.h || vmax % c.v)
+      fail(UNSUPPORTED, "JPEG with fractional chroma sampling is not supported");
+    const int he = hmax / c.h, ve = vmax / c.v;
+    const int cw = c.w, ch = c.hgt;
+    const uint8_t* p = c.plane.data();
+    auto at = [&](int y, int x) -> int { return p[size_t(y) * c.stride + x]; };
+    auto rowc = [&](int y) { return y < 0 ? 0 : (y >= ch ? ch - 1 : y); };
+    auto colc = [&](int x) { return x < 0 ? 0 : (x >= cw ? cw - 1 : x); };
+    const bool h2v1 = he == 2 && ve == 1 && cw > 2;
+    const bool h1v2 = he == 1 && ve == 2;
+    const bool h2v2 = he == 2 && ve == 2 && cw > 2;
+    for (int y = 0; y < height; y++) {
+      uint8_t* o = out.data() + size_t(y) * width;
+      if (h2v1) {
+        for (int x = 0; x < width; x++) {
+          int i = x >> 1, near = 3 * at(y, i);
+          o[x] = static_cast<uint8_t>(x & 1 ? (near + at(y, colc(i + 1)) + 2) >> 2
+                                             : (near + at(y, colc(i - 1)) + 1) >> 2);
+        }
+      } else if (h1v2) {
+        int j = y >> 1, far = rowc(y & 1 ? j + 1 : j - 1), bias = y & 1 ? 2 : 1;
+        for (int x = 0; x < width; x++)
+          o[x] = static_cast<uint8_t>((3 * at(j, x) + at(far, x) + bias) >> 2);
+      } else if (h2v2) {
+        int j = y >> 1, far = rowc(y & 1 ? j + 1 : j - 1);
+        auto colsum = [&](int i) { return 3 * at(j, i) + at(far, i); };
+        for (int x = 0; x < width; x++) {
+          int i = x >> 1, near = 3 * colsum(i);
+          o[x] = static_cast<uint8_t>(x & 1 ? (near + colsum(colc(i + 1)) + 7) >> 4
+                                             : (near + colsum(colc(i - 1)) + 8) >> 4);
+        }
+      } else {  // full size, or replication by the integral factors
+        int j = y / ve;
+        for (int x = 0; x < width; x++) o[x] = static_cast<uint8_t>(at(j, x / he));
+      }
+    }
+    return out;
+  }
+
+  // BGR, HxWx3, into `out`
+  void output(uint8_t* out) const {
+    const size_t npx = size_t(width) * height;
+    if (ncomp == 1) {
+      const Comp& c = comp[0];
+      for (int y = 0; y < height; y++)
+        for (int x = 0; x < width; x++) {
+          uint8_t g = c.plane[size_t(y) * c.stride + x];
+          uint8_t* o = out + (size_t(y) * width + x) * 3;
+          o[0] = o[1] = o[2] = g;
+        }
+      return;
+    }
+    std::vector<uint8_t> p0 = upsample(comp[0]), p1 = upsample(comp[1]), p2 = upsample(comp[2]);
+    // jdapimin.c default_decompress_parms: JFIF first, then Adobe, then the ids
+    bool rgb = false;
+    if (!jfif) {
+      if (adobe) rgb = adobe_transform == 0;
+      else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    }
+    for (size_t i = 0; i < npx; i++) {
+      uint8_t* o = out + 3 * i;
+      if (rgb) {
+        o[0] = p2[i];
+        o[1] = p1[i];
+        o[2] = p0[i];
+        continue;
+      }
+      int y = p0[i], cb = p1[i], cr = p2[i];
+      o[2] = clamp255(y + kYcc.cr_r[cr]);
+      o[1] = clamp255(y + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+      o[0] = clamp255(y + kYcc.cb_b[cb]);
+    }
+  }
+};
+
+int run(char* err, int errlen, void (*body)(void*), void* arg) {
+  try {
+    body(arg);
+    return OK;
+  } catch (const Fail& f) {
+    std::snprintf(err, errlen, "%s", f.msg);
+    return f.code;
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, errlen, "out of memory decoding the JPEG");
+    return INTERNAL;
+  } catch (...) {
+    std::snprintf(err, errlen, "internal error decoding the JPEG");
+    return INTERNAL;
+  }
+}
+
+struct InfoArgs {
+  const uint8_t* d;
+  size_t n;
+  int* w;
+  int* h;
+  int* orientation;
+};
+
+struct DecodeArgs {
+  const uint8_t* d;
+  size_t n;
+  uint8_t* out;
+  int w, h;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Width, height (as stored, before any orientation) and the Exif orientation
+// (1-8; 1 when there is none) from the headers before the first scan.
+int yolov6_jpeg_info(const uint8_t* data, size_t size, int* width, int* height, int* orientation,
+                     char* err, int errlen) {
+  InfoArgs a{data, size, width, height, orientation};
+  return run(err, errlen, [](void* p) {
+    InfoArgs& a = *static_cast<InfoArgs*>(p);
+    Decoder dec(a.d, a.n);
+    int m = dec.headers();
+    if (m != 0xDA || !dec.frame) fail(CORRUPT, "corrupt JPEG file: no frame before the scan");
+    *a.w = dec.width;
+    *a.h = dec.height;
+    *a.orientation = dec.orientation;
+  }, &a);
+}
+
+// Decode into `out`, height x width x 3 BGR bytes as stored (the caller
+// applies the orientation); `width` and `height` must be yolov6_jpeg_info's.
+int yolov6_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int height,
+                       char* err, int errlen) {
+  DecodeArgs a{data, size, out, width, height};
+  return run(err, errlen, [](void* p) {
+    DecodeArgs& a = *static_cast<DecodeArgs*>(p);
+    Decoder dec(a.d, a.n);
+    dec.decode();
+    if (dec.width != a.w || dec.height != a.h)
+      fail(INTERNAL, "output buffer is %dx%d pixels, not the image's size", a.w, a.h);
+    dec.output(a.out);
+  }, &a);
+}
+
+}  // extern "C"

@@ -1,8 +1,11 @@
-"""YOLO-format dataset (port of yolov6_tpu/data/datasets.py:93-689).
+"""YOLO-format dataset and the inference source (port of
+yolov6_tpu/data/datasets.py:93-758).
 
 The scan, the label cache, rect batching, the ratio-keeping pre-resize with
 ``shrink_size``, the letterbox and the COCO ground-truth JSON, on numpy and
-the standard library: images are PNG, read by ``data/image_io.py``.
+the standard library: images are PNG or JPEG, read by ``data/image_io.py``.
+``LoadData`` streams image files to the inferer; video and webcam sources
+need ``cv2.VideoCapture`` and raise ``NotImplementedError``.
 
 With ``augment=True`` a sample takes the JAX package's native train path
 (datasets.py:396-640): with probability ``mosaic``, four images in a mosaic
@@ -11,7 +14,7 @@ letterbox and a random affine; then the HSV jitter and the flips. The pixel
 passes are ``data/native_aug.py``'s C++ library; every random value is drawn
 from a ``Draws`` seeded by ``(seed, epoch, index)``, so a sample does not
 depend on which loader thread made it. The JAX package's RAM and disk image
-caches and its JPEG decoder are not ported.
+caches and its C++ batch loader (``native/dataload.cc``) are not ported.
 
 The label cache and the COCO GT file have names of their own
 (``.{dir}.torch_cache.json``, ``.{dir}_torch_coco_gt.json``), so that the
@@ -47,6 +50,7 @@ from yolov6_tpu_torch.data.image_io import image_size, imread
 LOGGER = logging.getLogger(__name__)
 
 IMG_FORMATS = ["bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo"]
+VID_FORMATS = ["mp4", "mov", "avi", "mkv"]
 CACHE_VERSION = 2
 
 
@@ -379,3 +383,48 @@ class TrainValDataset:
             json.dump(out, f)
         LOGGER.info(f"COCO-format GT labels saved to {save_path}")
         return save_path
+
+
+class LoadData:
+    """The inferer's source (JAX: datasets.py:691-758): the image files under
+    ``path`` (a recursive, sorted glob filtered by ``IMG_FORMATS``) or the one
+    file ``path``, yielding ``(img BGR HWC uint8, path, None)``; ``type`` is
+    ``"image"``. A video file, or ``webcam=True``, raises
+    ``NotImplementedError``: reading frames needs ``cv2.VideoCapture``, which
+    the port does not have."""
+
+    def __init__(self, path: str, webcam: bool = False, webcam_addr: str = "0"):
+        if webcam:
+            raise NotImplementedError(
+                f"webcam source {webcam_addr!r}: reading a camera needs cv2.VideoCapture, "
+                "which the port does not have")
+        p = str(Path(path).resolve())
+        if os.path.isdir(p):
+            files = sorted(glob.glob(os.path.join(p, "**", "*.*"), recursive=True))
+        elif os.path.isfile(p):
+            files = [p]
+        else:
+            raise FileNotFoundError(f"Invalid path {p}")
+        videos = [f for f in files if f.split(".")[-1].lower() in VID_FORMATS]
+        if videos:
+            raise NotImplementedError(
+                f"video source {videos[0]}: reading video needs cv2.VideoCapture, which the "
+                "port does not have")
+        self.files = [f for f in files if f.split(".")[-1].lower() in IMG_FORMATS]
+        self.nf = len(self.files)
+        self.type = "image"
+        self.cap = None
+
+    def __iter__(self):
+        self.count = 0
+        return self
+
+    def __next__(self):
+        if self.count == self.nf:
+            raise StopIteration
+        path = self.files[self.count]
+        self.count += 1
+        return imread(path), path, self.cap
+
+    def __len__(self):
+        return self.nf

@@ -1,11 +1,18 @@
-"""PNG reading and writing with zlib and numpy: the port's stand-in for
+"""Image reading and writing without cv2 or PIL: the port's stand-in for
 ``cv2.imread``, ``cv2.imwrite`` and the header read of ``check_image``
 (yolov6_tpu/data/datasets.py:41-91).
 
-The machine with the card has neither cv2 nor PIL, so the eval path reads its
-images here. Only 8-bit, non-interlaced PNG of colour type 0 (grey), 2 (RGB)
-and 6 (RGBA) is decoded; PNG is lossless, so ``imread`` returns exactly the
-pixels ``cv2.imread`` returns. Any other format, JPEG included, raises
+The machine with the card has neither cv2 nor PIL, so the loaders read their
+images here. ``imread`` dispatches on the leading bytes:
+
+- PNG, decoded with zlib and numpy: 8-bit, non-interlaced, colour type 0
+  (grey), 2 (RGB) and 6 (RGBA). PNG is lossless, so ``imread`` returns
+  exactly the pixels ``cv2.imread`` returns.
+- JPEG, decoded by ``data/jpeg.py`` (C++), bit-equal to ``cv2.imread``:
+  baseline and extended sequential Huffman, 8-bit, grey or colour, the Exif
+  orientation applied.
+
+Any other format, and the kinds of PNG and JPEG not decoded, raise
 ``ValueError`` naming the file and the format.
 """
 
@@ -16,10 +23,12 @@ import zlib
 
 import numpy as np
 
+from yolov6_tpu_torch.data.jpeg import decode_jpeg, jpeg_size
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and a marker's FF, as OpenCV's JPEG decoder checks
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples a pixel
-_FORMATS = (  # leading bytes -> name, for the error of a file that is not PNG
-    (b"\xff\xd8\xff", "JPEG"),
+_FORMATS = (  # leading bytes -> name, for the error of a file neither PNG nor JPEG
     (b"BM", "BMP"),
     (b"GIF8", "GIF"),
     (b"II*\x00", "TIFF"),
@@ -30,8 +39,7 @@ _FORMATS = (  # leading bytes -> name, for the error of a file that is not PNG
 
 def _not_png(path: str, head: bytes) -> ValueError:
     name = next((n for magic, n in _FORMATS if head.startswith(magic)), "an unknown format")
-    hint = " (JPEG decoding is not ported yet; convert the set to PNG)" if name == "JPEG" else ""
-    return ValueError(f"{path}: {name} file; the port reads 8-bit PNG only{hint}")
+    return ValueError(f"{path}: {name} file; the port reads PNG and JPEG only")
 
 
 def _read_ihdr(path: str, data: bytes):
@@ -47,9 +55,16 @@ def _read_ihdr(path: str, data: bytes):
 
 
 def image_size(path: str):
-    """``(w, h)`` of a PNG from its header, without decoding the pixels."""
+    """``(w, h)`` of a PNG or JPEG from its headers, without decoding the
+    pixels. For a JPEG with Exif orientation 6 or 8, w and h are swapped, as
+    ``check_image`` records them; under orientations 5 and 7 ``imread``
+    transposes the image while the recorded shape stays as stored (the JAX
+    package's quirk, kept so that both packages record the same shapes)."""
     with open(path, "rb") as f:
         head = f.read(33)
+        if head.startswith(JPEG_SIGNATURE):
+            w, h, orientation = jpeg_size(head + f.read(), path)
+            return (h, w) if orientation in (6, 8) else (w, h)
     w, h, _, _, _ = _read_ihdr(path, head)
     return w, h
 
@@ -97,11 +112,14 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.n
 
 
 def imread(path: str) -> np.ndarray:
-    """The image at ``path`` as ``cv2.imread(path)`` returns an 8-bit PNG:
-    HWC uint8, 3 channels, BGR. Grey is replicated and alpha dropped. Raises
-    ``ValueError`` on any other format, a 16-bit or interlaced PNG included."""
+    """The image at ``path`` as ``cv2.imread(path)`` returns it: HWC uint8, 3
+    channels, BGR. Grey is replicated and alpha dropped; a JPEG's Exif
+    orientation is applied. Raises ``ValueError`` on any other format and on
+    the kinds not decoded (a 16-bit or interlaced PNG, a progressive JPEG)."""
     with open(path, "rb") as f:
         data = f.read()
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data, path)
     w, h, depth, ctype, interlace = _read_ihdr(path, data)
     if depth != 8:
         raise ValueError(f"{path}: {depth}-bit PNG; the port reads 8-bit PNG only")

@@ -5,9 +5,10 @@ yolov6_tpu/native/__init__.py).
 ``csrc/train_aug.cc`` is compiled on first use with the host ``g++`` into
 ``build/host/`` at the repository root (a git-ignored directory), under a
 name that carries a hash of the source and the flags, and loaded with
-ctypes; a failed build raises. It does the mosaic compose, the inverse-affine
-warp and the flips in one pass, the mixup blend, and the non-mosaic
-branch's letterbox. Every random value is drawn here or by the caller from
+ctypes; a failed build raises (``library_path`` and ``build_library`` build
+``data/jpeg.py``'s decoder the same way). It does the mosaic compose, the
+inverse-affine warp and the flips in one pass, the mixup blend, and the
+non-mosaic branch's letterbox. Every random value is drawn here or by the caller from
 a ``data_augment.Draws``, in the JAX package's order; the label geometry is
 numpy (``data_augment.py``). ``train_aug_plain`` and ``blend_plain`` are
 numpy versions of the warp and the blend, for the tests.
@@ -45,22 +46,35 @@ _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def lib_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(source: str) -> str:
+    """Where the library built from the C++ file ``source`` lives: under
+    ``build/host/``, named after the file and a hash of it and the flags."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libtrain_aug_{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def _build(so: str) -> None:
+def build_library(source: str, so: str) -> None:
+    """Compile ``source`` into the shared library ``so`` with ``$CXX`` or
+    g++; raises ``RuntimeError`` when the compiler fails."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
         raise RuntimeError("no C++ compiler: put g++ on PATH or set CXX")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"g++ failed on {source}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, so)
+
+
+def lib_path() -> str:
+    return library_path(SOURCE)
+
+
+def _build(so: str) -> None:
+    build_library(SOURCE, so)
 
 
 def load() -> ctypes.CDLL:
