@@ -138,6 +138,31 @@ Phases, each of which asserts:
      candidates beside its plain version and bound; then the infer CLI with
      phase 13's trained N on the gate's 64 val images at 160 px must find
      most GT boxes (a detection of their class at IoU >= 0.5).
+ 24. the lite family at 320 (configs/yolov6_lite/yolov6_lite_{s,m,l}.py, four
+     levels, strides 8-64, one anchor a cell): each deploy graph serves 32
+     random uint8 images of 320x320 in bf16 at the serving defaults, K = 2,125
+     candidates an image (every anchor), as phase 18 serves P6 (the first
+     keep against the plain emit-once keep, fwd+decode and serve timed, the
+     kernel on those candidates beside its plain version and bound), then
+     the B=1 serve latency; Lite-S's CPU decode of two images held against
+     the CUDA one, and one profile of its serve: kernels by name, launches
+     a call, the device's idle share (launch gaps);
+ 25. Lite-S's training step at b32@320 (TAL, SIoU, no DFL), 20 timed steps,
+     the split and peak memory, 3 ATSS steps, then folded (DPBlock's biased
+     convs with their BNs) and served at conf 0.001 as in phase 7;
+ 26. Lite-S through the Evaler at 320 over phase 11's 320 PNG images at the
+     eval protocol, with phase 11's checks and numbers;
+ 27. Lite-S through the train CLI at 320, batch 32, 2 epochs (both on ATSS)
+     over phase 22's 64 train images, with one in-training eval at conf 0 (its
+     first keep with a candidate held against the plain keep); then the
+     infer CLI at ``--img-size 320`` over data/images with Lite-S's seeded
+     serve weights (K = 2000, every keep equal to the plain keep) and
+     ``hub.yolov6lite_s`` + ``hub.predict(..., img_size=320)`` on a demo JPEG
+     (K = 2,125), with those weights and with the hub's own seed;
+ 28. the QARepVGG configs (configs/qarepvgg/): S-QA's step at b32@640 (20
+     timed) and M-QA's (10 timed) as phase 6, each folded (the QARepVGG
+     branches, the average and identity kernels and the post-sum BN into one
+     conv) and served at conf 0.001 as in phase 7.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -418,14 +443,17 @@ def profile_calls(fn, card: str, calls: int = 3, tag: str = "[5]",
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
         log(f"{tag} profile: the profiler saw no device time; breakdown not measured [{card}]")
-        return
+        return None
+    launches = sum(e.count for e in kernels) / calls
     log(f"{tag} profile of {calls} {what}: window {window_us / calls:.1f} us/{unit}, "
-        f"kernels {busy_us / calls:.1f} us/{unit}, device idle {1 - busy_us / window_us:.3f} "
-        f"of the window [{card}]")
+        f"kernels {busy_us / calls:.1f} us/{unit} in {launches:.0f} launches, device idle "
+        f"{1 - busy_us / window_us:.3f} of the window [{card}]")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in ranked[:12] + [e for e in ranked[12:] if "greedy_nms" in e.key]:
         log(f"{tag}   {e.self_device_time_total / calls:9.1f} us/{unit} "
             f"{e.count // calls:4d}x  {e.key[:90]}")
+    return dict(window_us=window_us / calls, busy_us=busy_us / calls, launches=launches,
+                idle=1 - busy_us / window_us)
 
 def init_train_weights(model, gen) -> None:
     """He-normal convs drawn by ``gen`` (a generator on the card); BNs and the
@@ -682,7 +710,7 @@ def fold_and_serve_phase(cfg, label: str, step, images, dev, card: str, tag: str
     try:
         for name, train_model in (("model", step.model), ("ema", step.ema)):
             deploy = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device=dev)
-            deploy.load_state_dict(fold_to_deploy(train_model.state_dict()), strict=True)
+            deploy.load_state_dict(fold_to_deploy(train_model.state_dict(), deploy), strict=True)
             was_training = train_model.training
             train_model.eval()
             with torch.no_grad():
@@ -892,10 +920,11 @@ def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=
         f"{batch / fd_ms * 1e3:.1f} imgs/s; fwd+decode+NMS (serve) {sv_ms:.3f} ms = "
         f"{batch / sv_ms * 1e3:.1f} imgs/s; {int(n16.sum())} detections, {launches} NMS kernel "
         f"launch(es) a call, the tile walk in all {batch} images [{card}]")
+    out = dict(launches=launches, fwd_decode_ms=fd_ms, serve_ms=sv_ms,
+               imgs_per_s=batch / sv_ms * 1e3)
     if profile_tag:
-        profile_calls(lambda: serve16(images), card, tag=profile_tag)
-    return dict(launches=launches, fwd_decode_ms=fd_ms, serve_ms=sv_ms,
-                imgs_per_s=batch / sv_ms * 1e3)
+        out["profile"] = profile_calls(lambda: serve16(images), card, tag=profile_tag)
+    return out
 
 
 # the eval phase's set: 320 PNG images in four sizes (w, h), so that the
@@ -1723,32 +1752,42 @@ def mbla_phases(dev, card: str, images) -> dict:
     return out
 
 
+def train_subset(root: str, n_train: int) -> str:
+    """A data description whose train split is the first ``n_train`` images
+    of phase 12's (copied once, with their labels); returns its path."""
+    import glob
+    import shutil
+
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    data_path = os.path.join(root, f"data80_train{n_train}.json")
+    if os.path.exists(data_path):
+        return data_path
+    data = load_data_config(os.path.join(root, "data80.json"))
+    sub = f"train{n_train}"
+    for kind in ("images", "labels"):
+        os.makedirs(os.path.join(root, kind, sub))
+    for path in sorted(glob.glob(os.path.join(data["train"], "*.png")))[:n_train]:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        shutil.copy(path, os.path.join(root, "images", sub))
+        shutil.copy(os.path.join(root, "labels", "train", f"{stem}.txt"),
+                    os.path.join(root, "labels", sub))
+    data["train"] = os.path.join(root, "images", sub)
+    with open(data_path, "w") as f:
+        json.dump(data, f)
+    return data_path
+
+
 def p6_train_cli_phase(root: str, dev, card: str) -> dict:
     """Phase 22: N6 through ``tools/train.py`` at 1280, batch 8, 2 epochs over
     the first 64 images of phase 12's split (both epochs on ATSS, the first
     on the mosaic branch), with one in-training eval of the 320 val images at
     conf 0 (through the config's eval_params, as phase 12); its first keep
     with a candidate held against the plain emit-once keep."""
-    import glob
-    import shutil
-
     from yolov6_tpu_torch.tools import train as train_cli
-    from yolov6_tpu_torch.utils.data_config import load_data_config
 
     t = P6_TRAIN_CLI
-    data = load_data_config(os.path.join(root, "data80.json"))
-    sub = f"train{t['n_train']}"
-    for kind in ("images", "labels"):
-        os.makedirs(os.path.join(root, kind, sub))
-    for path in sorted(glob.glob(os.path.join(data["train"], "*.png")))[:t["n_train"]]:
-        stem = os.path.splitext(os.path.basename(path))[0]
-        shutil.copy(path, os.path.join(root, "images", sub))
-        shutil.copy(os.path.join(root, "labels", "train", f"{stem}.txt"),
-                    os.path.join(root, "labels", sub))
-    data["train"] = os.path.join(root, "images", sub)
-    data_path = os.path.join(root, "data80_p6.json")
-    with open(data_path, "w") as f:
-        json.dump(data, f)
+    data_path = train_subset(root, t["n_train"])
     conf_file = os.path.join(root, "yolov6n6_train_cli.py")
     with open(os.path.join(ROOT, "configs", "yolov6n6.py")) as f:
         text = f.read()
@@ -2011,6 +2050,220 @@ def infer_phase(root: str, dev, card: str) -> dict:
                 gate_gt=n_gt, max_abs_err=max(r.get("max_abs_err", 0.0) for r in runs.values()))
 
 
+# the lite family and the QARepVGG configs (phases 24-28): lite serves,
+# trains and evaluates at its 320, whose 40² + 20² + 10² + 5² = 2,125 anchors
+# an image are every NMS candidate at the serving defaults
+LITE_IMG = 320
+LITE_NAMES = ("s", "m", "l")
+LITE_SERVE_K = 2125
+LITE_TIMED_STEPS = 20  # phase 25's timed train steps
+QA_TIMED_STEPS = {"s": 20, "m": 10}  # phase 28's
+# phase 27: Lite-S through the train CLI on phase 22's first 64 images
+LITE_TRAIN_CLI = dict(batch=32, epochs=2, stop_aug_last_n_epoch=1, workers=8)
+
+
+def lite_config(name: str):
+    from yolov6_tpu_torch.utils.config import Config
+
+    return Config.fromfile(os.path.join(ROOT, "configs", "yolov6_lite", f"yolov6_lite_{name}.py"))
+
+
+def lite_images(dev, seed: int = 0):
+    """b32 random uint8 NHWC images at ``LITE_IMG``, drawn on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (BATCH, LITE_IMG, LITE_IMG, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+
+def lite_serve_phases(dev, card: str) -> dict:
+    """Phase 24: Lite-S, -M and -L deploy graphs serve b32@320 in bf16 at the
+    serving defaults (K = 2,125 candidates an image), as phase 18 serves P6:
+    the first keep held against the plain emit-once keep, fwd+decode and
+    serve timed, the kernel timed on those candidates beside its plain
+    version and its bound; then the B=1 serve latency; Lite-S's CPU decode
+    of two images held against the CUDA one and one profile of its serve."""
+    import torch
+
+    images = lite_images(dev)
+    out = {}
+    for i, name in enumerate(LITE_NAMES):
+        cfg = lite_config(name)
+        model = deploy_model(cfg, 30 + i, dev)
+        label = f"YOLOv6Lite-{name.upper()}"
+        out[name] = timed_serve_phase(cfg, label, model, images, dev, card, "[24]",
+                                      cpu_decode=name == "s", profile=name == "s")
+        assert out[name]["K"] == LITE_SERVE_K, out[name]["K"]
+        b1 = time_serve(model, label, images[:1], dev, card, "[24]")
+        out[name].update(b1_fwd_decode_ms=b1["fwd_decode_ms"], b1_serve_ms=b1["serve_ms"],
+                         b1_launches=b1["launches"])
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def lite_train_phase(dev, card: str) -> dict:
+    """Phase 25: Lite-S's step at b32@320 on the bench's data (TAL, SIoU, four
+    levels), 20 timed, the split and peak memory, 3 ATSS steps; then the
+    trained model and its EMA folded and served at conf 0.001."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+    cfg = lite_config("s")
+    greedy_nms.launches = 0
+    step, out = train_phase(cfg, "YOLOv6Lite-S", dev, card, "[25]", LITE_TIMED_STEPS,
+                            profile=False, atss_steps=ATSS_STEPS, img=LITE_IMG)
+    out["launches"] = greedy_nms.launches
+    assert out["launches"] == 0
+    out["fold_serve"] = fold_and_serve_phase(cfg, "YOLOv6Lite-S", step, lite_images(dev, 1),
+                                             dev, card, "[25]")
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def lite_cli_phase(root: str, dev, card: str) -> dict:
+    """Phase 27: Lite-S through ``tools/train.py`` at 320, batch 32, 2 epochs
+    (both on ATSS) over phase 22's 64 train images, with one in-training
+    eval of the 320 val images at conf 0, its first keep with a candidate
+    held against the plain emit-once keep; then ``tools/infer.py`` at
+    ``--img-size 320`` over data/images with Lite-S's seeded serve weights
+    (every keep, B=1, equal to the plain keep), and ``hub.yolov6lite_s`` with
+    those weights and with its own seeded ones, ``hub.predict(...,
+    img_size=320)`` on a demo JPEG, each keep equal to the plain keep."""
+    import torch
+
+    from yolov6_tpu_torch import hub
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.tools import infer as infer_cli
+    from yolov6_tpu_torch.tools import train as train_cli
+
+    t = LITE_TRAIN_CLI
+    conf_file = os.path.join(root, "yolov6_lite_s_train_cli.py")
+    with open(os.path.join(ROOT, "configs", "yolov6_lite", "yolov6_lite_s.py")) as f:
+        text = f.read()
+    with open(conf_file, "w") as f:
+        f.write(f"{text}\neval_params = {TRAIN_CLI_EVAL!r}\n")
+    argv = ["--data-path", train_subset(root, P6_TRAIN_CLI["n_train"]), "--conf-file", conf_file,
+            "--img-size", str(LITE_IMG), "--batch-size", str(t["batch"]),
+            "--epochs", str(t["epochs"]), "--workers", str(t["workers"]), "--eval-final-only",
+            "--stop_aug_last_n_epoch", str(t["stop_aug_last_n_epoch"]),
+            "--output-dir", os.path.join(root, "train"), "--name", "lite_s", "--bf16",
+            "--log-interval", "1", "--seed", "0", "--device", "cuda"]
+    args = train_cli.get_args_parser().parse_args(argv)
+    greedy_nms.launches = 0
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args)
+        wall = time.perf_counter() - t0
+    train_launches = greedy_nms.launches
+    n_val = EVAL_SET["n_val"]
+    walk = rec.check("[27] Lite-S in-training eval", n_val)
+    first = walk["first"]["eval"]
+    assert walk["launches"] == train_launches == -(-n_val // t["batch"]), walk["launches"]
+    assert trainer.atss_warmup_epoch > t["epochs"] - 1 and trainer.model.strides[-1] == 64
+    assert (trainer.solver_cfg["lr0"], trainer.solver_cfg["momentum"]) == (0.4, 0.9)
+    stats = trainer.epoch_stats
+    assert [e["epoch"] for e in stats] == list(range(t["epochs"]))
+    assert all(math.isfinite(v) for e in stats for v in e["mean_loss"]), stats
+    for e in stats:
+        log(f"[27] train CLI Lite-S epoch {e['epoch']} ({'mosaic' if e['epoch'] == 0 else 'letterbox'}"
+            f"+affine, ATSS, SIoU): {e['steps']} steps of b{t['batch']}@{LITE_IMG} bf16 in "
+            f"{e['wall_s']:.3f} s = {e['imgs_per_s']:.1f} imgs/s with the loader (host clock); "
+            f"loader wait {e['loader_wait_s'] / e['steps'] * 1e3:.2f} ms a step; step "
+            f"{e['step_ms']:.3f} ms (CUDA events); mean loss [iou, dfl, cls] "
+            f"{[round(v, 5) for v in e['mean_loss']]} [{card}]")
+    ev = trainer.eval_stats[0]
+    log(f"[27] in-training eval of Lite-S's EMA at {LITE_IMG}, conf {TRAIN_CLI_EVAL['conf_thres']}: "
+        f"{ev['images']} images in {ev['batches']} batches, {ev['predict_s']:.3f} s = "
+        f"{ev['imgs_per_s']:.1f} imgs/s; {walk['launches']} kernel launches, the tile walk in "
+        f"every image ({walk['tiles_visited']:.2f} tiles/image), the first batch's keep "
+        f"(B={first['boxes'].shape[0]} K={first['boxes'].shape[1]}, {first['kept']} kept) equal "
+        f"to the plain emit-once keep; AP50 {ev['ap50']:.5f}; the whole CLI run {wall:.1f} s "
+        f"[{card}]")
+
+    model = deploy_model(lite_config("s"), 30, dev)
+    weights = os.path.join(root, "infer_lite_s.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+    del model
+    conf_path = os.path.join(ROOT, "configs", "yolov6_lite", "yolov6_lite_s.py")
+    out_dir = os.path.join(root, "infer", "lite_s")
+    infer_args = infer_cli.get_args_parser().parse_args([
+        "--weights", weights, "--config", conf_path, "--source", os.path.join(ROOT, "data",
+                                                                             "images"),
+        "--img-size", str(LITE_IMG), str(LITE_IMG), "--save-txt", "--save-dir", out_dir,
+        "--device", "cuda"])
+    greedy_nms.launches = 0
+    with KeepRecorder(record_all=True) as irec:
+        t0 = time.perf_counter()
+        infer_cli.run(infer_args)
+        infer_s = time.perf_counter() - t0
+    infer_launches = greedy_nms.launches
+    keeps, infer_err = irec.check_all("[27] Lite-S infer CLI")
+    assert infer_launches == len(keeps) == len(DEMO_JPEGS)
+    kept = [int(f["valid"].sum()) for f in keeps]
+    ks = [int((f["scores"] > 0).sum()) for f in keeps]
+    assert all(f["boxes"].shape[:2] == (1, INFER_CLI["max_nms"]) for f in keeps) and min(kept) > 0
+    log(f"[27] infer CLI Lite-S at {LITE_IMG} (conf {INFER_CLI['conf_thres']}, max_det "
+        f"{INFER_CLI['max_det']}) over data/images in {infer_s:.2f} s: {infer_launches} kernel "
+        f"launches (B=1), K {ks} candidates an image, {kept} kept, each keep equal to the plain "
+        f"emit-once keep [{card}]")
+
+    demo = os.path.join(ROOT, sorted(DEMO_JPEGS)[0])
+    hub_runs = {}
+    for which, w in (("seeded_serve_weights", weights), ("hub_seed", None)):
+        model = hub.yolov6lite_s(weights=w, device="cuda")
+        greedy_nms.launches = 0
+        with KeepRecorder(record_all=True) as hrec:
+            dets = hub.predict(model, demo, img_size=LITE_IMG)
+        launches = greedy_nms.launches
+        hkeeps, herr = hrec.check_all(f"[27] hub {which}")
+        assert launches == len(hkeeps) == 1 and hkeeps[0]["boxes"].shape[1] == LITE_SERVE_K
+        hub_runs[which] = dict(launches=launches, detections=len(dets), max_abs_err=herr,
+                               K=LITE_SERVE_K)
+        del model
+    assert hub_runs["seeded_serve_weights"]["detections"] > 0
+    log(f"[27] hub.yolov6lite_s + hub.predict(img_size={LITE_IMG}) on {os.path.basename(demo)}: "
+        f"with the serve's seeded weights {hub_runs['seeded_serve_weights']['detections']} "
+        f"detections, with the hub's own seed (the head's prior init) "
+        f"{hub_runs['hub_seed']['detections']}; one launch each (B=1, K {LITE_SERVE_K}), equal to "
+        f"the plain emit-once keep [{card}]")
+    torch.cuda.empty_cache()
+    return dict(launches=walk["launches"], epochs=stats, eval=trainer.eval_stats,
+                tiles_visited=walk["tiles_visited"], wall_s=wall,
+                infer=dict(launches=infer_launches, K=ks, kept=kept, wall_s=infer_s),
+                hub=hub_runs,
+                max_abs_err=max(walk["max_abs_err"], infer_err,
+                                *(h["max_abs_err"] for h in hub_runs.values())))
+
+
+def qa_phases(images, dev, card: str) -> dict:
+    """Phase 28: S-QA's step at b32@640 (20 timed) and M-QA's (10 timed), as
+    phase 6 trains S, each then folded (the QARepVGG branches and post-sum
+    BN into one conv) and served at conf 0.001 through the kernel."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.utils.config import Config
+
+    out = {}
+    for name, steps in QA_TIMED_STEPS.items():
+        cfg = Config.fromfile(os.path.join(ROOT, "configs", "qarepvgg", f"yolov6{name}_qa.py"))
+        label = f"YOLOv6{name.upper()}-QA"
+        greedy_nms.launches = 0
+        step, out[f"train_{name}"] = train_phase(cfg, label, dev, card, "[28]", steps,
+                                                 profile=False)
+        out[f"train_{name}"]["launches"] = greedy_nms.launches
+        assert out[f"train_{name}"]["launches"] == 0
+        out[f"{name}_fold_serve"] = fold_and_serve_phase(cfg, label, step, images, dev, card,
+                                                         "[28]")
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2184,6 +2437,19 @@ def main() -> int:
         greedy_nms.launches = 0
         infer = infer_phase(root, dev, card)
         infer_launches = greedy_nms.launches
+
+        # ---- 24.-27. the lite family at 320: serve, the Lite-S step and fold,
+        # Lite-S through the Evaler, the train, infer and hub entries
+        lite_serve = lite_serve_phases(dev, card)
+        lite_train = lite_train_phase(dev, card)
+        model = deploy_model(lite_config("s"), 30, dev)
+        eval_lite_s = eval_phase(model, "YOLOv6Lite-S", data, dev, card, img=LITE_IMG,
+                                 tag="[26]")
+        del model
+        lite_cli = lite_cli_phase(root, dev, card)
+
+        # ---- 28. the QARepVGG configs: S-QA and M-QA steps, folds, folded serves
+        qa_train = qa_phases(images, dev, card)
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert distill_gate_launches == distill_gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
@@ -2226,7 +2492,22 @@ def main() -> int:
                              "train_s_mbla": mbla["train_s"]["launches"],
                              "s_mbla_fold_serve": mbla["s_fold_serve"]["launches"],
                              "train_cli_n6_eval": p6_cli_launches,
-                             "infer": infer["launches"], "infer_gate": infer["gate_launches"]},
+                             "infer": infer["launches"], "infer_gate": infer["gate_launches"],
+                             **{f"serve_lite_{name}": lite_serve[name]["launches"]
+                                for name in LITE_NAMES},
+                             **{f"serve_lite_{name}_b1": lite_serve[name]["b1_launches"]
+                                for name in LITE_NAMES},
+                             "train_lite_s": lite_train["launches"],
+                             "lite_s_fold_serve": lite_train["fold_serve"]["launches"],
+                             "eval_lite_s": eval_lite_s["launches"],
+                             "train_cli_lite_s_eval": lite_cli["launches"],
+                             "infer_lite_s": lite_cli["infer"]["launches"],
+                             **{f"hub_lite_s_{k}": v["launches"]
+                                for k, v in lite_cli["hub"].items()},
+                             **{f"train_{name}_qa": qa_train[f"train_{name}"]["launches"]
+                                for name in QA_TIMED_STEPS},
+                             **{f"{name}_qa_fold_serve": qa_train[f"{name}_fold_serve"]["launches"]
+                                for name in QA_TIMED_STEPS}},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -2240,7 +2521,12 @@ def main() -> int:
                            p6_train["l6_fold_serve"]["max_abs_err"],
                            eval_l6["kernel"]["max_abs_err"], mbla["serve_x"]["max_abs_err"],
                            mbla["s_fold_serve"]["max_abs_err"], p6_cli["max_abs_err"],
-                           infer["max_abs_err"]),
+                           infer["max_abs_err"],
+                           *(lite_serve[name]["max_abs_err"] for name in LITE_NAMES),
+                           lite_train["fold_serve"]["max_abs_err"],
+                           eval_lite_s["kernel"]["max_abs_err"], lite_cli["max_abs_err"],
+                           *(qa_train[f"{name}_fold_serve"]["max_abs_err"]
+                             for name in QA_TIMED_STEPS)),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -2277,6 +2563,11 @@ def main() -> int:
         "p6_train_cli": p6_cli,
         "on_infer_candidates": infer["kernel"],
         "infer": {k: v for k, v in infer.items() if k != "kernel"},
+        "on_lite_serve_candidates": lite_serve,
+        "lite_train": lite_train,
+        "eval_lite_s": eval_lite_s,
+        "lite_cli": lite_cli,
+        "qa_train": qa_train,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

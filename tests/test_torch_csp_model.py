@@ -303,11 +303,12 @@ def test_full_width_parameter_count_matches_jax(path, published):
 
 
 @pytest.mark.parametrize("path,match", [
-    ("configs/yolov6_lite/yolov6_lite_s.py", "lite"),
-    ("configs/qarepvgg/yolov6m_qa.py", "qarepvgg"),
+    ("configs/repopt/yolov6s_opt.py", "'repopt' is RepOpt's"),
+    ("configs/repopt/yolov6s_hs.py", "'hyper_search' is RepOpt's"),
 ])
 def test_build_model_refuses_unported_configs(path, match):
-    """What is still unported raises and names itself; nothing stands in."""
+    """What is still unported raises and names itself; nothing stands in:
+    RepOpt's block modes (RealVGG, LinearAdd and ScaleLayer blocks)."""
     cfg = Config.fromfile(f"{REPO_ROOT}/{path}")
     with pytest.raises(NotImplementedError, match=match):
         build_model(cfg, num_classes=80, deploy=False, device="cpu")

@@ -330,7 +330,7 @@ def _load_hubconf():
 def test_hub_predict_matches_hubconf(setup, tmp_path):
     """``hub.yolov6n`` loads YOLOv6-N's weights from a state dict;
     ``hub.predict`` at its defaults but the size gives hubconf.predict's
-    detections; the lite loaders raise; visualize_detections writes PNG."""
+    detections; the lite loaders build; visualize_detections writes PNG."""
     hubconf = _load_hubconf()
     jmodel = jax_build_model(JaxConfig.fromfile(N_CONFIG), num_classes=NC, deploy=True)
     shapes = jax.eval_shape(lambda: jmodel.init(
@@ -353,8 +353,8 @@ def test_hub_predict_matches_hubconf(setup, tmp_path):
     assert out.shape == img.shape and (out != img).any()
     np.testing.assert_array_equal(imread(str(tmp_path / "viz.png")), out)
     for loader in (hub.yolov6lite_s, hub.yolov6lite_m, hub.yolov6lite_l):
-        with pytest.raises(NotImplementedError, match="lite"):
-            loader(device="cpu")
+        lite = loader(device="cpu")
+        assert type(lite.detect).__name__ == "DetectLite" and lite.strides[-1] == 64
     seeded = hub.yolov6n(num_classes=NC, device="cpu")
     again = hub.yolov6n(num_classes=NC, device="cpu")
     for (k, a), b in zip(seeded.state_dict().items(), again.state_dict().values()):

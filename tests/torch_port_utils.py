@@ -99,6 +99,46 @@ def random_jax_variables(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def random_lite_variables(shapes, seed: int):
+    """``random_jax_variables`` for the lite family, whose eval-mode signal
+    that fill lets fade: hard-swish halves a small input, so at He scale the
+    head's maps no longer depend on the image. Here every conv kernel but
+    the head's predictions is normal with std 1.4 / sqrt(fan_in), every conv
+    bias and BN shift lies in [0.5, 1.5] (where hard-swish has a slope near
+    1), running variances in [0.5, 1.5] and means in [-0.2, 0.2], and each BN
+    gamma is the running std times a factor in [0.8, 1.2]. The head's
+    predictions, whose inputs are then O(10), get a fifth of
+    ``random_jax_variables``'s kernel scale and keep its biases, so that
+    class scores stay below 0.95 and apart. Lite-S/M/L's eval-mode maps,
+    deploy and train form, then differ between two images by over a hundred
+    times the tests' tolerances at every level."""
+    from flax.traverse_util import flatten_dict, unflatten_dict
+
+    rng = np.random.default_rng(seed)
+    flat = flatten_dict(random_jax_variables(shapes, seed))
+    for path, leaf in flat.items():
+        shape = leaf.shape
+        if path[-2].startswith(("cls_preds", "reg_preds")):
+            if path[-1] == "kernel":
+                flat[path] = leaf * 0.2
+            continue
+        if path[-1] == "kernel":
+            flat[path] = (rng.standard_normal(shape) * 1.4 / np.sqrt(np.prod(shape[:-1]))
+                          ).astype(np.float32)
+        elif path[-1] == "bias":
+            flat[path] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif path[-1] == "var":
+            flat[path] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif path[-1] == "mean":
+            flat[path] = rng.uniform(-0.2, 0.2, shape).astype(np.float32)
+    for path in flat:
+        if path[-1] == "scale":
+            var = flat[("batch_stats",) + path[1:-1] + ("var",)]
+            flat[path] = (rng.uniform(0.8, 1.2, var.shape) * np.sqrt(var + 1e-3)
+                          ).astype(np.float32)
+    return unflatten_dict(flat)
+
+
 def jax_in_float64(fn):
     """``fn``, a JAX function of array pytrees, evaluated in float64: its
     jaxpr, traced as written (float32), is replayed under x64 with every

@@ -47,11 +47,17 @@ from yolov6_tpu_torch.utils.events import LOGGER, load_yaml
 def check_supported(args, cfg) -> None:
     """Raise ``NotImplementedError`` for what the port's trainer does not do,
     and ``ValueError`` for a recipe that cannot be: fuse-AB and distillation
-    together (as the JAX trainer), or distillation without a teacher."""
+    together (as the JAX trainer), distillation without a teacher, or either
+    recipe on a lite config (the lite family has neither head; the JAX
+    package would train the plain lite network instead)."""
     for flag in ("quant", "calib"):
         if getattr(args, flag, False):
             raise NotImplementedError(
                 f"--{flag} is not ported (quantisation: ROADMAP queue 1 item 8)")
+    recipes = [f"--{flag}" for flag in ("distill", "fuse_ab") if getattr(args, flag, False)]
+    if recipes and cfg.model.backbone.type == "Lite_EffiBackbone":
+        raise ValueError(f"{' and '.join(recipes)} on {cfg.model.type}: the lite family has no "
+                         "fuse-AB or distillation recipe")
     if getattr(args, "distill", False):
         if getattr(args, "fuse_ab", False):
             raise ValueError("distill models should turn off fuse_ab: --distill trains "

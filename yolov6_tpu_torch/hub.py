@@ -12,7 +12,8 @@ A loader returns the deploy model of ``configs/<name>.py`` on ``device``
 initialisers from seed 0. ``half=True`` makes ``predict`` run the forward
 under bf16 autocast. ``img_size`` is accepted as the JAX loaders take it;
 the port's graphs take any input size, so it changes nothing here. The lite
-loaders raise ``NotImplementedError``, as ``build_model`` does for lite.
+loaders (``yolov6lite_s/m/l``) build the lite family's deploy graphs, which
+are trained at 320: call ``predict(model, source, img_size=320)``.
 ``visualize_detections`` writes PNG (``<stem>.png``).
 """
 

@@ -1,14 +1,16 @@
-"""Blocks of the YOLOv6 P5 rep graph, as torch ``nn.Module``s (NCHW).
+"""Blocks of the YOLOv6 graphs, as torch ``nn.Module``s (NCHW).
 
 Port of yolov6_tpu/layers/common.py. Attribute names are the flax module
 names, which are the upstream torch names, so state-dict keys line up with
 the JAX parameter paths (utils/weights.py). Every block takes ``deploy``:
 ``True`` (the default) builds the deploy form, each conv carrying its folded
 BN as a bias; ``False`` builds the train form, conv without bias + BatchNorm,
-and RepVGGBlock's three branches. layers/reparam.py folds the second into the
-first. Ported: the blocks of the EfficientRep/CSPBep graphs, P5 and P6
-(N/S/M/L, N6/S6/M6/L6), and the MBLA stage; the QARepVGG, RepOpt and lite
-families are not.
+RepVGGBlock's three branches and QARepVGG's two branches, skip and post-sum
+BN. layers/reparam.py folds the second into the first. Ported: the blocks of
+the EfficientRep/CSPBep graphs, P5 and P6 (N/S/M/L, N6/S6/M6/L6), the MBLA
+stage, the QARepVGG blocks (V1 and V2) and the lite family's blocks
+(shuffle blocks, SE, depthwise-separable and lite CSP blocks). RepOpt's
+blocks (RealVGG, LinearAdd, ScaleLayer) are not.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-ACTIVATIONS = {"relu": F.relu, "silu": F.silu, None: lambda x: x}
+ACTIVATIONS = {"relu": F.relu, "silu": F.silu, "hardswish": F.hardswish, None: lambda x: x}
 
 
 def batch_norm(channels: int) -> nn.BatchNorm2d:
@@ -31,14 +33,15 @@ def batch_norm(channels: int) -> nn.BatchNorm2d:
 
 
 class ConvModule(nn.Module):
-    """Conv (same padding) + BN + activation (JAX: common.py:177-216).
-    ``deploy``: BN folded into the conv's bias."""
+    """Conv (same padding, ``groups`` groups) + BN + activation (JAX:
+    common.py:177-216). ``deploy``: BN folded into the conv's bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, act: str | None = "relu", deploy: bool = True):
+                 stride: int = 1, act: str | None = "relu", deploy: bool = True,
+                 groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride, kernel_size // 2,
-                              bias=deploy)
+                              groups=groups, bias=deploy)
         self.bn = None if deploy else batch_norm(out_channels)
         self.act = ACTIVATIONS[act]
 
@@ -50,15 +53,15 @@ class ConvModule(nn.Module):
 
 
 def _conv_bn_act(act, name):
-    """ConvBN{ReLU,SiLU} wrappers; the inner module is named ``block`` as in
-    the reference wrappers (JAX: common.py:219-256)."""
+    """ConvBN{ReLU,SiLU,HS} and ConvBN wrappers; the inner module is named
+    ``block`` as in the reference wrappers (JAX: common.py:219-256)."""
 
     class _Wrapper(nn.Module):
         def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                     stride: int = 1, deploy: bool = True):
+                     stride: int = 1, deploy: bool = True, groups: int = 1):
             super().__init__()
             self.block = ConvModule(in_channels, out_channels, kernel_size, stride, act,
-                                    deploy=deploy)
+                                    deploy=deploy, groups=groups)
 
         def forward(self, x):
             return self.block(x)
@@ -69,6 +72,8 @@ def _conv_bn_act(act, name):
 
 ConvBNReLU = _conv_bn_act("relu", "ConvBNReLU")
 ConvBNSiLU = _conv_bn_act("silu", "ConvBNSiLU")
+ConvBNHS = _conv_bn_act("hardswish", "ConvBNHS")
+ConvBN = _conv_bn_act(None, "ConvBN")
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -211,6 +216,50 @@ class RepVGGBlock(nn.Module):
         if self.rbr_identity is not None:
             y = y + self.rbr_identity(x)
         return F.relu(y)
+
+
+class QARepVGGBlock(nn.Module):
+    """Quantization-aware RepVGG block, then ReLU (JAX: common.py:502-554).
+    Deploy form: ``rbr_reparam`` as RepVGGBlock's. Train form: the 3x3
+    conv+BN ``rbr_dense`` + a bare 1x1 conv ``rbr_1x1`` + the input itself
+    (only when in == out and stride 1), summed, then one BN ``bn``.
+    ``has_identity`` and ``has_avg`` (V2's average branch) record that rule in
+    both forms, for the fold (layers/reparam.py)."""
+
+    avg_branch = False
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, deploy: bool = True):
+        super().__init__()
+        if kernel_size != 3:
+            raise ValueError(f"{type(self).__name__} is 3x3")
+        self.deploy = deploy
+        self.has_identity = in_channels == out_channels and stride == 1
+        self.has_avg = self.avg_branch and self.has_identity
+        if deploy:
+            self.rbr_reparam = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=True)
+            return
+        self.rbr_dense = ConvModule(in_channels, out_channels, 3, stride, None, deploy=False)
+        self.rbr_1x1 = nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False)
+        self.bn = batch_norm(out_channels)
+
+    def forward(self, x):
+        if self.deploy:
+            return F.relu(self.rbr_reparam(x))
+        y = self.rbr_dense(x) + self.rbr_1x1(x)
+        if self.has_identity:
+            y = y + x
+        if self.has_avg:
+            y = y + F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+        return F.relu(self.bn(y))
+
+
+class QARepVGGBlockV2(QARepVGGBlock):
+    """QARepVGG V2 (JAX: common.py:558-608): where the identity branch
+    exists, a 3x3 stride-1 average pool of the input (zeros counted at the
+    border) joins the sum."""
+
+    avg_branch = True
 
 
 class BottleRep(nn.Module):
@@ -375,13 +424,145 @@ class BiFusion(nn.Module):
         return self.cv3(torch.cat([x0, x1, x2], 1))
 
 
+class SEBlock(nn.Module):
+    """Squeeze-and-excite (JAX: common.py:868-884): the spatial mean, a 1x1
+    conv to ``channel // reduction``, ReLU, a 1x1 conv back, and a
+    hard-sigmoid gate on the input. Both convs carry a bias, in both forms."""
+
+    def __init__(self, channel: int, reduction: int = 4):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channel, channel // reduction, 1)
+        self.conv2 = nn.Conv2d(channel // reduction, channel, 1)
+
+    def forward(self, x):
+        w = F.relu(self.conv1(x.mean((2, 3), keepdim=True)))
+        return x * F.hardsigmoid(self.conv2(w))
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """ShuffleNet channel shuffle, NCHW (JAX: common.py:887-892, NHWC):
+    output channel ``j * groups + g`` is input channel ``g * (c // groups) + j``."""
+    b, c, h, w = x.shape
+    return x.view(b, groups, c // groups, h, w).transpose(1, 2).reshape(b, c, h, w)
+
+
+class Lite_EffiBlockS1(nn.Module):
+    """Stride-1 shuffle block (JAX: common.py:895-915): the input's second
+    half goes 1x1 (hard-swish) -> 3x3 depthwise -> SE -> 1x1 (hard-swish),
+    beside the first half, then a shuffle of two groups."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int, stride: int = 1,
+                 deploy: bool = True):
+        super().__init__()
+        self.conv_pw_1 = ConvBNHS(in_channels // 2, mid_channels, 1, 1, deploy=deploy)
+        self.conv_dw_1 = ConvBN(mid_channels, mid_channels, 3, stride, deploy=deploy,
+                                groups=mid_channels)
+        self.se = SEBlock(mid_channels)
+        self.conv_1 = ConvBNHS(mid_channels, out_channels // 2, 1, 1, deploy=deploy)
+
+    def forward(self, x):
+        x1, x2 = torch.chunk(x, 2, 1)
+        y = self.conv_1(self.se(self.conv_dw_1(self.conv_pw_1(x2))))
+        return channel_shuffle(torch.cat([x1, y], 1), 2)
+
+
+class Lite_EffiBlockS2(nn.Module):
+    """Stride-2 two-branch block (JAX: common.py:917-940): a 3x3 depthwise
+    then 1x1 branch beside a 1x1 -> 3x3 depthwise -> SE -> 1x1 branch,
+    concatenated, then a 3x3 depthwise and a 1x1 conv (hard-swish)."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int, stride: int = 2,
+                 deploy: bool = True):
+        super().__init__()
+        half, half_mid = out_channels // 2, mid_channels // 2
+        self.conv_dw_1 = ConvBN(in_channels, in_channels, 3, stride, deploy=deploy,
+                                groups=in_channels)
+        self.conv_1 = ConvBNHS(in_channels, half, 1, 1, deploy=deploy)
+        self.conv_pw_2 = ConvBNHS(in_channels, half_mid, 1, 1, deploy=deploy)
+        self.conv_dw_2 = ConvBN(half_mid, half_mid, 3, stride, deploy=deploy,
+                                groups=half_mid)
+        self.se = SEBlock(half_mid)
+        self.conv_2 = ConvBNHS(half_mid, half, 1, 1, deploy=deploy)
+        self.conv_dw_3 = ConvBNHS(out_channels, out_channels, 3, 1, deploy=deploy,
+                                  groups=out_channels)
+        self.conv_pw_3 = ConvBNHS(out_channels, out_channels, 1, 1, deploy=deploy)
+
+    def forward(self, x):
+        x1 = self.conv_1(self.conv_dw_1(x))
+        x2 = self.conv_2(self.se(self.conv_dw_2(self.conv_pw_2(x))))
+        return self.conv_pw_3(self.conv_dw_3(torch.cat([x1, x2], 1)))
+
+
+class DPBlock(nn.Module):
+    """Depthwise-separable conv with hard-swish (JAX: common.py:943-973): a
+    ``kernel_size`` depthwise conv, then a 1x1 conv, each with a bias of its
+    own in both forms; the train form puts a BN after each (``bn_1``,
+    ``bn_2``)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, stride: int = 1,
+                 deploy: bool = True):
+        super().__init__()
+        self.conv_dw_1 = nn.Conv2d(channels, channels, kernel_size, stride,
+                                   (kernel_size - 1) // 2, groups=channels)
+        self.conv_pw_1 = nn.Conv2d(channels, channels, 1)
+        self.bn_1 = None if deploy else batch_norm(channels)
+        self.bn_2 = None if deploy else batch_norm(channels)
+
+    def forward(self, x):
+        x = self.conv_dw_1(x)
+        if self.bn_1 is not None:
+            x = self.bn_1(x)
+        x = self.conv_pw_1(F.hardswish(x))
+        if self.bn_2 is not None:
+            x = self.bn_2(x)
+        return F.hardswish(x)
+
+
+class DarknetBlock(nn.Module):
+    """A 1x1 conv (hard-swish) to ``int(out_channels * expansion)``, then a
+    DPBlock of ``out_channels`` (JAX: common.py:976-990), which needs that
+    width to be ``out_channels``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 expansion: float = 0.5, deploy: bool = True):
+        super().__init__()
+        hidden = int(out_channels * expansion)
+        self.conv_1 = ConvBNHS(in_channels, hidden, 1, 1, deploy=deploy)
+        self.conv_2 = DPBlock(out_channels, kernel_size, 1, deploy=deploy)
+
+    def forward(self, x):
+        return self.conv_2(self.conv_1(x))
+
+
+class CSPBlock(nn.Module):
+    """The lite CSP block (JAX: common.py:993-1011): a 1x1 then a
+    DarknetBlock beside a 1x1, concatenated, then a 1x1 (all hard-swish);
+    hidden width ``int(out_channels * expand_ratio)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 expand_ratio: float = 0.5, deploy: bool = True):
+        super().__init__()
+        mid = int(out_channels * expand_ratio)
+        self.conv_1 = ConvBNHS(in_channels, mid, 1, 1, deploy=deploy)
+        self.blocks = DarknetBlock(mid, mid, kernel_size, 1.0, deploy=deploy)
+        self.conv_2 = ConvBNHS(in_channels, mid, 1, 1, deploy=deploy)
+        self.conv_3 = ConvBNHS(2 * mid, out_channels, 1, 1, deploy=deploy)
+
+    def forward(self, x):
+        return self.conv_3(torch.cat([self.blocks(self.conv_1(x)), self.conv_2(x)], 1))
+
+
 def get_block(mode: str):
     """training_mode string -> block class (JAX: common.py:1014-1027). The
     ``ConvBN*`` blocks take ``block(in, out)`` as RepVGGBlock does: kernel 3,
-    stride 1."""
-    table = {"repvgg": RepVGGBlock, "conv_relu": ConvBNReLU, "conv_silu": ConvBNSiLU}
-    if mode not in table:
+    stride 1. RepOpt's modes raise."""
+    table = {"repvgg": RepVGGBlock, "qarepvgg": QARepVGGBlock, "qarepvggv2": QARepVGGBlockV2,
+             "conv_relu": ConvBNReLU, "conv_silu": ConvBNSiLU}
+    if mode in ("repopt", "hyper_search"):
         raise NotImplementedError(
-            f"rep-block mode {mode!r} is not ported (the port has {sorted(table)}; "
-            "QARepVGG, RepOpt and the hyper-search blocks are not)")
+            f"rep-block mode {mode!r} is RepOpt's (RealVGGBlock, LinearAddBlock, ScaleLayer), "
+            "which is not ported")
+    if mode not in table:
+        raise NotImplementedError(f"undefined rep-block mode {mode!r} (the port has "
+                                  f"{sorted(table)})")
     return table[mode]

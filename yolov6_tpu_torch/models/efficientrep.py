@@ -1,7 +1,8 @@
 """Backbones (port of yolov6_tpu/models/efficientrep.py::EfficientRep,
 EfficientRep6, CSPBepBackbone, CSPBepBackbone_P6): one class body, whose
 stage block is a RepBlock or, in the CSP backbones, a BepC3 or an MBLABlock,
-over four stride-2 stages after the stem (P5) or five (P6)."""
+over four stride-2 stages after the stem (P5) or five (P6); and the lite
+family's shuffle backbone (``Lite_EffiBackbone``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,10 @@ from typing import Sequence
 
 from torch import nn
 
-from yolov6_tpu_torch.layers.common import ConvBNSiLU, RepVGGBlock, sppf_cls, stage_factory
+from yolov6_tpu_torch.layers.common import (
+    ConvBNHS, ConvBNSiLU, Lite_EffiBlockS1, Lite_EffiBlockS2, RepVGGBlock, sppf_cls,
+    stage_factory,
+)
 from yolov6_tpu_torch.utils.registry import BACKBONES
 
 
@@ -82,3 +86,37 @@ class CSPBepBackbone_P6(EfficientRep):
     csp = True
     n_stages = 5
     always_p2 = True
+
+
+@BACKBONES.register()
+class Lite_EffiBackbone(nn.Module):
+    """The lite family's shuffle backbone (JAX: efficientrep.py:183-214): a
+    3x3 stride-2 stem ``conv_0`` of 24 channels whatever ``out_channels[0]``
+    says (the reference hard-codes it), then four stages
+    ``lite_effiblock_{1..4}``, each a stride-2 ``Lite_EffiBlockS2`` and
+    ``num_repeat[stage] - 1`` stride-1 ``Lite_EffiBlockS1``s, stage ``s`` at
+    width ``out_channels[s]`` with mid width ``mid_channels[s]``. Returns the
+    last three stages' maps (strides 8, 16, 32)."""
+
+    def __init__(self, in_channels: int, mid_channels: Sequence[int],
+                 out_channels: Sequence[int], num_repeat: Sequence[int] = (1, 3, 7, 3),
+                 deploy: bool = True):
+        super().__init__()
+        out_ch = [24] + list(out_channels[1:])
+        self.conv_0 = ConvBNHS(in_channels, out_ch[0], 3, 2, deploy=deploy)
+        for stage in range(1, 5):
+            blocks = [Lite_EffiBlockS2(out_ch[stage - 1], mid_channels[stage], out_ch[stage], 2,
+                                       deploy=deploy)]
+            blocks += [Lite_EffiBlockS1(out_ch[stage], mid_channels[stage], out_ch[stage], 1,
+                                        deploy=deploy)
+                       for _ in range(num_repeat[stage - 1] - 1)]
+            setattr(self, f"lite_effiblock_{stage}", nn.Sequential(*blocks))
+
+    def forward(self, x):
+        x = self.conv_0(x)
+        outputs = []
+        for stage in range(1, 5):
+            x = getattr(self, f"lite_effiblock_{stage}")(x)
+            if stage >= 2:
+                outputs.append(x)
+        return tuple(outputs)

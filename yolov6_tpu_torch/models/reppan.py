@@ -1,7 +1,7 @@
 """BiFPAN necks (port of yolov6_tpu/models/reppan.py::RepBiFPANNeck,
 CSPRepBiFPANNeck, RepBiFPANNeck6, CSPRepBiFPANNeck_P6): one class body for
 each level count, whose stage block is a RepBlock or, in the CSP necks, a
-BepC3 or an MBLABlock."""
+BepC3 or an MBLABlock; and the lite family's neck (``Lite_EffiNeck``)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from yolov6_tpu_torch.layers.common import BiFusion, ConvBNReLU, RepVGGBlock, stage_factory
+from yolov6_tpu_torch.layers.common import (
+    BiFusion, ConvBNHS, ConvBNReLU, CSPBlock, DPBlock, RepVGGBlock, stage_factory,
+)
 from yolov6_tpu_torch.utils.registry import NECKS
 
 
@@ -115,3 +117,46 @@ class CSPRepBiFPANNeck_P6(RepBiFPANNeck6):
     stages."""
 
     csp = True
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling (JAX: reppan.py:31-33)."""
+    return x.repeat_interleave(2, 2).repeat_interleave(2, 3)
+
+
+@NECKS.register()
+class Lite_EffiNeck(nn.Module):
+    """The lite family's PAN over the backbone's three levels (JAX:
+    reppan.py:257-290): every level reduced to ``unified_channels`` by a 1x1
+    conv, nearest 2x upsampling, lite ``CSPBlock``s with 5x5 depthwise convs,
+    5x5 stride-2 ``DPBlock`` downsamples, and a stride-64 level
+    ``p6_conv_1(fpn_out0) + p6_conv_2(pan_out1)``, both read from stride-32
+    maps. Takes ``(x2, x1, x0)`` of widths ``in_channels`` and returns
+    ``[pan_out3, pan_out2, pan_out1, pan_out0]`` (strides 8-64)."""
+
+    def __init__(self, in_channels: Sequence[int], unified_channels: int, deploy: bool = True):
+        super().__init__()
+        uc, kw = unified_channels, dict(deploy=deploy)
+        self.reduce_layer0 = ConvBNHS(in_channels[2], uc, 1, 1, **kw)
+        self.reduce_layer1 = ConvBNHS(in_channels[1], uc, 1, 1, **kw)
+        self.reduce_layer2 = ConvBNHS(in_channels[0], uc, 1, 1, **kw)
+        self.Csp_p4 = CSPBlock(2 * uc, uc, 5, **kw)
+        self.Csp_p3 = CSPBlock(2 * uc, uc, 5, **kw)
+        self.downsample2 = DPBlock(uc, 5, 2, **kw)
+        self.Csp_n3 = CSPBlock(2 * uc, uc, 5, **kw)
+        self.downsample1 = DPBlock(uc, 5, 2, **kw)
+        self.Csp_n4 = CSPBlock(2 * uc, uc, 5, **kw)
+        self.p6_conv_1 = DPBlock(uc, 5, 2, **kw)
+        self.p6_conv_2 = DPBlock(uc, 5, 2, **kw)
+
+    def forward(self, inputs):
+        x2, x1, x0 = inputs
+        fpn_out0 = self.reduce_layer0(x0)
+        x1 = self.reduce_layer1(x1)
+        x2 = self.reduce_layer2(x2)
+        f_out1 = self.Csp_p4(torch.cat([upsample_nearest2x(fpn_out0), x1], 1))
+        pan_out3 = self.Csp_p3(torch.cat([upsample_nearest2x(f_out1), x2], 1))
+        pan_out2 = self.Csp_n3(torch.cat([self.downsample2(pan_out3), f_out1], 1))
+        pan_out1 = self.Csp_n4(torch.cat([self.downsample1(pan_out2), fpn_out0], 1))
+        pan_out0 = self.p6_conv_1(fpn_out0) + self.p6_conv_2(pan_out1)
+        return [pan_out3, pan_out2, pan_out1, pan_out0]

@@ -1,9 +1,11 @@
-"""Detector assembly (port of yolov6_tpu/models/yolo.py:29-166): the P5 and
+"""Detector assembly (port of yolov6_tpu/models/yolo.py:29-193): the P5 and
 P6 non-lite graphs (EfficientRep + RepBiFPANNeck for N/S, CSPBepBackbone +
 CSPRepBiFPANNeck for M/L and the MBLA configs, EfficientRep6 +
 RepBiFPANNeck6 for N6/S6, CSPBepBackbone_P6 + CSPRepBiFPANNeck_P6 for
 M6/L6; Detect with or without DFL, or the fuse-AB and distill-NS heads of
-the training recipes), in the deploy or the train form."""
+the training recipes), of RepVGG, QARepVGG (V1, V2) or ConvBN blocks, and the
+lite family (Lite_EffiBackbone + Lite_EffiNeck + DetectLite), in the deploy
+or the train form."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from yolov6_tpu_torch.models import reppan as _reppan  # noqa: F401 (registry)
 from yolov6_tpu_torch.models.effidehead import Detect, decode_eval
 from yolov6_tpu_torch.models.heads.effidehead_distill_ns import DetectDistillNS
 from yolov6_tpu_torch.models.heads.effidehead_fuseab import DetectFuseAB
+from yolov6_tpu_torch.models.heads.effidehead_lite import DetectLite
 from yolov6_tpu_torch.utils.device import resolve_device
 from yolov6_tpu_torch.utils.registry import BACKBONES, NECKS
 
@@ -24,6 +27,16 @@ from yolov6_tpu_torch.utils.registry import BACKBONES, NECKS
 def make_divisible(x, divisor=8):
     """Reference yolo.py:50-52 (ceil variant, used by the P5/P6 families)."""
     return math.ceil(x / divisor) * divisor
+
+
+def make_divisible_lite(v, divisor=16):
+    """Reference yolo_lite.py:84-88 (JAX: yolo.py:34-39): round to the
+    nearest multiple of ``divisor``, at least ``divisor``, bumped up once
+    more when that loses over 10% of ``v``."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
 
 
 class Model(nn.Module):
@@ -66,13 +79,20 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda",
     ``Detect``'s deploy graph. A 4-level head (P6) reads the neck's last four
     widths and strides 8-64. Raises ``ValueError`` for ``distill_ns`` on a
     P6 config and for ``fuse_ab`` on a config without ``head.anchors_init``
-    (the JAX package builds neither), and ``NotImplementedError`` on the
-    parts of the model zoo not ported: the lite family and block modes
-    other than ``repvgg``, ``conv_relu`` and ``conv_silu``."""
+    (the JAX package builds neither). The block mode is the config's
+    ``training_mode`` (``get_block``: RepOpt's modes raise
+    ``NotImplementedError``). A lite config (``Lite_EffiBackbone``) builds
+    the lite graph (``_build_lite``), and raises ``ValueError`` with
+    ``fuse_ab`` or ``distill_ns``: the lite family has neither recipe, and
+    the JAX package builds the plain lite network whatever they say."""
     device = resolve_device(device)
     mcfg = cfg.model
     if mcfg.backbone.type == "Lite_EffiBackbone":
-        raise NotImplementedError("the lite family (Lite_EffiBackbone, DetectLite) is not ported")
+        if fuse_ab or distill_ns:
+            raise ValueError(f"{mcfg.type}: the lite family has no fuse-AB or distillation "
+                             "head (its configs train the plain lite network)")
+        model = _build_lite(mcfg, num_classes, deploy).to(device)
+        return model.eval() if deploy else model.train()
     num_layers = mcfg.head.num_layers
     if num_layers not in (3, 4):
         raise ValueError(f"head.num_layers {num_layers}: the graphs have 3 (P5) or 4 (P6)")
@@ -113,3 +133,20 @@ def build_model(cfg, num_classes: int, deploy: bool = True, device="cuda",
         detect = Detect(in_channels, num_classes=num_classes, reg_max=reg_max, deploy=deploy)
     model = Model(backbone, neck, detect, num_classes, use_dfl, reg_max).to(device)
     return model.eval() if deploy else model.train()
+
+
+def _build_lite(mcfg, num_classes: int, deploy: bool) -> Model:
+    """The lite graph (JAX: yolo.py:169-193): stage widths
+    ``make_divisible_lite(out * width_multiple)``, mid widths
+    ``make_divisible_lite(int(out * scale_size), 8)`` of those, one head
+    width (``neck.unified_channels``), no DFL."""
+    out_channels = [make_divisible_lite(i * mcfg.width_multiple)
+                    for i in mcfg.backbone.out_channels]
+    mid_channels = [make_divisible_lite(int(i * mcfg.backbone.scale_size), divisor=8)
+                    for i in out_channels]
+    backbone = BACKBONES.get(mcfg.backbone.type)(3, mid_channels, out_channels,
+                                                 tuple(mcfg.backbone.num_repeats), deploy=deploy)
+    uc = mcfg.neck.unified_channels
+    neck = NECKS.get(mcfg.neck.type)(out_channels[2:], uc, deploy=deploy)
+    detect = DetectLite((uc,) * mcfg.head.num_layers, num_classes, deploy=deploy)
+    return Model(backbone, neck, detect, num_classes, use_dfl=False, reg_max=0)

@@ -13,7 +13,8 @@ epochs, ``best_stop_aug_ckpt.pt``); the final ``last_ckpt.pt`` and
 saved ``args.yaml`` winning over the command line. The YOLOv6 v3.0 recipes:
 ``--fuse_ab`` (anchor-aided training), then ``--distill --teacher_model_path
 <the fuse-AB run's best_ckpt.pt> [--distill_feat] [--temperature T]`` (for N
-and S with the DFL config, ``use_dfl=True`` and ``reg_max=16``). Flags of
+and S with the DFL config, ``use_dfl=True`` and ``reg_max=16``); a lite config
+(``--img-size 320``) has neither recipe, and both raise ``ValueError``. Flags of
 later slices raise ``NotImplementedError``
 (``core/engine.py::check_supported``); the JAX
 CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,

@@ -7,8 +7,8 @@ train-form state dicts), ``epoch`` and ``results`` ((AP50, AP) of the last
 eval), every tensor on the CPU. ``strip_optimizer`` leaves ``model`` (the
 EMA) and ``epoch``. ``load_state_dict_file`` reads a state dict, bare or
 under ``'ema'`` or ``'model'`` (the EMA first, as the reference's eval takes
-it), and folds a train-form dict (RepVGG's three branches, conv+BN) into the
-deploy form by ``layers/reparam.py::fold_to_deploy``. The JAX package's
+it), and folds a train-form dict (RepVGG's and QARepVGG's branches, conv+BN)
+into the deploy form by ``layers/reparam.py::fold_to_deploy``. The JAX package's
 weights reach the port through ``utils/weights.py::state_dict_from_jax``.
 """
 
@@ -41,13 +41,13 @@ def load_state_dict_file(path: str, cfg, device="cuda") -> Model:
             break
     if not isinstance(obj, dict) or not all(torch.is_tensor(v) for v in obj.values()):
         raise ValueError(f"{path}: not a state dict of tensors (bare, or under 'ema' or 'model')")
-    if any(m in k for k in obj for m in _TRAIN_FORM_MARKERS):
-        obj = fold_to_deploy(obj)
     cls_keys = sorted(k for k in obj if k.startswith("detect.cls_preds.") and k.endswith(".weight"))
     if not cls_keys:
         raise ValueError(f"{path}: no detect.cls_preds.*.weight, not a detector's state dict")
     model = build_model(cfg, num_classes=int(obj[cls_keys[0]].shape[0]), deploy=True,
                         device=device)
+    if any(m in k for k in obj for m in _TRAIN_FORM_MARKERS):
+        obj = fold_to_deploy(obj, model)
     model.load_state_dict(obj, strict=True)
     return model
 
