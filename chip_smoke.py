@@ -162,7 +162,27 @@ Phases, each of which asserts:
  28. the QARepVGG configs (configs/qarepvgg/): S-QA's step at b32@640 (20
      timed) and M-QA's (10 timed) as phase 6, each folded (the QARepVGG
      branches, the average and identity kernels and the post-sum BN into one
-     conv) and served at conf 0.001 as in phase 7.
+     conv) and served at conf 0.001 as in phase 7;
+ 29. the concat PAN necks (configs/experiment/): yolov6t (RepPANNeck) and
+     yolov6s_csp_scaled (CSPRepPANNeck) serve b32@640 in bf16 as phase 18
+     serves P6 (the first keep against the plain keep, times, the kernel on
+     the served candidates); yolov6t takes 3 timed steps on phase 6's cell
+     (SIoU), then is folded and served as in phase 7;
+ 30. RepOpt S at full width (configs/repopt/yolov6s_hs.py, yolov6s_opt.py) on
+     phase 6's cell: the hyper-search step (LinearAddBlocks) timed with its
+     split and peak memory; the CSLA scales from its EMA; on one of its
+     blocks in fp32 the CSLA theorem (a plain SGD step on the branches,
+     folded, equals a masked step on the folded conv); the RepOpt graph
+     (RealVGG blocks) re-initialised from the scales and its masked step
+     timed; then folded and served as in phase 7;
+ 31. RepOpt's two stages through ``tools/train.py::main`` (S hs 2 epochs, then
+     S opt 2 epochs with ``scales=`` the hs run's last_ckpt.pt; b32@640 bf16
+     on 64 train images, each with an in-training eval of 64 val images at
+     conf 0 through the kernel); then an upstream-format S ``.pt`` (whole
+     fp16 modules of a stub ``yolov6`` package) read, in a child process
+     where ``yolov6`` cannot be imported, by the eval CLI, the infer CLI and
+     the fine-tune of a copy of configs/yolov6s_finetune.py (every tensor
+     loaded equal to the file's, 1 epoch), each keep equal to the plain keep.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -273,6 +293,13 @@ DEMO_JPEGS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_MARKS = []  # (phase tag, host clock) at the start of each phase group
+
+
+def phase_mark(tag: str) -> None:
+    PHASE_MARKS.append((tag, time.perf_counter()))
 
 
 def nvidia_smi_line() -> str:
@@ -586,13 +613,15 @@ def recipe_step(cfg, recipe, dev, gen, epochs: int, img: int = IMG):
 
 def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
                 profile: bool = True, atss_steps: int = 0, recipe=None, batch: int = BATCH,
-                img: int = IMG):
+                img: int = IMG, repopt_scales=None):
     """A training step at ``batch``@``img`` (b32@640 unless given) in bf16 on
-    the bench's cell (phases 6, 9, 10, the recipes' 14-16, 19 and 21,
+    the bench's cell (phases 6, 9, 10, the recipes' 14-16, 19, 21, 29 and 30,
     ``recipe`` as ``recipe_step`` takes it): ``TRAIN["warmup_steps"]`` steps,
     ``timed_steps`` timed, one split into its phases, optionally a profile
-    window; then ``atss_steps`` steps on the ATSS branch. Returns the step
-    and its numbers."""
+    window; then ``atss_steps`` steps on the ATSS branch. With
+    ``repopt_scales`` (a RepOpt config's model) the RealVGG convs are
+    re-initialised from the scales and the step masks their gradients.
+    Returns the step and its numbers."""
     import torch
 
     from yolov6_tpu_torch.core.train_step import make_train_step
@@ -603,6 +632,16 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
     model, loss_fn, recipe_kw = recipe_step(cfg, recipe, dev,
                                             torch.Generator(device=dev).manual_seed(0),
                                             t["epochs"], img)
+    if repopt_scales is not None:
+        from yolov6_tpu_torch.solver.repoptimizer import generate_gradient_masks, reinitialize
+
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        reinitialize(model, repopt_scales)
+        recipe_kw["grad_masks"] = generate_gradient_masks(model, repopt_scales)
+        moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+        assert sorted(moved) == sorted(recipe_kw["grad_masks"]), "the re-init moved other tensors"
+        log(f"{tag} re-initialised {len(moved)} RealVGG convs from {len(repopt_scales)} blocks' "
+            "CSLA scales; the step masks their gradients")
     solver = scale_hyperparams_for_batch(dict(
         lr0=sol.lr0, lrf=sol.lrf, momentum=sol.momentum, weight_decay=sol.weight_decay,
         warmup_epochs=sol.warmup_epochs, warmup_momentum=sol.warmup_momentum,
@@ -2264,6 +2303,418 @@ def qa_phases(images, dev, card: str) -> dict:
     return out
 
 
+# phases 29-31: the PAN necks (configs/experiment/), RepOpt S (configs/repopt/),
+# the two-stage RepOpt CLI and upstream .pt files
+PAN_NAMES = ("yolov6t", "yolov6s_csp_scaled")
+PAN_TRAIN_STEPS = 3  # phase 29's timed yolov6t steps
+REPOPT_TIMED_STEPS = 10  # phase 30's timed hs and opt steps
+# phase 30's CSLA check on one block, fp32 and TF32 off: the branch step,
+# folded, against the masked step of the folded conv, within this share of
+# the folded kernel's largest magnitude
+CSLA_REL_TOL = 1e-5
+# phase 31: the hs and opt stages through the train CLI, 2 epochs each, and the
+# fine-tune, 1 epoch, on the first 64 images of phase 12's split; their
+# in-training evals and the eval CLI on the first 64 images of phase 11's set
+REPOPT_CLI = dict(n_train=64, n_val=64, batch=32, epochs=2, stop_aug_last_n_epoch=1,
+                  workers=8)
+
+
+def config_at(*parts):
+    from yolov6_tpu_torch.utils.config import Config
+
+    return Config.fromfile(os.path.join(ROOT, "configs", *parts))
+
+
+def pan_phases(images, dev, card: str) -> dict:
+    """Phase 29: yolov6t and yolov6s_csp_scaled (configs/experiment/: the
+    concat PAN necks RepPANNeck and CSPRepPANNeck) serve b32@640 in bf16
+    through the kernel as phase 18 serves P6; yolov6t takes 3 timed steps on
+    phase 6's cell (SIoU), then is folded and served as in phase 7."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+    out = {}
+    for i, name in enumerate(PAN_NAMES):
+        cfg = config_at("experiment", f"{name}.py")
+        model = deploy_model(cfg, 40 + i, dev)
+        assert type(model.neck).__name__ == cfg.model.neck.type
+        out[f"serve_{name}"] = timed_serve_phase(cfg, name, model, images, dev, card, "[29]")
+        del model
+        torch.cuda.empty_cache()
+    cfg = config_at("experiment", "yolov6t.py")
+    greedy_nms.launches = 0
+    step, out["train_t"] = train_phase(cfg, "YOLOv6t", dev, card, "[29]", PAN_TRAIN_STEPS,
+                                       profile=False)
+    out["train_t"]["launches"] = greedy_nms.launches
+    assert out["train_t"]["launches"] == 0
+    out["t_fold_serve"] = fold_and_serve_phase(cfg, "YOLOv6t", step, images, dev, card, "[29]")
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def csla_check(hs_model, dev, card: str) -> dict:
+    """tests/test_repoptimizer.py::test_csla_sgd_equivalence on the card, at a
+    trained hs block's width and scales (fp32, TF32 off): one plain SGD step
+    on a LinearAddBlock's linear part (its 3x3, 1x1 and identity branches;
+    the scales fixed, the identity's at 1 as the reference's mask assumes),
+    folded by ``linearadd_fold``, equals one step of the folded 3x3 conv
+    under ``generate_gradient_masks``'s mask."""
+    import torch
+    from torch import nn
+
+    from yolov6_tpu_torch.layers.common import LinearAddBlock, RealVGGBlock
+    from yolov6_tpu_torch.layers.reparam import linearadd_fold
+    from yolov6_tpu_torch.solver.repoptimizer import apply_gradient_masks, generate_gradient_masks
+
+    name, src = next((n, m) for n, m in hs_model.named_modules()
+                     if isinstance(m, LinearAddBlock) and m.scale_identity is not None)
+    c = src.conv.weight.shape[0]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        block = LinearAddBlock(c, c, 3, 1, deploy=False).to(dev)
+        block.load_state_dict(src.state_dict())
+        with torch.no_grad():
+            block.scale_identity.weight.fill_(1.0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn((2, c, 40, 40), generator=gen, device=dev)
+        tgt = torch.randn((2, c, 40, 40), generator=gen, device=dev)
+        lr = 0.1
+
+        def linear(b):
+            return b.scale_conv(b.conv(x)) + b.scale_1x1(b.conv_1x1(x)) + b.scale_identity(x)
+
+        ((linear(block) - tgt) ** 2).mean().backward()
+        s_conv, s_1x1, s_id = (block.get_submodule(k).weight.detach().cpu().numpy()
+                               for k in ("scale_conv", "scale_1x1", "scale_identity"))
+
+        def fold(step):
+            w = {k: (block.get_submodule(k).weight
+                     - step * block.get_submodule(k).weight.grad).detach().cpu().numpy()
+                 for k in ("conv", "conv_1x1", "scale_identity")}
+            return linearadd_fold(w["conv"], s_conv, w["conv_1x1"], s_1x1, w["scale_identity"], c)
+
+        after_branches = fold(lr)
+        plain = RealVGGBlock(c, c, 3, 1, deploy=False).to(dev)
+        with torch.no_grad():
+            plain.conv.weight.copy_(torch.from_numpy(fold(0.0)))
+        model = nn.Sequential(plain)
+        ((nn.functional.conv2d(x, plain.conv.weight, padding=1) - tgt) ** 2).mean().backward()
+        apply_gradient_masks(model, generate_gradient_masks(model, {"0": (s_id, s_1x1, s_conv)}))
+        after_masked = (plain.conv.weight - lr * plain.conv.weight.grad).detach().cpu().numpy()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    import numpy as np
+
+    err = float(np.abs(after_branches - after_masked).max())
+    scale = float(np.abs(after_branches).max())
+    moved = float(np.abs(after_branches - fold(0.0)).max())
+    log(f"[30] CSLA on the card ({name}, {c} channels, fp32, TF32 off): a plain SGD step on the "
+        f"block's branches, folded, vs a masked step on the folded conv: max |diff| {err:.3e} of "
+        f"a kernel of max |w| {scale:.3e} (the step moved it by up to {moved:.3e}; tolerance "
+        f"{CSLA_REL_TOL} of max |w|) [{card}]")
+    assert moved > 10 * err, "the CSLA check's step moved the kernel by less than the error"
+    assert err <= CSLA_REL_TOL * scale, f"CSLA: the masked step differs by {err}"
+    return dict(block=name, channels=c, max_abs_err=err, max_abs_w=scale, step=moved)
+
+
+def repopt_phases(images, dev, card: str) -> dict:
+    """Phase 30: RepOpt S at full width (configs/repopt/yolov6s_hs.py, then
+    yolov6s_opt.py) on phase 6's cell: the hs step (LinearAddBlocks) timed
+    with its split and peak memory; the scales from its EMA; the CSLA check
+    on one of its blocks; the opt graph re-initialised from the scales, its
+    masked step timed; then folded (RealVGG conv+BN) and served through the
+    kernel as in phase 7."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.solver.repoptimizer import extract_scales
+
+    cfgs = {m: config_at("repopt", f"yolov6s_{m}.py") for m in ("hs", "opt")}
+    out = {}
+    greedy_nms.launches = 0
+    step, out["train_hs"] = train_phase(cfgs["hs"], "YOLOv6-S hyper-search (LinearAddBlock)",
+                                        dev, card, "[30]", REPOPT_TIMED_STEPS, profile=False)
+    scales = extract_scales(step.ema.state_dict())
+    spread = [float(abs(s - 1.0).max()) for sc in scales.values() for s in sc]
+    log(f"[30] {len(scales)} blocks' CSLA scales from the hs EMA (the scales' largest move "
+        f"from their init 1.0: {max(spread):.3e})")
+    out["csla"] = csla_check(step.model, dev, card)
+    del step
+    torch.cuda.empty_cache()
+    step, out["train_opt"] = train_phase(cfgs["opt"], "YOLOv6-S RepOpt (RealVGG, masked)", dev,
+                                         card, "[30]", REPOPT_TIMED_STEPS, profile=False,
+                                         repopt_scales=scales)
+    out["launches"] = greedy_nms.launches
+    assert out["launches"] == 0
+    assert step._mask is not None
+    out["opt_fold_serve"] = fold_and_serve_phase(cfgs["opt"], "YOLOv6-S RepOpt", step, images,
+                                                 dev, card, "[30]")
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def val_subset(root: str, n_val: int, train_path: str) -> str:
+    """A data description with ``train_path``'s train split and the first
+    ``n_val`` images of phase 11's val set (copied once, with their labels);
+    returns its path."""
+    import glob
+    import shutil
+
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    data_path = os.path.join(root, f"data80_train_val{n_val}.json")
+    if os.path.exists(data_path):
+        return data_path
+    data = load_data_config(train_path)
+    sub = f"val{n_val}"
+    for kind in ("images", "labels"):
+        os.makedirs(os.path.join(root, kind, sub))
+    for path in sorted(glob.glob(os.path.join(data["val"], "*.png")))[:n_val]:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        shutil.copy(path, os.path.join(root, "images", sub))
+        shutil.copy(os.path.join(root, "labels", "val", f"{stem}.txt"),
+                    os.path.join(root, "labels", sub))
+    data["val"] = os.path.join(root, "images", sub)
+    with open(data_path, "w") as f:
+        json.dump(data, f)
+    return data_path
+
+
+def cli_config(root: str, src: str, name: str, **replace) -> str:
+    """A copy of the config at ``src`` with ``eval_params`` at conf 0 (as
+    phase 12) and each ``key='...'`` line of ``replace`` set; returns its
+    path."""
+    import re
+
+    with open(src) as f:
+        text = f.read()
+    for key, value in replace.items():
+        text, n = re.subn(rf"{key}\s*=\s*(None|'[^']*')", f"{key}={value!r}", text, count=1)
+        assert n == 1, f"no {key}= line in {src}"
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        f.write(f"{text}\neval_params = {TRAIN_CLI_EVAL!r}\n")
+    return path
+
+
+def cli_train(data_path: str, conf: str, root: str, name: str, epochs: int, tag: str, card: str,
+              label: str):
+    """``tools/train.py::main`` b32@640 in bf16 for ``epochs`` epochs, its
+    in-training eval's first keep with a candidate held against the plain
+    emit-once keep; returns the trainer, the walk and the wall time."""
+    from yolov6_tpu_torch.tools import train as train_cli
+
+    t = REPOPT_CLI
+    argv = ["--data-path", data_path, "--conf-file", conf, "--img-size", str(IMG),
+            "--batch-size", str(t["batch"]), "--epochs", str(epochs), "--workers",
+            str(t["workers"]), "--eval-final-only", "--stop_aug_last_n_epoch",
+            str(t["stop_aug_last_n_epoch"]), "--output-dir", os.path.join(root, "train"),
+            "--name", name, "--bf16", "--log-interval", "1", "--seed", "0", "--device", "cuda"]
+    args = train_cli.get_args_parser().parse_args(argv)
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args)
+        wall = time.perf_counter() - t0
+    walk = rec.check(f"{tag} {label} in-training eval", t["n_val"])
+    stats = trainer.epoch_stats
+    assert [e["epoch"] for e in stats] == list(range(epochs))
+    assert all(math.isfinite(v) for e in stats for v in e["mean_loss"]), stats
+    ev = trainer.eval_stats[-1]
+    for e in stats:
+        log(f"{tag} train CLI {label} epoch {e['epoch']}: {e['steps']} steps of b{t['batch']}@"
+            f"{IMG} bf16 in {e['wall_s']:.3f} s = {e['imgs_per_s']:.1f} imgs/s with the loader; "
+            f"step {e['step_ms']:.3f} ms (CUDA events); mean loss [iou, dfl, cls] "
+            f"{[round(v, 5) for v in e['mean_loss']]} [{card}]")
+    log(f"{tag} {label}'s in-training eval: {ev['images']} images, {ev['imgs_per_s']:.1f} imgs/s, "
+        f"{walk['launches']} kernel launches, the first keep with a candidate (K "
+        f"{walk['first']['eval']['boxes'].shape[1]}, {walk['first']['eval']['kept']} kept) equal "
+        f"to the plain emit-once keep; AP50 {ev['ap50']:.5f}; the run {wall:.1f} s [{card}]")
+    return trainer, walk, wall
+
+
+def repopt_cli_phase(root: str, dev, card: str) -> dict:
+    """Phase 31, first half: the RepOpt recipe's two stages through the train
+    CLI, as the learning gate's ``--repopt`` runs them: configs/repopt/
+    yolov6s_hs.py for 2 epochs, then yolov6s_opt.py with ``scales=`` the hs
+    run's last_ckpt.pt for 2 epochs, b32@640 bf16 on 64 train images, each
+    with its in-training eval of 64 val images through the kernel."""
+    t = REPOPT_CLI
+    data_path = val_subset(root, t["n_val"], train_subset(root, t["n_train"]))
+    hs_conf = cli_config(root, os.path.join(ROOT, "configs", "repopt", "yolov6s_hs.py"),
+                         "repopt_hs_cli.py")
+    hs, hs_walk, hs_wall = cli_train(data_path, hs_conf, root, "repopt_hs", t["epochs"], "[31]",
+                                     card, "S hyper-search")
+    scales_ckpt = os.path.join(hs.save_dir, "weights", "last_ckpt.pt")
+    opt_conf = cli_config(root, os.path.join(ROOT, "configs", "repopt", "yolov6s_opt.py"),
+                          "repopt_opt_cli.py", scales=scales_ckpt)
+    opt, opt_walk, opt_wall = cli_train(data_path, opt_conf, root, "repopt_opt", t["epochs"],
+                                        "[31]", card, "S RepOpt")
+    assert opt.train_step._mask is not None and len(opt.repopt_scales) > 20
+    return dict(hs=dict(epochs=hs.epoch_stats, eval=hs.eval_stats, wall_s=hs_wall),
+                opt=dict(epochs=opt.epoch_stats, eval=opt.eval_stats, wall_s=opt_wall,
+                         blocks=len(opt.repopt_scales)),
+                launches=hs_walk["launches"] + opt_walk["launches"],
+                max_abs_err=max(hs_walk["max_abs_err"], opt_walk["max_abs_err"]))
+
+
+def upstream_s_model(dev, seed: int = 44):
+    """S's train graph (configs/yolov6s.py, 80 classes) with weights that
+    serve as the serve phase's do: the convs He-normal, each RepVGG block's
+    1x1 and identity branches zero (the block is then its 3x3 conv and BN,
+    like a deploy conv), BNs as built, the head's predictions spread."""
+    import torch
+
+    from yolov6_tpu_torch.models.yolo import build_model
+
+    model = build_model(config_at("yolov6s.py"), num_classes=NUM_CLASSES, deploy=False,
+                        device=dev)
+    init_train_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".rbr_1x1." in name or (".rbr_identity." in name and name.endswith("weight")):
+                p.zero_()
+            elif "_preds" in name and p.dim() == 4:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.3
+                        / math.sqrt(p[0].numel()))
+            elif "_preds" in name:
+                low, high = (-4.0, 1.0) if "cls_preds" in name else (1.0, 3.0)
+                p.uniform_(low, high, generator=gen)
+    return model
+
+
+def upstream_files_phase(root: str, dev, card: str) -> dict:
+    """Phase 31, second half: an upstream-format S ``.pt`` as a release file
+    is stripped (whole fp16 modules of a stub ``yolov6`` package,
+    ``utils/upstream_ckpt.py::write_upstream_checkpoint``), then, in a child
+    process where ``yolov6`` cannot be imported (``upstream_files_child``):
+    the eval CLI and the infer CLI read it, and the fine-tune of a copy of
+    configs/yolov6s_finetune.py loads it and trains 1 epoch."""
+    from yolov6_tpu_torch.utils.upstream_ckpt import write_upstream_checkpoint
+
+    t0 = time.perf_counter()
+    model = upstream_s_model(dev)
+    path = write_upstream_checkpoint(os.path.join(root, "upstream_yolov6s.pt"), model,
+                                     os.path.join(root, "stub_yolov6"))
+    del model
+    log(f"[31] wrote an upstream-format YOLOv6-S checkpoint through a stub yolov6 package: "
+        f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--upstream-files", root,
+                          path], capture_output=True, text=True, timeout=900, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines()[:-1]:
+        if line.startswith("[31]"):
+            log(line)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], file=sys.stderr)
+        print(res.stderr[-8000:], file=sys.stderr)
+        raise RuntimeError(f"[31] the upstream-file child failed (exit {res.returncode})")
+    out = json.loads(res.stdout.splitlines()[-1])
+    out["child_wall_s"] = wall
+    log(f"[31] the child process (eval CLI, infer CLI, fine-tune) took {wall:.1f} s")
+    return out
+
+
+def upstream_files_child(argv) -> int:
+    """The child of phase 31 (``chip_smoke.py --upstream-files <root>
+    <checkpoint>``); prints its results as its last line."""
+    import importlib.util
+
+    assert importlib.util.find_spec("yolov6") is None, "the yolov6 package is importable"
+    import torch
+
+    from yolov6_tpu_torch.core.engine import Trainer
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.tools import eval as eval_cli
+    from yolov6_tpu_torch.tools import infer as infer_cli
+    from yolov6_tpu_torch.tools import train as train_cli
+    from yolov6_tpu_torch.utils.checkpoint import read_state_dict
+    from yolov6_tpu_torch.utils.upstream_ckpt import checkpoint_format
+
+    root, path = argv
+    card = nvidia_smi_line()
+    t = REPOPT_CLI
+    assert checkpoint_format(path) == "upstream"
+    s_conf = os.path.join(ROOT, "configs", "yolov6s.py")
+    data_path = val_subset(root, t["n_val"], train_subset(root, t["n_train"]))
+    out = {}
+
+    greedy_nms.launches = 0
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        (ap50, ap), rows = eval_cli.run(data=data_path, weights=path, config=s_conf,
+                                        batch_size=t["batch"], img_size=IMG, task="val",
+                                        half=True, save_dir=os.path.join(root, "eval_upstream"),
+                                        device="cuda")
+        wall = time.perf_counter() - t0
+    walk = rec.check("[31] eval CLI on the upstream file", t["n_val"])
+    assert greedy_nms.launches == walk["launches"] == -(-t["n_val"] // t["batch"])
+    assert 0.0 <= ap50 <= 1.0 and 0.0 <= ap <= 1.0 and len(rows) > 0
+    out["eval"] = dict(launches=walk["launches"], ap50=ap50, ap=ap, rows=len(rows), wall_s=wall,
+                       max_abs_err=walk["max_abs_err"])
+    log(f"[31] eval CLI (tools/eval.py::run) on the upstream .pt with configs/yolov6s.py: "
+        f"{t['n_val']} images, {len(rows)} COCO rows, AP50 {ap50:.5f}, AP {ap:.5f}, "
+        f"{walk['launches']} kernel launches, the first keep equal to the plain keep, "
+        f"{wall:.1f} s [{card}]")
+
+    infer_args = infer_cli.get_args_parser().parse_args([
+        "--weights", path, "--config", s_conf, "--source", os.path.join(ROOT, "data", "images"),
+        "--save-txt", "--save-dir", os.path.join(root, "infer_upstream"), "--device", "cuda"])
+    greedy_nms.launches = 0
+    with KeepRecorder(record_all=True) as irec:
+        t0 = time.perf_counter()
+        infer_cli.run(infer_args)
+        wall = time.perf_counter() - t0
+    keeps, err = irec.check_all("[31] infer CLI on the upstream file")
+    assert greedy_nms.launches == len(keeps) == len(DEMO_JPEGS)
+    kept = [int(f["valid"].sum()) for f in keeps]
+    assert min(kept) > 0
+    out["infer"] = dict(launches=len(keeps), kept=kept, wall_s=wall, max_abs_err=err)
+    log(f"[31] infer CLI (tools/infer.py::run) on the upstream .pt over data/images: "
+        f"{len(keeps)} kernel launches (B=1), {kept} kept, each keep equal to the plain keep, "
+        f"{wall:.1f} s [{card}]")
+
+    conf = cli_config(root, os.path.join(ROOT, "configs", "yolov6s_finetune.py"),
+                      "yolov6s_finetune_upstream.py", pretrained=path)
+    args = train_cli.get_args_parser().parse_args([
+        "--data-path", data_path, "--conf-file", conf, "--img-size", str(IMG), "--batch-size",
+        str(t["batch"]), "--epochs", "1", "--workers", str(t["workers"]), "--output-dir",
+        os.path.join(root, "train"), "--name", "finetune_upstream", "--bf16", "--log-interval",
+        "1", "--seed", "0", "--device", "cuda"])
+    cfg = train_cli.check_and_init(args)
+    t0 = time.perf_counter()
+    trainer = Trainer(args, cfg)
+    want = read_state_dict(path)
+    got = trainer.model.state_dict()
+    n = len(got)
+    assert trainer.pretrained_matched == (n, n), trainer.pretrained_matched
+    assert all(torch.equal(got[k].cpu(), v) for k, v in want.items())
+    greedy_nms.launches = 0
+    with KeepRecorder() as rec:
+        trainer.train()
+    wall = time.perf_counter() - t0
+    walk = rec.check("[31] fine-tune's in-training eval", t["n_val"])
+    e = trainer.epoch_stats[0]
+    assert all(math.isfinite(v) for v in e["mean_loss"])
+    out["finetune"] = dict(matched=n, launches=walk["launches"], epoch=e, wall_s=wall,
+                           ap50=trainer.eval_stats[-1]["ap50"], max_abs_err=walk["max_abs_err"])
+    log(f"[31] fine-tune of a copy of configs/yolov6s_finetune.py from the upstream .pt: "
+        f"{n} of {n} tensors loaded, each equal to the file's; 1 epoch of {e['steps']} steps, "
+        f"mean loss {[round(v, 5) for v in e['mean_loss']]}, the in-training eval's first keep "
+        f"equal to the plain keep ({walk['launches']} launches); {wall:.1f} s [{card}]")
+    assert importlib.util.find_spec("yolov6") is None and "yolov6" not in sys.modules
+    out["launches"] = out["eval"]["launches"] + out["infer"]["launches"] + walk["launches"]
+    out["max_abs_err"] = max(out[k]["max_abs_err"] for k in ("eval", "infer", "finetune"))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2290,6 +2741,7 @@ def main() -> int:
     card = nvidia_smi_line()
 
     # ---- 1. card, versions, build
+    phase_mark("[1]")
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -2346,6 +2798,7 @@ def main() -> int:
             for name in ("s", "m", "l")}
 
     # ---- 3.-5. YOLOv6-S: the serving path at full width, fp32 checks, bf16 times, profile
+    phase_mark("[3]")
     model = deploy_model(cfgs["s"], 0, dev)
     main = serve_phase(cfgs["s"], "YOLOv6-S", model, images_np, images, dev, card, "[3]")
     log(f"[4] greedy_nms at the serving shape {keep_rows['serving']['ms']:.4f} ms, at the "
@@ -2353,6 +2806,7 @@ def main() -> int:
     time_serve(model, "YOLOv6-S", images, dev, card, "[4]", profile_tag="[5]")
 
     # ---- 6. the S training step at full width, bf16 (no kernel of this repo on its path)
+    phase_mark("[6]")
     greedy_nms.launches = 0
     step, _ = train_phase(cfgs["s"], "YOLOv6-S", dev, card, "[6]", TRAIN["timed_steps"])
     train_launches = greedy_nms.launches
@@ -2362,6 +2816,7 @@ def main() -> int:
     del step, model
 
     # ---- 8. YOLOv6-M served at full width: fp32 checks, the kernel on M's candidates, bf16
+    phase_mark("[8]")
     model = deploy_model(cfgs["m"], 1, dev)
     m_serve = serve_phase(cfgs["m"], "YOLOv6-M", model, images_np, images, dev, card, "[8]",
                           decode_tol=DECODE_TOL_M)
@@ -2377,6 +2832,7 @@ def main() -> int:
     del step
 
     # ---- 10. YOLOv6-L: bf16 serve through the kernel, then 3 + 5 train steps
+    phase_mark("[10]")
     model = deploy_model(cfgs["l"], 2, dev)
     serve_l_launches = time_serve(model, "YOLOv6-L", images, dev, card, "[10]")["launches"]
     del model
@@ -2388,6 +2844,7 @@ def main() -> int:
 
     # ---- 11.-13. COCO evaluation of S and M (and S on rect batches) on a PNG
     # set, the train CLI on a train split beside it, the learning gate
+    phase_mark("[11]")
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
@@ -2411,12 +2868,14 @@ def main() -> int:
         gate_launches = greedy_nms.launches
 
         # ---- 14.-16. the training recipes' steps; 17. the distill gate
+        phase_mark("[14]")
         recipes = recipe_phases(cfgs, images, dev, card)
         greedy_nms.launches = 0
         distill_gate = distill_gate_phase(root, card)
         distill_gate_launches = greedy_nms.launches
 
         # ---- 18.-20. the P6 family at 1280: serve, train and fold, evaluate
+        phase_mark("[18]")
         p6_cfgs = {name: Config.fromfile(os.path.join(ROOT, "configs", f"yolov6{name}.py"))
                    for name in P6_NAMES}
         p6_serve = p6_serve_phases(p6_cfgs, dev, card)
@@ -2428,18 +2887,21 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # ---- 21. the MBLA stage; 22. N6 through the train CLI at 1280
+        phase_mark("[21]")
         mbla = mbla_phases(dev, card, images)
         greedy_nms.launches = 0
         p6_cli = p6_train_cli_phase(root, dev, card)
         p6_cli_launches = greedy_nms.launches
 
         # ---- 23. inference: the demo JPEGs, the infer CLI on S, the gate's N
+        phase_mark("[23]")
         greedy_nms.launches = 0
         infer = infer_phase(root, dev, card)
         infer_launches = greedy_nms.launches
 
         # ---- 24.-27. the lite family at 320: serve, the Lite-S step and fold,
         # Lite-S through the Evaler, the train, infer and hub entries
+        phase_mark("[24]")
         lite_serve = lite_serve_phases(dev, card)
         lite_train = lite_train_phase(dev, card)
         model = deploy_model(lite_config("s"), 30, dev)
@@ -2449,7 +2911,21 @@ def main() -> int:
         lite_cli = lite_cli_phase(root, dev, card)
 
         # ---- 28. the QARepVGG configs: S-QA and M-QA steps, folds, folded serves
+        phase_mark("[28]")
         qa_train = qa_phases(images, dev, card)
+
+        # ---- 29. the PAN necks; 30. RepOpt S; 31. RepOpt's two stages through the
+        # train CLI, and an upstream .pt through the eval, infer and train CLIs
+        phase_mark("[29]")
+        pan = pan_phases(images, dev, card)
+        phase_mark("[30]")
+        repopt = repopt_phases(images, dev, card)
+        phase_mark("[31]")
+        greedy_nms.launches = 0
+        repopt_cli = repopt_cli_phase(root, dev, card)
+        repopt_cli_launches = greedy_nms.launches
+        upstream = upstream_files_phase(root, dev, card)
+        phase_mark("end")
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert distill_gate_launches == distill_gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
@@ -2457,6 +2933,10 @@ def main() -> int:
     assert p6_train["train_s6"]["launches"] == p6_train["train_l6"]["launches"] == 0
     assert mbla["train_s"]["launches"] == 0 and p6_cli_launches == p6_cli["launches"]
     assert infer_launches == infer["launches"] + infer["gate_launches"]
+    assert repopt_cli_launches == repopt_cli["launches"]
+    assert pan["train_t"]["launches"] == repopt["launches"] == 0
+    log("phase wall times (s): " + ", ".join(
+        f"{a} {tb - ta:.1f}" for (a, ta), (_, tb) in zip(PHASE_MARKS, PHASE_MARKS[1:])))
 
     kernels = [{
         "name": "greedy_nms",
@@ -2507,7 +2987,17 @@ def main() -> int:
                              **{f"train_{name}_qa": qa_train[f"train_{name}"]["launches"]
                                 for name in QA_TIMED_STEPS},
                              **{f"{name}_qa_fold_serve": qa_train[f"{name}_fold_serve"]["launches"]
-                                for name in QA_TIMED_STEPS}},
+                                for name in QA_TIMED_STEPS},
+                             **{f"serve_{name}": pan[f"serve_{name}"]["launches"]
+                                for name in PAN_NAMES},
+                             "train_yolov6t": pan["train_t"]["launches"],
+                             "yolov6t_fold_serve": pan["t_fold_serve"]["launches"],
+                             "train_s_hs_and_repopt": repopt["launches"],
+                             "s_repopt_fold_serve": repopt["opt_fold_serve"]["launches"],
+                             "repopt_cli_evals": repopt_cli["launches"],
+                             "upstream_eval_cli": upstream["eval"]["launches"],
+                             "upstream_infer_cli": upstream["infer"]["launches"],
+                             "upstream_finetune_eval": upstream["finetune"]["launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -2526,7 +3016,11 @@ def main() -> int:
                            lite_train["fold_serve"]["max_abs_err"],
                            eval_lite_s["kernel"]["max_abs_err"], lite_cli["max_abs_err"],
                            *(qa_train[f"{name}_fold_serve"]["max_abs_err"]
-                             for name in QA_TIMED_STEPS)),
+                             for name in QA_TIMED_STEPS),
+                           *(pan[f"serve_{name}"]["max_abs_err"] for name in PAN_NAMES),
+                           pan["t_fold_serve"]["max_abs_err"],
+                           repopt["opt_fold_serve"]["max_abs_err"], repopt_cli["max_abs_err"],
+                           upstream["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -2568,6 +3062,10 @@ def main() -> int:
         "eval_lite_s": eval_lite_s,
         "lite_cli": lite_cli,
         "qa_train": qa_train,
+        "pan": pan,
+        "repopt": repopt,
+        "repopt_cli": repopt_cli,
+        "upstream": upstream,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2579,4 +3077,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--upstream-files"]:
+        sys.exit(upstream_files_child(sys.argv[2:]))
     sys.exit(main())

@@ -302,13 +302,25 @@ def test_full_width_parameter_count_matches_jax(path, published):
     deploy.load_state_dict(fold_to_deploy(train.state_dict()), strict=True)
 
 
-@pytest.mark.parametrize("path,match", [
-    ("configs/repopt/yolov6s_opt.py", "'repopt' is RepOpt's"),
-    ("configs/repopt/yolov6s_hs.py", "'hyper_search' is RepOpt's"),
+@pytest.mark.parametrize("path,change,match", [
+    ("configs/repopt/yolov6s_opt.py", "training_mode=undefined", "undefined rep-block mode"),
+    ("configs/repopt/yolov6s_opt_qat.py", "--quant", "Quantisation"),
 ])
-def test_build_model_refuses_unported_configs(path, match):
-    """What is still unported raises and names itself; nothing stands in:
-    RepOpt's block modes (RealVGG, LinearAdd and ScaleLayer blocks)."""
+def test_build_model_refuses_unported_configs(path, change, match):
+    """What is still unported raises and names itself; nothing stands in: a
+    block mode that neither package defines, and the quantisation-aware
+    training of the ``_opt_qat`` configs (``--quant``; without it they
+    train as plain RepOpt, as in the JAX package)."""
+    from types import SimpleNamespace
+
+    from yolov6_tpu_torch.core.engine import check_supported
+
     cfg = Config.fromfile(f"{REPO_ROOT}/{path}")
+    if change == "--quant":
+        build_model(cfg, num_classes=80, deploy=False, device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            check_supported(SimpleNamespace(quant=True), cfg)
+        return
+    cfg.training_mode = change.split("=")[1]
     with pytest.raises(NotImplementedError, match=match):
         build_model(cfg, num_classes=80, deploy=False, device="cpu")

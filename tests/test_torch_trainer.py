@@ -137,11 +137,13 @@ def test_resume_continues_bit_for_bit(tiny_set, tmp_path):
     assert straight.evaluate_results == resumed.evaluate_results
 
 
-@pytest.mark.parametrize("flag,item", [("--calib", "item 8"),
-                                       ("--quant", "item 8"), ("--ckpt-backend=orbax", "item 13"),
-                                       ("--cache=ram", "item 1"), ("--write_trainbatch_tb",
-                                                                   "item 1")])
+@pytest.mark.parametrize("flag,item", [("--calib", "Quantisation"),
+                                       ("--quant", "Quantisation"),
+                                       ("--ckpt-backend=orbax", "Do not port"),
+                                       ("--cache=ram", "The rest of the trainer"),
+                                       ("--write_trainbatch_tb", "The rest of the trainer")])
 def test_unported_options_raise(tiny_set, tmp_path, flag, item):
+    """Each refusal names its ROADMAP queue item by its title."""
     args = _args(tiny_set, str(tmp_path), "--epochs", "1", flag)
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(args)
@@ -150,7 +152,7 @@ def test_unported_options_raise(tiny_set, tmp_path, flag, item):
 
 def test_more_than_one_process_raises(tiny_set, tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Parallelism"):
         train_cli.main(_args(tiny_set, str(tmp_path), "--epochs", "1"))
 
 
@@ -262,13 +264,60 @@ def test_distill_teacher_must_fit(tiny_set, tmp_path, fuse_ab_run):
 
 
 def test_repopt_config_and_the_gate_repopt_raise(tiny_set, tmp_path):
+    """What RepOpt still refuses: an opt config whose scales are its default
+    JAX msgpack file (the error names the formats the port reads),
+    ``--quant`` on an ``_opt_qat`` config, and the gate's ``--repopt``
+    beside another gate mode."""
     from yolov6_tpu_torch.tools import learning_gate
 
     args = _args(tiny_set, str(tmp_path), "--epochs", "1")
     args.conf_file = osp.join(REPO_ROOT, "configs", "repopt", "yolov6n_opt.py")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="msgpack.*last_ckpt.pt"):
+        train_cli.main(args)
+    args = _args(tiny_set, str(tmp_path), "--epochs", "1", "--quant")
+    args.conf_file = osp.join(REPO_ROOT, "configs", "repopt", "yolov6n_opt_qat.py")
+    with pytest.raises(NotImplementedError, match="Quantisation"):
         train_cli.main(args)
     gate_args = learning_gate.get_args_parser().parse_args(
-        ["--out", str(tmp_path / "gate"), "--repopt", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+        ["--out", str(tmp_path / "gate"), "--repopt", "--fuse-ab", "--device", "cpu"])
+    with pytest.raises(ValueError, match="pick one"):
         learning_gate.main(gate_args)
+
+
+def test_repopt_gate_runs_both_stages(tmp_path):
+    """``learning_gate --repopt`` at a tiny size (N at 64 px, 8 train and 4
+    val images, 1 hyper-search epoch, 2 RepOpt epochs; no bar): the hs stage
+    writes its last_ckpt.pt, the generated opt config points its scales at
+    it, the RepOpt stage trains the RealVGG graph with the masks and its
+    checkpoints evaluate with that config."""
+    import json
+
+    from yolov6_tpu_torch.layers.common import LinearAddBlock, RealVGGBlock
+    from yolov6_tpu_torch.tools import learning_gate
+
+    args = learning_gate.get_args_parser().parse_args([
+        "--out", str(tmp_path), "--repopt", "--img-size", "64", "--n-train", "8", "--n-val",
+        "4", "--epochs", "2", "--hs-epochs", "1", "--batch-size", "4", "--workers", "1",
+        "--eval-points", "2", "--skip-exact-nms", "--device", "cpu"])
+    learning_gate.main(args)
+    with open(osp.join(str(tmp_path), "gate_result.json")) as f:
+        result = json.load(f)
+    assert result["mode"] == "repopt" and len(result["trajectory"]) == 2
+    hs = result["hyper_search"]
+    assert [e["epoch"] for e in hs["epoch_stats"]] == [0] and hs["final_map50"] is not None
+    scales_ckpt = osp.join(str(tmp_path), "train_hs", "hs", "weights", "last_ckpt.pt")
+    with open(hs["conf"]) as f:
+        assert f"scales={scales_ckpt!r}" in f.read()
+    cfg = Config.fromfile(hs["conf"])
+    assert cfg.training_mode == "repopt" and cfg.model.scales == scales_ckpt
+    hs_state = load_checkpoint(scales_ckpt)["model"]
+    assert any(k.endswith("scale_conv.weight") for k in hs_state)
+    assert all(len(e["mean_loss"]) == 3 for e in result["epoch_stats"])
+    targs = _args(osp.join(str(tmp_path), "dataset", "data.json"), str(tmp_path / "b"),
+                  "--epochs", "1")
+    targs.conf_file = hs["conf"]
+    trainer = Trainer(targs, train_cli.check_and_init(targs))
+    blocks = [m for m in trainer.model.modules() if isinstance(m, RealVGGBlock)]
+    assert blocks and not any(isinstance(m, LinearAddBlock) for m in trainer.model.modules())
+    assert trainer.train_step._mask is not None
+    assert len(trainer.repopt_scales) == len(blocks)

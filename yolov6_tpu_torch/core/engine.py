@@ -15,10 +15,21 @@ anchor-free loss) and ``distill`` (self-distillation against the teacher at
 head and ``ComputeLossDistillNS`` for N and S, ``ComputeLossDistill`` for
 M and L).
 
-Not ported, and refused with ``NotImplementedError``: quantisation and
-RepOpt configs (ROADMAP queue 1 item 8), the orbax checkpoint backend (item
-13), more than one process (item 9), the RAM and disk image caches and
-TensorBoard with its train-batch plot.
+Fine-tuning: with ``cfg.model.pretrained`` set, the seeded train graph
+takes every tensor of that file (the port's own checkpoint or an upstream
+YOLOv6 ``.pt``, utils/checkpoint.py::read_state_dict) whose name and shape
+match, as the JAX trainer does; a missing file raises, where the JAX
+trainer tries a download, and so does a key the train graph lacks (other
+than the recipes' train-only branches), which the JAX trainer skips.
+RepOpt (``training_mode = "repopt"``): the hyper-search checkpoint at
+``cfg.model.scales`` gives the CSLA scales, which re-initialise the RealVGG
+convs (unless ``pretrained`` is set) and make the step's gradient masks
+(solver/repoptimizer.py).
+
+Not ported, and refused with ``NotImplementedError``: quantisation (ROADMAP
+queue 1, "Quantisation"), the orbax checkpoint backend (queue 1, "Do not
+port"), more than one process ("Parallelism"), the RAM and disk image caches
+and TensorBoard with its train-batch plot ("The rest of the trainer").
 """
 
 from __future__ import annotations
@@ -39,7 +50,12 @@ from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
 from yolov6_tpu_torch.losses.loss_fuseab import ComputeLossAB
 from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
-from yolov6_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
+from yolov6_tpu_torch.solver.repoptimizer import (
+    extract_scales, generate_gradient_masks, reinitialize,
+)
+from yolov6_tpu_torch.utils.checkpoint import (
+    load_checkpoint, load_state_dict_partial, read_state_dict, save_checkpoint, strip_optimizer,
+)
 from yolov6_tpu_torch.utils.device import resolve_device
 from yolov6_tpu_torch.utils.events import LOGGER, load_yaml
 
@@ -53,7 +69,7 @@ def check_supported(args, cfg) -> None:
     for flag in ("quant", "calib"):
         if getattr(args, flag, False):
             raise NotImplementedError(
-                f"--{flag} is not ported (quantisation: ROADMAP queue 1 item 8)")
+                f"--{flag} is not ported (ROADMAP queue 1, \"Quantisation\")")
     recipes = [f"--{flag}" for flag in ("distill", "fuse_ab") if getattr(args, flag, False)]
     if recipes and cfg.model.backbone.type == "Lite_EffiBackbone":
         raise ValueError(f"{' and '.join(recipes)} on {cfg.model.type}: the lite family has no "
@@ -64,21 +80,42 @@ def check_supported(args, cfg) -> None:
                              "against a fuse-AB teacher, --fuse_ab trains one")
         if not getattr(args, "teacher_model_path", None):
             raise ValueError("--distill needs --teacher_model_path (the teacher's .pt)")
-    if cfg.get("training_mode", "repvgg") == "repopt":
-        raise NotImplementedError("RepOpt configs are not ported (ROADMAP queue 1 item 8)")
     if getattr(args, "ckpt_backend", "torch") != "torch":
         raise NotImplementedError(
             f"--ckpt-backend {args.ckpt_backend}: the port saves with torch.save only (orbax "
-            "is on ROADMAP queue 1 item 13, do not port)")
+            "is on ROADMAP queue 1, \"Do not port\")")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training on more than one process is not ported "
-                                  "(ROADMAP queue 1 item 9)")
+                                  "(ROADMAP queue 1, \"Parallelism\")")
     if getattr(args, "cache", None) or getattr(args, "cache_ram", False):
         raise NotImplementedError("the RAM and disk image caches are not ported (ROADMAP "
-                                  "queue 1 item 1)")
+                                  "queue 1, \"The rest of the trainer\")")
     if getattr(args, "write_trainbatch_tb", False):
         raise NotImplementedError("TensorBoard and the train-batch plot are not ported "
-                                  "(ROADMAP queue 1 item 1)")
+                                  "(ROADMAP queue 1, \"The rest of the trainer\")")
+
+
+def read_repopt_scales(cfg):
+    """The state dict of the hyper-search checkpoint at ``cfg.model.scales``:
+    the port's own (the EMA first) or an upstream one built in
+    ``hyper_search`` mode (a RepOpt block the file has no scales for raises
+    ``KeyError`` in the re-init and the masks). The configs' default
+    ``assets/*_scale.msgpack`` is a JAX native file, which raises
+    ``ValueError``, as does a file with no LinearAddBlock scales."""
+    path = cfg.model.get("scales")
+    if not path:
+        raise ValueError("No scales provided to init RepOptimizer! (cfg.model.scales: the "
+                         "hyper-search run's checkpoint)")
+    if path.endswith(".msgpack"):
+        raise ValueError(f"{path}: a JAX native msgpack file, which the port does not read; "
+                         "cfg.model.scales takes the port's own checkpoint of a hyper-search "
+                         "run (its weights/last_ckpt.pt) or an upstream YOLOv6 .pt built in "
+                         "hyper_search mode")
+    state = read_state_dict(path)
+    if not any(k.endswith("scale_conv.weight") for k in state):
+        raise ValueError(f"{path}: no LinearAddBlock scales; cfg.model.scales takes a "
+                         "hyper-search run's checkpoint")
+    return state
 
 
 class Trainer:
@@ -113,6 +150,13 @@ class Trainer:
         torch.manual_seed(args.seed)
         self.model = build_model(cfg, self.num_classes, deploy=False, device=self.device,
                                  fuse_ab=self.fuse_ab, distill_ns=self.distill_ns)
+        pretrained = cfg.model.get("pretrained")
+        self.pretrained_matched = None
+        if pretrained:
+            # JAX: engine.py:80-103 (which tries a download for a missing file)
+            LOGGER.info(f"Loading state_dict from {pretrained} for fine-tuning...")
+            self.pretrained_matched = load_state_dict_partial(read_state_dict(pretrained),
+                                                              self.model)
         self.teacher = self.load_teacher(args.teacher_model_path) if self.distill else None
 
         self.train_loader, self.val_loader = self.get_data_loader(args, cfg, self.data_dict)
@@ -125,13 +169,22 @@ class Trainer:
         self.warmup_stepnum = max(round(self.solver_cfg["warmup_epochs"] * self.max_stepnum),
                                   1000)
 
+        grad_masks = None
+        if cfg.get("training_mode") == "repopt":
+            # JAX: engine.py:168-198: the scales, the re-init unless fine-tuning, the masks
+            self.repopt_scales = extract_scales(read_repopt_scales(cfg))
+            if not pretrained:
+                reinitialize(self.model, self.repopt_scales)
+            grad_masks = generate_gradient_masks(self.model, self.repopt_scales)
+
         self.atss_warmup_epoch = cfg.model.head.get("atss_warmup_epoch", 4)
         self.compute_loss, self.compute_loss_ab, self.distill_loss = self._build_losses(cfg)
         self.train_step = make_train_step(
             self.model, self.compute_loss, self.solver_cfg, self.max_stepnum, self.max_epoch,
             self.batch_size, self.warmup_stepnum, (self.img_size, self.img_size),
             half=bool(args.bf16), device=self.device, compute_loss_ab=self.compute_loss_ab,
-            teacher=None if self.teacher is None else (self.teacher, self.distill_loss))
+            teacher=None if self.teacher is None else (self.teacher, self.distill_loss),
+            grad_masks=grad_masks)
 
         self.start_epoch = 0
         self.best_ap = 0.0
@@ -178,18 +231,12 @@ class Trainer:
         """The distillation teacher: the config's train graph, with the fuse-AB
         head for a 3-level head and the plain head for a P6 one, which has no
         anchors to aid it (JAX: engine.py:110), on the device in eval mode,
-        its weights from the port's checkpoint at ``path`` (the EMA, else the
-        model). Only the anchor-based branch may be missing from it, as the
-        JAX partial load allows (a teacher trained without ``--fuse_ab``);
-        any other missing or unexpected key, or a tensor of another shape,
-        raises."""
-        if not osp.exists(path):
-            raise FileNotFoundError(f"teacher checkpoint {path} not found (the port downloads "
-                                    "nothing)")
-        ckpt = load_checkpoint(path)
-        state = ckpt.get("ema") or ckpt.get("model")
-        if not isinstance(state, dict):
-            raise ValueError(f"{path}: no 'ema' or 'model' state dict")
+        its weights from the checkpoint at ``path``: the port's own (the EMA,
+        else the model) or an upstream ``.pt`` (``read_state_dict``). Only
+        the anchor-based branch may be missing from it, as the JAX partial
+        load allows (a teacher trained without ``--fuse_ab``); any other
+        missing or unexpected key, or a tensor of another shape, raises."""
+        state = read_state_dict(path)
         fuse_ab = self.cfg.model.head.num_layers == 3
         teacher = build_model(self.cfg, self.num_classes, deploy=False, device=self.device,
                               fuse_ab=fuse_ab)

@@ -61,8 +61,8 @@ def make_infer_fn(model, half: bool, device, max_nms: int = INFER_MAX_NMS):
 class Inferer:
     def __init__(self, source: str, webcam: bool, webcam_addr: str, weights: str, config: str,
                  yaml_path: str, img_size, half: bool, device="cuda"):
-        """``weights`` is a ``torch.save``d state dict of the port
-        (``utils/checkpoint.py::load_state_dict_file``); ``yaml_path`` a
+        """``weights`` is a ``torch.save``d state dict of the port or an
+        upstream YOLOv6 ``.pt`` (``utils/checkpoint.py::load_state_dict_file``); ``yaml_path`` a
         dataset description with ``nc`` and ``names``."""
         self.device = resolve_device(device)
         self.img_size = [img_size, img_size] if isinstance(img_size, int) else list(img_size)

@@ -71,11 +71,18 @@ class TrainStep:
     runs in eval mode without autograd, under the student's autocast, and
     ``distill_loss`` (``ComputeLossDistill[NS]``, then ``compute_loss``)
     takes both models' head and neck maps and the epoch. The teacher is not
-    part of the step's state."""
+    part of the step's state.
+
+    RepOpt: ``grad_masks`` (parameter name -> mask of its shape,
+    solver/repoptimizer.py::generate_gradient_masks) multiply the step's
+    gradients before the finite guards, the accumulation and SGD, as the
+    JAX step applies its masks to ``value_and_grad``'s gradients; they live
+    in one flat buffer beside the gradients', ones where no mask is given."""
 
     def __init__(self, model: nn.Module, compute_loss, solver_cfg: Dict, max_stepnum: int,
                  epochs: int, batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
-                 half: bool = True, device="cuda", compute_loss_ab=None, teacher=None):
+                 half: bool = True, device="cuda", compute_loss_ab=None, teacher=None,
+                 grad_masks=None):
         device = resolve_device(device)
         if teacher is not None and compute_loss_ab is not None:
             raise ValueError("a distillation step takes no anchor-based loss (fuse-AB)")
@@ -127,6 +134,15 @@ class TrainStep:
         self._params, self._grads = params, grads
         self._bufs = [b for _, b in float_bufs + int_bufs]
         self._ptrs = [t.data_ptr() for t in params + self._bufs]
+        self._mask = None
+        if grad_masks:
+            unknown = sorted(set(grad_masks) - set(self.param_names))
+            if unknown:
+                raise ValueError(f"gradient masks for parameters the model lacks: {unknown}")
+            self._mask = torch.ones_like(self._param)
+            for name, view in zip(self.param_names, _views(self._mask, params)):
+                if name in grad_masks:
+                    view.copy_(torch.as_tensor(grad_masks[name]).reshape(view.shape))
         self.momentum = dict(zip(self.param_names, _views(self._momentum, params)))
         self.grad_accum = dict(zip(self.param_names, _views(self._accum, params)))
 
@@ -212,6 +228,8 @@ class TrainStep:
             self.step, epoch, self.warmup_stepnum, sc["lr0"], sc["lrf"], self.epochs,
             sc["warmup_bias_lr"], sc["warmup_momentum"], sc["momentum"],
             sc.get("lr_scheduler", "Cosine"))
+        if self._mask is not None:
+            self._grad.mul_(self._mask)
 
         # a non-finite gradient changes no parameter, momentum or EMA (the
         # reference's GradScaler skips such steps); and BN statistics that
@@ -283,7 +301,7 @@ class TrainStep:
 def make_train_step(model, compute_loss, solver_cfg: Dict, max_stepnum: int, epochs: int,
                     batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
                     half: bool = True, device="cuda", compute_loss_ab=None,
-                    teacher=None) -> TrainStep:
+                    teacher=None, grad_masks=None) -> TrainStep:
     """The step of ``model`` (``build_model(..., deploy=False, device=device)``)
     under ``compute_loss`` (``losses/loss.py::ComputeLoss``), with the JAX
     ``make_train_step``'s arguments (its ``group_ids`` come from the model
@@ -292,7 +310,8 @@ def make_train_step(model, compute_loss, solver_cfg: Dict, max_stepnum: int, epo
     sets the accumulation (nominal 64). ``compute_loss_ab``
     (``losses/loss_fuseab.py::ComputeLossAB``, for a ``fuse_ab`` model) and
     ``teacher = (teacher_model, distill_loss)`` (``compute_loss`` is then
-    unused, as in JAX) select the training recipes (see ``TrainStep``)."""
+    unused, as in JAX) select the training recipes (see ``TrainStep``);
+    ``grad_masks`` RepOpt's gradient masks."""
     return TrainStep(model, compute_loss, solver_cfg, max_stepnum, epochs, batch_size,
                      warmup_stepnum, img_size, half=half, device=device,
-                     compute_loss_ab=compute_loss_ab, teacher=teacher)
+                     compute_loss_ab=compute_loss_ab, teacher=teacher, grad_masks=grad_masks)

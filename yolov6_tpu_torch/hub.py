@@ -8,7 +8,8 @@ which stays the JAX package's):
 
 A loader returns the deploy model of ``configs/<name>.py`` on ``device``
 (``cuda`` by default; it raises without one), its weights from a
-``torch.save``d state dict or, with ``weights=None``, drawn by torch's
+``torch.save``d state dict or an upstream YOLOv6 ``.pt``
+(``utils/checkpoint.py::load_state_dict_file``) or, with ``weights=None``, drawn by torch's
 initialisers from seed 0. ``half=True`` makes ``predict`` run the forward
 under bf16 autocast. ``img_size`` is accepted as the JAX loaders take it;
 the port's graphs take any input size, so it changes nothing here. The lite

@@ -8,9 +8,9 @@ BN as a bias; ``False`` builds the train form, conv without bias + BatchNorm,
 RepVGGBlock's three branches and QARepVGG's two branches, skip and post-sum
 BN. layers/reparam.py folds the second into the first. Ported: the blocks of
 the EfficientRep/CSPBep graphs, P5 and P6 (N/S/M/L, N6/S6/M6/L6), the MBLA
-stage, the QARepVGG blocks (V1 and V2) and the lite family's blocks
-(shuffle blocks, SE, depthwise-separable and lite CSP blocks). RepOpt's
-blocks (RealVGG, LinearAdd, ScaleLayer) are not.
+stage, the QARepVGG blocks (V1 and V2), the lite family's blocks
+(shuffle blocks, SE, depthwise-separable and lite CSP blocks) and RepOpt's
+blocks (RealVGGBlock, ScaleLayer, LinearAddBlock).
 """
 
 from __future__ import annotations
@@ -552,16 +552,65 @@ class CSPBlock(nn.Module):
         return self.conv_3(torch.cat([self.blocks(self.conv_1(x)), self.conv_2(x)], 1))
 
 
+class RealVGGBlock(ConvModule):
+    """RepOpt's plain block (JAX: common.py:611-638): a 3x3 conv + BN + ReLU,
+    a ConvModule whose class marks the convs that RepOpt re-initialises and
+    masks (solver/repoptimizer.py). Deploy form: the conv with a bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, deploy: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride, "relu", deploy=deploy)
+
+
+class ScaleLayer(nn.Module):
+    """A per-channel scale ``weight``, 1 at init (JAX: common.py:641-659, as
+    LinearAddBlock builds it: no shift, ``scale_init`` 1)."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+
+    def forward(self, x):
+        return x * self.weight.to(x.dtype).view(1, -1, 1, 1)
+
+
+class LinearAddBlock(nn.Module):
+    """RepOpt's hyper-search (CSLA) block, then ReLU (JAX: common.py:662-695):
+    a bare 3x3 conv ``conv`` scaled by ``scale_conv``, a bare 1x1 conv
+    ``conv_1x1`` scaled by ``scale_1x1`` and, when in == out and the stride
+    is 1, the input scaled by ``scale_identity``, summed, then one BN
+    ``bn``. The scales are learned; their values after the search set the
+    RepOpt stage's re-init and gradient masks. The block is train-time
+    only: ``deploy`` builds the same graph, as in the JAX package, and the
+    fold passes it through (layers/reparam.py)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, deploy: bool = True):
+        super().__init__()
+        if kernel_size != 3:
+            raise ValueError("LinearAddBlock is 3x3")
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
+        self.scale_conv = ScaleLayer(out_channels)
+        self.conv_1x1 = nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False)
+        self.scale_1x1 = ScaleLayer(out_channels)
+        self.scale_identity = (ScaleLayer(out_channels)
+                               if in_channels == out_channels and stride == 1 else None)
+        self.bn = batch_norm(out_channels)
+
+    def forward(self, x):
+        y = self.scale_conv(self.conv(x)) + self.scale_1x1(self.conv_1x1(x))
+        if self.scale_identity is not None:
+            y = y + self.scale_identity(x)
+        return F.relu(self.bn(y))
+
+
 def get_block(mode: str):
     """training_mode string -> block class (JAX: common.py:1014-1027). The
     ``ConvBN*`` blocks take ``block(in, out)`` as RepVGGBlock does: kernel 3,
-    stride 1. RepOpt's modes raise."""
+    stride 1."""
     table = {"repvgg": RepVGGBlock, "qarepvgg": QARepVGGBlock, "qarepvggv2": QARepVGGBlockV2,
+             "hyper_search": LinearAddBlock, "repopt": RealVGGBlock,
              "conv_relu": ConvBNReLU, "conv_silu": ConvBNSiLU}
-    if mode in ("repopt", "hyper_search"):
-        raise NotImplementedError(
-            f"rep-block mode {mode!r} is RepOpt's (RealVGGBlock, LinearAddBlock, ScaleLayer), "
-            "which is not ported")
     if mode not in table:
         raise NotImplementedError(f"undefined rep-block mode {mode!r} (the port has "
                                   f"{sorted(table)})")

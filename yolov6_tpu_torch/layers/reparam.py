@@ -3,7 +3,7 @@
 The port's own copy of yolov6_tpu/layers/reparam.py:20-116 (``fuse_conv_bn``,
 which also serves as the JAX ``fuse_extra_bn``, ``pad_1x1_to_3x3``,
 ``identity_kernel_3x3``, ``avg_kernel_3x3``, ``repvgg_fold``,
-``qarepvgg_fold``), in the torch layout OIHW (output channels first) where
+``qarepvgg_fold``, ``linearadd_fold``), in the torch layout OIHW (output channels first) where
 the JAX copy is HWIO. Like it, the folds run in float32 numpy, so the two
 agree to rounding.
 
@@ -91,6 +91,22 @@ def qarepvgg_fold(dense_kernel, dense_bn, onexone_kernel, post_bn, has_identity:
     return fuse_conv_bn(kernel, bias, **post_bn)
 
 
+def linearadd_fold(conv_kernel, scale_conv, onexone_kernel, scale_1x1, scale_identity,
+                   channels: int):
+    """LinearAddBlock (CSLA) fold, which RepOpt's re-init uses
+    (solver/repoptimizer.py): ``3x3 * s_conv + pad(1x1 * s_1x1) + id *
+    s_id``, each scale per output channel; ``scale_identity`` is ``None``
+    for a block without the identity branch."""
+    out_scale = (-1, 1, 1, 1)
+    k = np.asarray(conv_kernel, np.float32) * np.asarray(scale_conv, np.float32).reshape(out_scale)
+    k = k + pad_1x1_to_3x3(np.asarray(onexone_kernel, np.float32)
+                           * np.asarray(scale_1x1, np.float32).reshape(out_scale))
+    if scale_identity is not None:
+        k = k + identity_kernel_3x3(channels) * np.asarray(scale_identity,
+                                                          np.float32).reshape(out_scale)
+    return k
+
+
 # DPBlock's convs and the BNs after them (layers/common.py::DPBlock)
 DP_BN_SIBLING = {"conv_dw_1": "bn_1", "conv_pw_1": "bn_2"}
 # the heads' branches that only the training recipes' losses read
@@ -116,13 +132,36 @@ def fold_to_deploy(train_state_dict: Mapping[str, torch.Tensor],
       (convs with a bias of their own) -> the convs with the BN folded in;
     - the train-only branches of the fuse-AB and distill-NS heads
       (``TRAIN_ONLY_BRANCHES``) are dropped: the deploy graph is ``Detect``'s;
+    - RepOpt's hyper-search blocks (``LinearAddBlock``: ``X.conv``,
+      ``X.scale_conv``, ``X.conv_1x1``, ``X.scale_1x1``,
+      ``X.scale_identity``, ``X.bn``) pass through whole, BN counter
+      included: the block has no deploy form, and its 3x3 conv sits before
+      the scale and the sum, not before the BN. Each is found by its
+      ``scale_conv.weight``; with ``graph`` the module there must be a
+      ``LinearAddBlock``;
     - every other tensor (Transpose, SEBlock's convs, the prediction convs)
       passes through.
 
     BN ``num_batches_tracked`` counters are dropped with their BNs."""
+    linear_add = {k[: -len(".scale_conv.weight")] if k != "scale_conv.weight" else ""
+                  for k in train_state_dict if k.endswith("scale_conv.weight")}
+    if graph is not None:
+        from yolov6_tpu_torch.layers.common import LinearAddBlock
+
+        for prefix in linear_add:
+            if not isinstance(graph.get_submodule(prefix), LinearAddBlock):
+                raise ValueError(f"{prefix or 'the graph'}: a scale_conv in the state dict, "
+                                 "but the graph's module there is no LinearAddBlock")
+
+    def in_linear_add(key):
+        return any(key.startswith(f"{p}.") if p else True for p in linear_add)
+
+    passed = {k: v.detach().to("cpu").clone() for k, v in train_state_dict.items()
+              if in_linear_add(k)}
     sd = {k: v.detach().to("cpu", torch.float32).numpy().copy()
           for k, v in train_state_dict.items()
-          if not k.endswith(".num_batches_tracked") and not k.startswith(TRAIN_ONLY_BRANCHES)}
+          if not k.endswith(".num_batches_tracked") and not k.startswith(TRAIN_ONLY_BRANCHES)
+          and k not in passed}
     used = set()
 
     def take(key):
@@ -173,4 +212,7 @@ def fold_to_deploy(train_state_dict: Mapping[str, torch.Tensor],
             if at(prefix, f"{conv}.weight") not in used and at(prefix, f"{norm}.weight") in sd:
                 conv_bn(prefix, conv, norm)
     out.update((k, v) for k, v in sd.items() if k not in used)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    out.update((k, v if k.endswith(".num_batches_tracked") else v.float())
+               for k, v in passed.items())
+    return out

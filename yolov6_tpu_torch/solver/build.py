@@ -1,8 +1,8 @@
 """Optimizer and LR schedule (port of yolov6_tpu/solver/build.py:22-173).
 
 Three parameter groups as the JAX package's: BN weights without decay, conv
-and transpose weights with ``weight_decay``, every bias and every BottleRep
-``alpha`` with the warmup bias LR. The schedule is a function of device tensors (the step
+and transpose weights and RepOpt's ScaleLayer scales with ``weight_decay``,
+every bias and every BottleRep ``alpha`` with the warmup bias LR. The schedule is a function of device tensors (the step
 counter), and the update a function over lists of tensors, so that a train
 step needs no value on the host.
 """
@@ -15,8 +15,10 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
+from yolov6_tpu_torch.layers.common import ScaleLayer
+
 GROUP_BN = 0      # BatchNorm weights (gammas): no weight decay
-GROUP_WEIGHT = 1  # conv and transposed-conv weights: decayed
+GROUP_WEIGHT = 1  # conv and transposed-conv weights, ScaleLayer scales: decayed
 GROUP_BIAS = 2    # biases, BottleRep alphas: no decay, warmup_bias_lr
 
 
@@ -24,7 +26,9 @@ def param_groups(model: nn.Module) -> Dict[str, int]:
     """Parameter name -> group id, by the type of the owning module, as
     upstream's ``build_optimizer`` sorts them (JAX: build.py:22-42 sorts the
     same leaves by name). ``rbr_identity.weight`` is a BN gamma. A
-    BottleRep's ``alpha`` joins the biases, as in the JAX step."""
+    BottleRep's ``alpha`` joins the biases, and a ScaleLayer's ``weight``
+    the decayed weights, as in the JAX step (its ``param_group_id`` puts
+    every ``weight`` leaf there)."""
     groups = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
@@ -33,7 +37,7 @@ def param_groups(model: nn.Module) -> Dict[str, int]:
                 groups[name] = GROUP_BIAS
             elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 groups[name] = GROUP_BN
-            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, ScaleLayer)):
                 groups[name] = GROUP_WEIGHT
             else:
                 raise TypeError(f"no parameter group for {name} ({type(mod).__name__})")

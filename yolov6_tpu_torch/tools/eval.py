@@ -32,7 +32,8 @@ def get_args_parser(add_help=True):
     parser.add_argument("--data", type=str, default="./data/coco.yaml",
                         help="dataset description, .json or flat .yaml")
     parser.add_argument("--weights", type=str, default="./weights/yolov6s.pt",
-                        help="a torch.save'd state dict (bare, or under 'ema'/'model')")
+                        help="a torch.save'd state dict (bare, or under 'ema'/'model') or an "
+                             "upstream YOLOv6 .pt")
     parser.add_argument("--config", type=str, default="./configs/yolov6s.py",
                         help="model config (needed to rebuild the graph)")
     parser.add_argument("--batch-size", type=int, default=32)

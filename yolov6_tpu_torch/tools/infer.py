@@ -28,7 +28,8 @@ def get_args_parser(add_help=True):
     parser = argparse.ArgumentParser(description="YOLOv6 inference (PyTorch port)",
                                      add_help=add_help)
     parser.add_argument("--weights", type=str, default="weights/yolov6s.pt",
-                        help="a torch.save'd state dict (bare, or under 'ema'/'model')")
+                        help="a torch.save'd state dict (bare, or under 'ema'/'model') or an "
+                             "upstream YOLOv6 .pt")
     parser.add_argument("--config", type=str, default="configs/yolov6s.py")
     parser.add_argument("--source", type=str, default="data/images")
     parser.add_argument("--webcam", action="store_true")

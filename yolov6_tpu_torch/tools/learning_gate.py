@@ -19,8 +19,12 @@ config is written with DFL switched on (``use_dfl=True``, ``reg_max=16``)
 for both; stage 1 trains a fuse-AB teacher for ``--teacher-epochs`` (0: as
 many as ``--epochs``), stage 2 the distill-NS student against the teacher's
 ``best_ckpt.pt``; the student's checkpoints are evaluated with the original
-config, the fold dropping the train-only DFL branch. ``--repopt`` raises:
-RepOpt is ROADMAP queue 1 item 8.
+config, the fold dropping the train-only DFL branch. ``--repopt`` runs the
+RepOpt recipe in two stages, as the JAX tool: a hyper-search stage of
+``--hs-conf-file`` (LinearAddBlocks) for ``--hs-epochs`` (0: max(6, epochs //
+4)) writes its ``last_ckpt.pt``; an opt config, ``--opt-conf-file`` with its
+``scales=`` pointing at that file, then trains the RealVGG graph with the
+masked gradients, and its checkpoints are evaluated with that config.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import argparse
 import json
 import os
 import os.path as osp
+import re
 import sys
 import time
 
@@ -67,7 +72,15 @@ def get_args_parser(add_help=True):
                         "against it")
     p.add_argument("--teacher-epochs", type=int, default=0,
                    help="the distill teacher stage's epochs (0: as many as --epochs)")
-    p.add_argument("--repopt", action="store_true", help="not ported (ROADMAP item 8)")
+    p.add_argument("--repopt", action="store_true",
+                   help="stage 1 runs the CSLA hyper-search, stage 2 trains the RepOpt graph "
+                        "from its scales with the masked gradients")
+    p.add_argument("--hs-conf-file", type=str,
+                   default=osp.join(REPO_ROOT, "configs", "repopt", "yolov6n_hs.py"))
+    p.add_argument("--opt-conf-file", type=str,
+                   default=osp.join(REPO_ROOT, "configs", "repopt", "yolov6n_opt.py"))
+    p.add_argument("--hs-epochs", type=int, default=0,
+                   help="the hyper-search stage's epochs (0: max(6, epochs // 4))")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu; cuda raises when there is no GPU")
     return p
@@ -92,8 +105,10 @@ def _eval_ckpt(data, ckpt, conf_file, img_size, batch_size, save_dir, device, **
     return float(map50), float(map50_95)
 
 
-def _train_argv(args, data, conf_file, epochs, out_dir, name):
-    """The train CLI's arguments of a gate stage."""
+def _train_argv(args, data, conf_file, epochs, out_dir, name, stop_aug: bool = True):
+    """The train CLI's arguments of a gate stage; without ``stop_aug`` the
+    strong augmentations stop at the train CLI's default epoch, as in the
+    JAX tool's hyper-search stage."""
     return [
         "--data-path", data,
         "--conf-file", conf_file,
@@ -104,7 +119,7 @@ def _train_argv(args, data, conf_file, epochs, out_dir, name):
         "--workers", str(args.workers),
         "--eval-final-only",
         "--heavy-eval-range", "0",
-        "--stop_aug_last_n_epoch", str(max(2, epochs // 6)),
+    ] + (["--stop_aug_last_n_epoch", str(max(2, epochs // 6))] if stop_aug else []) + [
         "--output-dir", osp.join(args.out, out_dir),
         "--name", name,
         "--max-labels", str(args.max_labels),
@@ -147,12 +162,34 @@ def _distill_prestage(args, data, train_cli, conf_file, LOGGER):
     return trainer, ckpt
 
 
+def _repopt_prestage(args, data, train_cli, LOGGER):
+    """RepOpt stage 1 (JAX: tools/learning_gate.py:103-145): the CSLA
+    hyper-search run, then an opt config whose ``scales=`` points at its
+    ``last_ckpt.pt``; returns that config's path and the stage's trainer."""
+    hs_epochs = args.hs_epochs or max(6, args.epochs // 4)
+    hs_args = train_cli.get_args_parser().parse_args(
+        _train_argv(args, data, args.hs_conf_file, hs_epochs, "train_hs", "hs", stop_aug=False))
+    LOGGER.info(f"RepOpt stage 1/2: hyper-search for {hs_epochs} epochs")
+    trainer = train_cli.main(hs_args)
+    scales_ckpt = osp.join(hs_args.save_dir, "weights", "last_ckpt.pt")
+    if not osp.exists(scales_ckpt):
+        raise FileNotFoundError(f"the hyper-search stage wrote no checkpoint: {scales_ckpt}")
+    with open(args.opt_conf_file) as f:
+        src = f.read()
+    src, n_sub = re.subn(r"scales\s*=\s*'[^']*'", f"scales={scales_ckpt!r}", src, count=1)
+    if n_sub != 1:
+        raise ValueError(f"no scales= line in {args.opt_conf_file}")
+    gen_conf = osp.join(args.out, "repopt_opt_gate.py")
+    with open(gen_conf, "w") as f:
+        f.write(src)
+    LOGGER.info(f"RepOpt stage 2/2 config written: {gen_conf}")
+    return gen_conf, trainer
+
+
 def main(args) -> int:
-    if args.repopt:
-        raise NotImplementedError("--repopt: the RepOpt recipe is not ported (ROADMAP queue 1 "
-                                  "item 8)")
-    if args.fuse_ab and args.distill:
-        raise ValueError("distill models turn off fuse_ab: pick one gate mode")
+    if sum(map(bool, (args.fuse_ab, args.distill, args.repopt))) > 1:
+        raise ValueError("--fuse-ab, --distill and --repopt are separate gate modes: pick one "
+                         "(distill models turn off fuse_ab)")
     from yolov6_tpu_torch.data.synth_detect import generate_synth_dataset
     from yolov6_tpu_torch.tools import train as train_cli
     from yolov6_tpu_torch.utils.events import LOGGER
@@ -167,9 +204,14 @@ def main(args) -> int:
         generate_synth_dataset(data_root, n_train=args.n_train, n_val=args.n_val,
                                img_size=args.img_size * 2, nc=args.nc, seed=args.seed)
 
-    conf_file, extra, teacher = args.conf_file, [], None
+    conf_file, extra, teacher, hs = args.conf_file, [], None, None
     if args.fuse_ab:
         extra.append("--fuse_ab")
+    if args.repopt:
+        t0 = time.perf_counter()
+        conf_file, hs_trainer = _repopt_prestage(args, data, train_cli, LOGGER)
+        hs = {"conf": conf_file, "train_s": time.perf_counter() - t0,
+              "epoch_stats": hs_trainer.epoch_stats, "eval_stats": hs_trainer.eval_stats}
     if args.distill:
         conf_file = _write_dfl_config(args)
         t0 = time.perf_counter()
@@ -186,9 +228,10 @@ def main(args) -> int:
     weights_dir = osp.join(train_args.save_dir, "weights")
 
     # early / mid / final checkpoints (0-indexed "<e>_ckpt.pt"; the stripped
-    # final is last_ckpt.pt), evaluated in every mode with the original
-    # config: the distilled student ships its plain ltrb branch, the fold
-    # dropping the DFL branch
+    # final is last_ckpt.pt), evaluated with the config they trained with,
+    # but the distilled student with the original config: it ships its
+    # plain ltrb branch, the fold dropping the DFL branch
+    eval_conf = args.conf_file if args.distill else conf_file
     pts = sorted({max(0, round((i + 1) * (args.epochs - 1) / args.eval_points))
                   for i in range(args.eval_points)})
     trajectory = []
@@ -196,7 +239,7 @@ def main(args) -> int:
         ckpt = osp.join(weights_dir, f"{e}_ckpt.pt")
         if not osp.exists(ckpt):
             ckpt = osp.join(weights_dir, "last_ckpt.pt")
-        m50, m5095 = _eval_ckpt(data, ckpt, args.conf_file, args.img_size, args.batch_size,
+        m50, m5095 = _eval_ckpt(data, ckpt, eval_conf, args.img_size, args.batch_size,
                                 osp.join(args.out, f"eval_e{e}"), args.device)
         trajectory.append({"epoch": e, "map50": m50, "map50_95": m5095})
         LOGGER.info(f"gate eval epoch {e}: mAP50={m50:.4f} mAP50-95={m5095:.4f}")
@@ -211,8 +254,13 @@ def main(args) -> int:
         "min_gain": args.min_gain,
         "train_s": train_s,
         "epoch_stats": trainer.epoch_stats,
-        "mode": "distill" if args.distill else "fuse_ab" if args.fuse_ab else "standard",
+        "mode": ("distill" if args.distill else "fuse_ab" if args.fuse_ab
+                 else "repopt" if args.repopt else "standard"),
     }
+    if hs is not None:
+        evals = hs["eval_stats"]
+        hs["final_map50"] = evals[-1]["ap50"] if evals else None
+        result["hyper_search"] = hs
     if teacher is not None:
         evals = teacher["eval_stats"]
         teacher["final_map50"] = evals[-1]["ap50"] if evals else None
@@ -222,7 +270,7 @@ def main(args) -> int:
         if not osp.exists(ckpt):
             ckpt = osp.join(weights_dir, "last_ckpt.pt")
         m50_exact, m5095_exact = _eval_ckpt(
-            data, ckpt, args.conf_file, args.img_size, args.batch_size,
+            data, ckpt, eval_conf, args.img_size, args.batch_size,
             osp.join(args.out, "eval_exact"), args.device, max_nms=30000, row_select="topk")
         result["exact_nms"] = {"map50": m50_exact, "map50_95": m5095_exact}
         result["nms_delta_map50_95"] = final["map50_95"] - m5095_exact

@@ -62,7 +62,8 @@ def get_args_parser(add_help=True):
     parser.add_argument("--quant", action="store_true")
     parser.add_argument("--calib", action="store_true")
     parser.add_argument("--teacher_model_path", type=str, default=None,
-                        help="the distillation teacher's checkpoint (the port's .pt)")
+                        help="the distillation teacher's checkpoint (the port's .pt or an "
+                             "upstream YOLOv6 .pt)")
     parser.add_argument("--temperature", type=int, default=20,
                         help="the distillation's softmax temperature")
     parser.add_argument("--fuse_ab", action="store_true")
