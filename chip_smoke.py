@@ -41,7 +41,7 @@ Phases, each of which asserts:
  10. YOLOv6-L (configs/yolov6l.py, ``conv_silu`` blocks): the deploy graph
      serves b32@640 in bf16 through the kernel (timed), and the train form
      takes 3 + 5 steps in bf16 with DFL;
- 11. COCO evaluation: the port's generator writes a synthetic val set of 320
+ 11. COCO evaluation: the port's generator writes a synthetic val set of 160
      PNG images of mixed sizes (80 class names); a mock detector that emits
      the letterboxed GT boxes must score AP50 > 0.99 and AP > 0.95 through
      the port's loader, Evaler and evaluator; then the Evaler runs S and M
@@ -55,11 +55,11 @@ Phases, each of which asserts:
      conversion; also over batches built beforehand, with no loader thread
      running), the COCO scoring time, ``measure_speed``, and the device's
      time and idle share from a profiled second pass;
- 12. the train CLI: a 320-image PNG train split beside phase 11's val set
+ 12. the train CLI: a 160-image PNG train split beside phase 11's val set
      (the same sizes, another seed); ``tools/train.py::main`` trains
      YOLOv6-S (80 classes, the config's data_aug: mosaic 1.0, mixup 0.0)
      b32@640 in bf16 for 2 epochs, epoch 0 on the mosaic branch and epoch 1
-     on the letterbox+affine branch, with one in-training eval of the 320
+     on the letterbox+affine branch, with one in-training eval of the 160
      val images (at conf 0 through the config's eval_params, so that the
      barely trained model gives the kernel candidates), then resumes from
      the epoch-1 checkpoint for a third epoch: every loss finite, the
@@ -115,14 +115,14 @@ Phases, each of which asserts:
      9 trains M (10 timed steps, the split, peak memory, then 3 ATSS steps),
      then folded and served b32@1280 as in phase 7;
  20. L6 through the Evaler at its repro protocol (1280, shrink 41, conf
-     0.03, IoU 0.65, multi-label, max_det 300) over phase 11's 320 PNG
+     0.03, IoU 0.65, multi-label, max_det 300) over phase 11's 160 PNG
      images, with phase 11's checks and numbers;
  21. the MBLA stage (configs/mbla/): X-MBLA's deploy graph serves b32@640
      as in phase 18; S-MBLA's training step at b32@640 (DFL, TAL) as phase 6
      (20 timed steps), then folded and served as in phase 7;
  22. N6 through the train CLI at 1280, batch 8, 2 epochs (both on the ATSS
      branch) over the first 64 images of phase 12's split, with one
-     in-training eval of the 320 val images at conf 0: its first keep with a
+     in-training eval of the 160 val images at conf 0: its first keep with a
      candidate held against the plain emit-once keep; imgs/s an epoch,
      loader wait and step time a step;
  23. inference: the repository's demo JPEGs (data/images) decode to the
@@ -150,7 +150,7 @@ Phases, each of which asserts:
  25. Lite-S's training step at b32@320 (TAL, SIoU, no DFL), 20 timed steps,
      the split and peak memory, 3 ATSS steps, then folded (DPBlock's biased
      convs with their BNs) and served at conf 0.001 as in phase 7;
- 26. Lite-S through the Evaler at 320 over phase 11's 320 PNG images at the
+ 26. Lite-S through the Evaler at 320 over phase 11's 160 PNG images at the
      eval protocol, with phase 11's checks and numbers;
  27. Lite-S through the train CLI at 320, batch 32, 2 epochs (both on ATSS)
      over phase 22's 64 train images, with one in-training eval at conf 0 (its
@@ -182,7 +182,19 @@ Phases, each of which asserts:
      fp16 modules of a stub ``yolov6`` package) read, in a child process
      where ``yolov6`` cannot be imported, by the eval CLI, the infer CLI and
      the fine-tune of a copy of configs/yolov6s_finetune.py (every tensor
-     loaded equal to the file's, 1 epoch), each keep equal to the plain keep.
+     loaded equal to the file's, 1 epoch), each keep equal to the plain keep;
+ 32. INT8 quantisation, RepOpt's third stage (configs/repopt/yolov6s_opt_qat.py):
+     phase 30's trained S folded and calibrated (the card's ranges held against
+     the CPU's on 2 images, relative 1e-5, then 4 b32@640 batches of phase 6's
+     cell), its weights fake-quantised, served b32@640 in bf16 quantised beside
+     the same model in float (times, the fake quantisation's share of the call,
+     a profile, the first keep against the plain keep); the QAT step from that
+     EMA with the ranges and phase 30's masks (20 timed, the split, peak memory;
+     the ranges bit-unchanged after it); ``--quant --calib`` then ``--quant``
+     (1 epoch, its in-training eval quantised) through the train CLI on phase
+     31's subset, the QAT checkpoint's ranges equal to the calibration's; and
+     ``tools/quantize.py --eval`` on phase 13's gate checkpoint beside the eval
+     CLI's float eval of the same file: PTQ mAP50 at most 0.05 below float.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -613,14 +625,17 @@ def recipe_step(cfg, recipe, dev, gen, epochs: int, img: int = IMG):
 
 def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
                 profile: bool = True, atss_steps: int = 0, recipe=None, batch: int = BATCH,
-                img: int = IMG, repopt_scales=None):
+                img: int = IMG, repopt_scales=None, init_state=None, quant=None):
     """A training step at ``batch``@``img`` (b32@640 unless given) in bf16 on
-    the bench's cell (phases 6, 9, 10, the recipes' 14-16, 19, 21, 29 and 30,
-    ``recipe`` as ``recipe_step`` takes it): ``TRAIN["warmup_steps"]`` steps,
-    ``timed_steps`` timed, one split into its phases, optionally a profile
-    window; then ``atss_steps`` steps on the ATSS branch. With
+    the bench's cell (phases 6, 9, 10, the recipes' 14-16, 19, 21, 29, 30 and
+    32, ``recipe`` as ``recipe_step`` takes it): ``TRAIN["warmup_steps"]``
+    steps, ``timed_steps`` timed, one split into its phases, optionally a
+    profile window; then ``atss_steps`` steps on the ATSS branch. With
     ``repopt_scales`` (a RepOpt config's model) the RealVGG convs are
-    re-initialised from the scales and the step masks their gradients.
+    re-initialised from the scales and the step masks their gradients; with
+    ``init_state`` (a train-form state dict) the model starts from it
+    instead, and the masks apply without the re-init (the trainer's
+    fine-tune). ``quant`` is the step's QAT ranges (``make_train_step``).
     Returns the step and its numbers."""
     import torch
 
@@ -632,7 +647,15 @@ def train_phase(cfg, label: str, dev, card: str, tag: str, timed_steps: int,
     model, loss_fn, recipe_kw = recipe_step(cfg, recipe, dev,
                                             torch.Generator(device=dev).manual_seed(0),
                                             t["epochs"], img)
-    if repopt_scales is not None:
+    if init_state is not None:
+        model.load_state_dict(init_state, strict=True)
+    if quant is not None:
+        recipe_kw["quant"] = quant
+    if repopt_scales is not None and init_state is not None:
+        from yolov6_tpu_torch.solver.repoptimizer import generate_gradient_masks
+
+        recipe_kw["grad_masks"] = generate_gradient_masks(model, repopt_scales)
+    elif repopt_scales is not None:
         from yolov6_tpu_torch.solver.repoptimizer import generate_gradient_masks, reinitialize
 
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -966,9 +989,11 @@ def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=
     return out
 
 
-# the eval phase's set: 320 PNG images in four sizes (w, h), so that the
+# the eval phase's set: 160 PNG images in four sizes (w, h), so that the
 # loader both shrinks (INTER_AREA, 768x576) and enlarges (INTER_LINEAR, 320x240)
-EVAL_SET = dict(n_val=320, seed=0, sizes=[(640, 480), (480, 640), (768, 576), (320, 240)])
+# (160, as the train split: at 320 each the script outran its time limit on a
+# slower host)
+EVAL_SET = dict(n_val=160, seed=0, sizes=[(640, 480), (480, 640), (768, 576), (320, 240)])
 
 
 def write_eval_set(root: str, card: str) -> dict:
@@ -1274,9 +1299,9 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     return out
 
 
-# the train CLI phase's set: 320 PNG train images beside the eval set, in its
+# the train CLI phase's set: 160 PNG train images beside the eval set, in its
 # sizes, from another seed
-TRAIN_SET = dict(n_train=320, seed=1, sizes=EVAL_SET["sizes"])
+TRAIN_SET = dict(n_train=160, seed=1, sizes=EVAL_SET["sizes"])
 TRAIN_CLI = dict(epochs=2, stop_aug_last_n_epoch=1, workers=8, profiled_steps=3)
 # the train CLI's in-training eval threshold, set through the config's
 # eval_params: after 3 epochs from random init S scores every anchor below
@@ -1820,7 +1845,7 @@ def train_subset(root: str, n_train: int) -> str:
 def p6_train_cli_phase(root: str, dev, card: str) -> dict:
     """Phase 22: N6 through ``tools/train.py`` at 1280, batch 8, 2 epochs over
     the first 64 images of phase 12's split (both epochs on ATSS, the first
-    on the mosaic branch), with one in-training eval of the 320 val images at
+    on the mosaic branch), with one in-training eval of the 160 val images at
     conf 0 (through the config's eval_params, as phase 12); its first keep
     with a candidate held against the plain emit-once keep."""
     from yolov6_tpu_torch.tools import train as train_cli
@@ -2166,7 +2191,7 @@ def lite_train_phase(dev, card: str) -> dict:
 def lite_cli_phase(root: str, dev, card: str) -> dict:
     """Phase 27: Lite-S through ``tools/train.py`` at 320, batch 32, 2 epochs
     (both on ATSS) over phase 22's 64 train images, with one in-training
-    eval of the 320 val images at conf 0, its first keep with a candidate
+    eval of the 160 val images at conf 0, its first keep with a candidate
     held against the plain emit-once keep; then ``tools/infer.py`` at
     ``--img-size 320`` over data/images with Lite-S's seeded serve weights
     (every keep, B=1, equal to the plain keep), and ``hub.yolov6lite_s`` with
@@ -2453,9 +2478,12 @@ def repopt_phases(images, dev, card: str) -> dict:
     assert step._mask is not None
     out["opt_fold_serve"] = fold_and_serve_phase(cfgs["opt"], "YOLOv6-S RepOpt", step, images,
                                                  dev, card, "[30]")
+    # for phase 32: the trained EMA, the scales and the step's mask buffer
+    kept = dict(ema={k: v.detach().to("cpu", copy=True) for k, v in step.ema.state_dict().items()},
+                scales=scales, mask=step._mask.detach().to("cpu", copy=True))
     del step
     torch.cuda.empty_cache()
-    return out
+    return out, kept
 
 
 def val_subset(root: str, n_val: int, train_path: str) -> str:
@@ -2502,19 +2530,28 @@ def cli_config(root: str, src: str, name: str, **replace) -> str:
     return path
 
 
-def cli_train(data_path: str, conf: str, root: str, name: str, epochs: int, tag: str, card: str,
-              label: str):
-    """``tools/train.py::main`` b32@640 in bf16 for ``epochs`` epochs, its
-    in-training eval's first keep with a candidate held against the plain
-    emit-once keep; returns the trainer, the walk and the wall time."""
-    from yolov6_tpu_torch.tools import train as train_cli
-
+def cli_argv(data_path: str, conf: str, root: str, name: str, epochs: int, *extra) -> list:
+    """The train CLI's arguments of phases 31 and 32: b32@640 bf16, the
+    in-training eval at the last epoch only."""
     t = REPOPT_CLI
-    argv = ["--data-path", data_path, "--conf-file", conf, "--img-size", str(IMG),
+    return ["--data-path", data_path, "--conf-file", conf, "--img-size", str(IMG),
             "--batch-size", str(t["batch"]), "--epochs", str(epochs), "--workers",
             str(t["workers"]), "--eval-final-only", "--stop_aug_last_n_epoch",
             str(t["stop_aug_last_n_epoch"]), "--output-dir", os.path.join(root, "train"),
-            "--name", name, "--bf16", "--log-interval", "1", "--seed", "0", "--device", "cuda"]
+            "--name", name, "--bf16", "--log-interval", "1", "--seed", "0", "--device", "cuda",
+            *extra]
+
+
+def cli_train(data_path: str, conf: str, root: str, name: str, epochs: int, tag: str, card: str,
+              label: str, *extra):
+    """``tools/train.py::main`` b32@640 in bf16 for ``epochs`` epochs (and
+    ``extra`` arguments), its in-training eval's first keep with a candidate
+    held against the plain emit-once keep; returns the trainer, the walk and
+    the wall time."""
+    from yolov6_tpu_torch.tools import train as train_cli
+
+    t = REPOPT_CLI
+    argv = cli_argv(data_path, conf, root, name, epochs, *extra)
     args = train_cli.get_args_parser().parse_args(argv)
     with KeepRecorder() as rec:
         t0 = time.perf_counter()
@@ -2558,6 +2595,8 @@ def repopt_cli_phase(root: str, dev, card: str) -> dict:
     return dict(hs=dict(epochs=hs.epoch_stats, eval=hs.eval_stats, wall_s=hs_wall),
                 opt=dict(epochs=opt.epoch_stats, eval=opt.eval_stats, wall_s=opt_wall,
                          blocks=len(opt.repopt_scales)),
+                data_path=data_path, scales_ckpt=scales_ckpt,
+                opt_ckpt=os.path.join(opt.save_dir, "weights", "last_ckpt.pt"),
                 launches=hs_walk["launches"] + opt_walk["launches"],
                 max_abs_err=max(hs_walk["max_abs_err"], opt_walk["max_abs_err"]))
 
@@ -2713,6 +2752,272 @@ def upstream_files_child(argv) -> int:
     out["max_abs_err"] = max(out[k]["max_abs_err"] for k in ("eval", "infer", "finetune"))
     print(json.dumps(out), flush=True)
     return 0
+
+
+# phase 32: INT8 quantisation, RepOpt's third stage, on configs/repopt/
+# yolov6s_opt_qat.py at full width: PTQ of [30]'s trained S (4 calibration
+# batches b32@640 of phase 6's cell), the quantised serve, the QAT step, the
+# calibration and QAT stages through the train CLI on [31]'s subset, and the
+# PTQ CLI on [13]'s gate checkpoint, whose mAP50 may fall at most
+# ``map50_drop`` below the float eval of the same file (a bar set before the
+# first run on the card)
+QUANT = dict(calib_batches=4, cpu_images=2, amax_rel=1e-5, timed_steps=20, gate_img=160,
+             gate_batch=16, gate_calib_batches=8, map50_drop=0.05)
+
+
+def ptq_serve_phase(kept, images, dev, card: str) -> dict:
+    """Phase 32a: [30]'s trained RepOpt S EMA folded into the deploy graph of
+    yolov6s_opt_qat.py; its conv input ranges calibrated in fp32 on 2 images
+    on the card and on the CPU (TF32 off; relative ``amax_rel``), then on
+    ``calib_batches`` b32@640 batches of phase 6's cell (the first its
+    images, the others from the next seeds); the weights fake-quantised per
+    channel; the folded model served b32@640 in bf16 at FOLD_SERVE in float,
+    then quantised (``quant_mode``): the quantised serve's first keep equal
+    to the plain emit-once keep, both timed (10 calls after 3), the
+    fake-quant's share of the call and one profile. Returns the numbers and
+    the ranges."""
+    import numpy as np
+    import torch
+
+    from yolov6_tpu_torch.layers.reparam import fold_to_deploy
+    from yolov6_tpu_torch.models.end2end import make_end2end_fn
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.quant.ptq import calibrate, quantize_variables
+    from yolov6_tpu_torch.quant.state import quant_mode, quant_paths
+
+    q = QUANT
+    cfg = config_at("repopt", "yolov6s_opt_qat.py")
+    model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device=dev)
+    model.load_state_dict(fold_to_deploy(kept["ema"], model), strict=True)
+    batches = [torch.from_numpy(np.random.default_rng(i).integers(
+        0, 255, (BATCH, IMG, IMG, 3), np.uint8)).to(dev) for i in range(q["calib_batches"])]
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        two = batches[0][:q["cpu_images"]]
+        on_card = calibrate(model, [two])
+        cpu_model = build_model(cfg, num_classes=NUM_CLASSES, deploy=True, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        on_cpu = calibrate(cpu_model, [two.cpu()])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert set(on_card) == set(on_cpu) == set(quant_paths(model).values())
+    assert all(v.device.type == "cuda" for v in on_card.values())
+    amax_err = max(abs(float(on_card[k]) - float(v)) / float(v) for k, v in on_cpu.items())
+    log(f"[32] PTQ calibration of {len(on_cpu)} conv inputs of the folded RepOpt S on "
+        f"{q['cpu_images']} images in fp32 (TF32 off): the card's ranges vs the CPU's, largest "
+        f"relative difference {amax_err:.3e} (tolerance {q['amax_rel']})")
+    assert amax_err <= q["amax_rel"], f"[32] the card's ranges differ from the CPU's: {amax_err}"
+    del cpu_model
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amax = calibrate(model, batches)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    assert all(float(v) > 0 for v in amax.values())
+    torch.backends.cudnn.allow_tf32 = True
+    serve16 = make_end2end_fn(model, **FOLD_SERVE, with_preprocess=True, half=True, device=dev)
+    with torch.inference_mode():
+        float_fd = cuda_ms(lambda: forward_decode(images, model, half=True), iters=10, warmup=3)
+    float_ms = cuda_ms(lambda: serve16(images), iters=10, warmup=3)
+    model.load_state_dict(quantize_variables(model.state_dict(), model), strict=True)
+    with quant_mode(model, amax):
+        greedy_nms.launches = 0
+        with KeepRecorder("serve") as rec:
+            num_dets, boxes, scores, _ = serve16(images)
+            torch.cuda.synchronize()
+        launches = greedy_nms.launches
+        walk = rec.check("[32] PTQ serve", BATCH, labels=("serve",))
+        assert launches > 0, "[32] the quantised serve did not launch the NMS kernel"
+        assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+        total = int(num_dets.sum())
+        assert total > 0, "[32] the quantised serve found no detections"
+        with torch.inference_mode():
+            q_fd = cuda_ms(lambda: forward_decode(images, model, half=True), iters=10, warmup=3)
+        q_ms = cuda_ms(lambda: serve16(images), iters=10, warmup=3)
+        prof = profile_calls(lambda: serve16(images), card, tag="[32]",
+                             what="PTQ bf16 serve calls")
+    first = walk["first"]["serve"]
+    share = (q_ms - float_ms) / q_ms
+    log(f"[32] calibrated {len(amax)} ranges on {q['calib_batches']} b{BATCH}@{IMG} batches in "
+        f"{calib_s:.2f} s (fp32, TF32 on); weights fake-quantised per channel (8 bits)")
+    log(f"[32] PTQ serve of the folded RepOpt S b{BATCH}@{IMG} bf16 at {FOLD_SERVE}: fwd+decode "
+        f"{q_fd:.3f} ms, serve {q_ms:.3f} ms = {BATCH / q_ms * 1e3:.1f} imgs/s; the same model in "
+        f"float: fwd+decode {float_fd:.3f} ms, serve {float_ms:.3f} ms = "
+        f"{BATCH / float_ms * 1e3:.1f} imgs/s; the fake quantisation {share:.3f} of the "
+        f"quantised call; {total} detections, {launches} NMS kernel launch(es), the keep (B="
+        f"{first['boxes'].shape[0]} K={first['boxes'].shape[1]}, {first['kept']} kept, "
+        f"{walk['tiles_visited']:.2f} tiles/image) equal to the plain emit-once keep [{card}]")
+    out = dict(ranges=len(amax), amax_cpu_rel_err=amax_err, calib_s=calib_s, fwd_decode_ms=q_fd,
+               serve_ms=q_ms, imgs_per_s=BATCH / q_ms * 1e3, float_fwd_decode_ms=float_fd,
+               float_serve_ms=float_ms, float_imgs_per_s=BATCH / float_ms * 1e3,
+               fake_quant_share=share, launches=launches, tiles_visited=walk["tiles_visited"],
+               max_abs_err=walk["max_abs_err"], K=int(first["boxes"].shape[1]), profile=prof)
+    del model, serve16
+    torch.cuda.empty_cache()
+    return out, amax
+
+
+def qat_step_phase(kept, amax, dev, card: str) -> dict:
+    """Phase 32b: the QAT step of yolov6s_opt_qat.py (RealVGG, masked by
+    [30]'s scales, fake-quantised with 32a's ranges) from [30]'s EMA, b32@640
+    bf16 on phase 6's cell, timed as phase 6 with its split and peak memory:
+    every loss finite, the ranges bit-unchanged after the steps, and the
+    step's gradient masks equal to [30]'s."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
+    frozen = {k: v.clone() for k, v in amax.items()}
+    cfg = config_at("repopt", "yolov6s_opt_qat.py")
+    greedy_nms.launches = 0
+    step, out = train_phase(cfg, "YOLOv6-S QAT (RealVGG, masked, fake-quantised)", dev, card,
+                            "[32]", QUANT["timed_steps"], profile=False,
+                            repopt_scales=kept["scales"], init_state=kept["ema"],
+                            quant=dict(amax=amax, num_bits=8, skip_patterns=[]))
+    out["launches"] = greedy_nms.launches
+    assert out["launches"] == 0
+    assert set(step.quant["amax"]) == set(frozen)
+    changed = [k for k, v in step.quant["amax"].items() if not torch.equal(v, frozen[k])]
+    assert not changed, f"[32] QAT moved the ranges of {changed}"
+    assert step._mask is not None and torch.equal(step._mask.cpu(), kept["mask"]), \
+        "[32] the QAT step's gradient masks differ from [30]'s"
+    log(f"[32] after {int(step.step)} QAT steps the {len(frozen)} ranges are bit-unchanged and the "
+        f"step's gradient masks equal [30]'s ({int((kept['mask'] != 1).sum())} masked entries)")
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def qat_cli_phase(root: str, repopt_cli: dict, dev, card: str) -> dict:
+    """Phase 32c: RepOpt's third stage through ``tools/train.py::main`` on
+    [31]'s 64 train and 64 val images: a copy of yolov6s_opt_qat.py with
+    ``pretrained`` [31]'s RepOpt last_ckpt.pt, ``scales`` its hs one and
+    ``calib_output_path`` under this phase's directory; ``--quant --calib``,
+    then ``--quant`` for 1 epoch from the calibration file, its in-training
+    eval quantised (fake-quant calls counted) through the kernel, its first
+    keep with a candidate held against the plain keep; the QAT checkpoint's
+    ranges equal to the calibration's."""
+    import torch
+
+    from yolov6_tpu_torch.core.engine import Trainer
+    from yolov6_tpu_torch.quant import state as quant_state
+    from yolov6_tpu_torch.tools import train as train_cli
+    from yolov6_tpu_torch.utils.checkpoint import read_state_dict
+
+    data_path = repopt_cli["data_path"]
+    qdir = os.path.join(root, "qat_calib")
+    src = os.path.join(ROOT, "configs", "repopt", "yolov6s_opt_qat.py")
+    paths = dict(pretrained=repopt_cli["opt_ckpt"], scales=repopt_cli["scales_ckpt"],
+                 calib_output_path=qdir)
+    calib_conf = cli_config(root, src, "qat_calib_cli.py", **paths)
+    args = train_cli.get_args_parser().parse_args(
+        cli_argv(data_path, calib_conf, root, "qat_calib", 1, "--quant", "--calib"))
+    t0 = time.perf_counter()
+    calib = train_cli.main(args)
+    calib_wall = time.perf_counter() - t0
+    assert calib.calib_path == os.path.join(qdir, "calib_ckpt.pt") and not calib.epoch_stats
+    _, calib_amax = read_state_dict(calib.calib_path, with_quant=True)
+    assert calib_amax and all(float(v) > 0 for v in calib_amax.values())
+    log(f"[32] train CLI --quant --calib (S opt-qat, pretrained [31]'s RepOpt run): "
+        f"{len(calib_amax)} ranges over the train loader's batches written to "
+        f"{os.path.basename(calib.calib_path)} in {calib_wall:.1f} s [{card}]")
+
+    qat_conf = cli_config(root, src, "qat_cli.py", calib_pt=calib.calib_path, **paths)
+    calls = {"train": 0, "eval": 0}
+    now = ["train"]
+    real_fake_quant, real_eval = quant_state.fake_quant, Trainer.eval_model
+
+    def counting(*a, **kw):
+        calls[now[0]] += 1
+        return real_fake_quant(*a, **kw)
+
+    def eval_model(self):
+        now[0] = "eval"
+        try:
+            real_eval(self)
+        finally:
+            now[0] = "train"
+
+    quant_state.fake_quant, Trainer.eval_model = counting, eval_model
+    try:
+        qat, walk, wall = cli_train(data_path, qat_conf, root, "qat", 1, "[32]", card, "S QAT",
+                                    "--quant")
+    finally:
+        quant_state.fake_quant, Trainer.eval_model = real_fake_quant, real_eval
+    assert qat.warmup_stepnum == 0 and qat.train_step._mask is not None
+    n_steps = qat.epoch_stats[0]["steps"]
+    assert calls["train"] == n_steps * len(calib_amax), calls
+    assert calls["eval"] > 0 and calls["eval"] % len(calib_amax) == 0, calls
+    _, qat_amax = read_state_dict(os.path.join(qat.save_dir, "weights", "last_ckpt.pt"),
+                                  with_quant=True)
+    assert set(qat_amax) == set(calib_amax)
+    assert all(torch.equal(qat_amax[k], v) for k, v in calib_amax.items()), \
+        "[32] the QAT checkpoint's ranges differ from the calibration's"
+    log(f"[32] QAT's {n_steps} steps and in-training eval ran {calls['train']} and "
+        f"{calls['eval']} fake quantisations; the QAT checkpoint's {len(qat_amax)} ranges equal "
+        f"the calibration's [{card}]")
+    return dict(calib_wall_s=calib_wall, ranges=len(calib_amax), epochs=qat.epoch_stats,
+                eval=qat.eval_stats, wall_s=wall, fake_quant_calls=calls,
+                launches=walk["launches"], max_abs_err=walk["max_abs_err"])
+
+
+def ptq_cli_phase(root: str, dev, card: str) -> dict:
+    """Phase 32d: ``tools/quantize.py --eval`` on [13]'s gate checkpoint
+    (configs/yolov6n.py, ``gate_calib_batches`` batches of the gate's train
+    images, the gate's 64 val images at 160 px, bf16) beside the eval CLI's
+    float eval of the same file: each eval's first keep with a candidate
+    held against the plain keep, and the PTQ mAP50 at most ``map50_drop``
+    below the float one."""
+    import glob
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.tools import eval as eval_cli
+    from yolov6_tpu_torch.tools import quantize as quantize_cli
+
+    q = QUANT
+    gate_ckpt = glob.glob(os.path.join(root, "gate", "**", "weights", "last_ckpt.pt"),
+                          recursive=True)
+    assert len(gate_ckpt) == 1, f"[32] the gate's checkpoint: {gate_ckpt}"
+    gate_data = os.path.join(root, "gate", "dataset", "data.json")
+    conf = os.path.join(ROOT, "configs", "yolov6n.py")
+    size = ["--img-size", str(q["gate_img"]), "--batch-size", str(q["gate_batch"])]
+    greedy_nms.launches = 0
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        (f50, f5095), _ = eval_cli.run(gate_data, gate_ckpt[0], conf, q["gate_batch"],
+                                       q["gate_img"], save_dir=os.path.join(root, "ptq_float"),
+                                       device="cuda")
+        float_wall = time.perf_counter() - t0
+    float_launches = greedy_nms.launches
+    with open(gate_data) as f:
+        n_val = len(glob.glob(os.path.join(json.load(f)["val"], "*.png")))
+    fwalk = rec.check("[32] eval CLI on the gate's N (float)", n_val)
+    greedy_nms.launches = 0
+    args = quantize_cli.get_args_parser().parse_args([
+        "--weights", gate_ckpt[0], "--config", conf, "--data", gate_data, *size,
+        "--calib-batches", str(q["gate_calib_batches"]), "--output",
+        os.path.join(root, "ptq", "gate_n_ptq8.pt"), "--eval", "--device", "cuda"])
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        path, amax, (q50, q5095) = quantize_cli.main(args)
+        ptq_wall = time.perf_counter() - t0
+    ptq_launches = greedy_nms.launches
+    qwalk = rec.check("[32] quantize CLI --eval on the gate's N", n_val)
+    log(f"[32] the gate's N at {q['gate_img']} px, bf16: float (eval CLI) mAP50 {f50:.4f}, "
+        f"mAP50-95 {f5095:.4f} in {float_wall:.1f} s; PTQ (tools/quantize.py --eval, "
+        f"{q['gate_calib_batches']} calibration batches of {q['gate_batch']}, {len(amax)} ranges) "
+        f"mAP50 {q50:.4f}, mAP50-95 {q5095:.4f} in {ptq_wall:.1f} s (bar: PTQ mAP50 >= float - "
+        f"{q['map50_drop']}); {float_launches} and {ptq_launches} kernel launches, each first "
+        f"keep with a candidate equal to the plain emit-once keep [{card}]")
+    assert q50 >= f50 - q["map50_drop"], f"[32] PTQ mAP50 {q50} below float {f50} - bar"
+    return dict(float_map50=f50, float_map50_95=f5095, ptq_map50=q50, ptq_map50_95=q5095,
+                float_wall_s=float_wall, ptq_wall_s=ptq_wall, ranges=len(amax),
+                float_launches=float_launches, launches=ptq_launches,
+                max_abs_err=max(fwalk["max_abs_err"], qwalk["max_abs_err"]))
 
 
 def main() -> int:
@@ -2919,12 +3224,23 @@ def main() -> int:
         phase_mark("[29]")
         pan = pan_phases(images, dev, card)
         phase_mark("[30]")
-        repopt = repopt_phases(images, dev, card)
+        repopt, repopt_kept = repopt_phases(images, dev, card)
         phase_mark("[31]")
         greedy_nms.launches = 0
         repopt_cli = repopt_cli_phase(root, dev, card)
         repopt_cli_launches = greedy_nms.launches
         upstream = upstream_files_phase(root, dev, card)
+
+        # ---- 32. INT8 quantisation: PTQ and the quantised serve of [30]'s S, the QAT
+        # step, RepOpt's third stage through the train CLI, the PTQ CLI on [13]'s N
+        phase_mark("[32]")
+        ptq_serve, amax = ptq_serve_phase(repopt_kept, images, dev, card)
+        qat_step = qat_step_phase(repopt_kept, amax, dev, card)
+        del repopt_kept, amax
+        greedy_nms.launches = 0
+        qat_cli = qat_cli_phase(root, repopt_cli, dev, card)
+        qat_cli_launches = greedy_nms.launches
+        ptq_cli = ptq_cli_phase(root, dev, card)
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert distill_gate_launches == distill_gate["launches"]
@@ -2934,7 +3250,8 @@ def main() -> int:
     assert mbla["train_s"]["launches"] == 0 and p6_cli_launches == p6_cli["launches"]
     assert infer_launches == infer["launches"] + infer["gate_launches"]
     assert repopt_cli_launches == repopt_cli["launches"]
-    assert pan["train_t"]["launches"] == repopt["launches"] == 0
+    assert pan["train_t"]["launches"] == repopt["launches"] == qat_step["launches"] == 0
+    assert qat_cli_launches == qat_cli["launches"]
     log("phase wall times (s): " + ", ".join(
         f"{a} {tb - ta:.1f}" for (a, ta), (_, tb) in zip(PHASE_MARKS, PHASE_MARKS[1:])))
 
@@ -2997,7 +3314,12 @@ def main() -> int:
                              "repopt_cli_evals": repopt_cli["launches"],
                              "upstream_eval_cli": upstream["eval"]["launches"],
                              "upstream_infer_cli": upstream["infer"]["launches"],
-                             "upstream_finetune_eval": upstream["finetune"]["launches"]},
+                             "upstream_finetune_eval": upstream["finetune"]["launches"],
+                             "serve_s_ptq": ptq_serve["launches"],
+                             "train_s_qat": qat_step["launches"],
+                             "qat_cli_eval": qat_cli_launches,
+                             "eval_cli_gate_n_float": ptq_cli["float_launches"],
+                             "quantize_cli_eval_gate_n": ptq_cli["launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -3020,7 +3342,8 @@ def main() -> int:
                            *(pan[f"serve_{name}"]["max_abs_err"] for name in PAN_NAMES),
                            pan["t_fold_serve"]["max_abs_err"],
                            repopt["opt_fold_serve"]["max_abs_err"], repopt_cli["max_abs_err"],
-                           upstream["max_abs_err"]),
+                           upstream["max_abs_err"], ptq_serve["max_abs_err"],
+                           qat_cli["max_abs_err"], ptq_cli["max_abs_err"]),
         "path": main["path"],
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
@@ -3066,6 +3389,7 @@ def main() -> int:
         "repopt": repopt,
         "repopt_cli": repopt_cli,
         "upstream": upstream,
+        "quant": dict(ptq_serve=ptq_serve, qat_step=qat_step, qat_cli=qat_cli, ptq_cli=ptq_cli),
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -308,18 +308,20 @@ def test_full_width_parameter_count_matches_jax(path, published):
 ])
 def test_build_model_refuses_unported_configs(path, change, match):
     """What is still unported raises and names itself; nothing stands in: a
-    block mode that neither package defines, and the quantisation-aware
-    training of the ``_opt_qat`` configs (``--quant``; without it they
-    train as plain RepOpt, as in the JAX package)."""
+    block mode that neither package defines, and the ``_opt_qat`` configs'
+    default calibration file for ``--quant`` (QAT), a JAX msgpack file, which
+    the port does not read: the error names the file the port takes and the
+    README section. ``check_supported`` takes ``--quant``."""
     from types import SimpleNamespace
 
-    from yolov6_tpu_torch.core.engine import check_supported
+    from yolov6_tpu_torch.core.engine import check_supported, read_qat_calibration
 
     cfg = Config.fromfile(f"{REPO_ROOT}/{path}")
     if change == "--quant":
         build_model(cfg, num_classes=80, deploy=False, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            check_supported(SimpleNamespace(quant=True), cfg)
+        check_supported(SimpleNamespace(quant=True), cfg)
+        with pytest.raises(ValueError, match=f"msgpack.*calib_ckpt.pt.*{match}"):
+            read_qat_calibration(cfg)
         return
     cfg.training_mode = change.split("=")[1]
     with pytest.raises(NotImplementedError, match=match):

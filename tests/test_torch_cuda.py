@@ -425,3 +425,68 @@ def test_trainer_on_card_matches_its_cpu_data_and_eval_launches_the_kernel(cuda_
                                                           trainers["cuda"].train_loader):
         np.testing.assert_array_equal(np.asarray(imgs), np.asarray(imgs_c))
         np.testing.assert_array_equal(labels, labels_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fake_quant_on_card_matches_cpu(cuda_device, dtype):
+    """The fake quantisation and its straight-through gradient on the card
+    equal the CPU's bit for bit (fp32 division, round half to even), on
+    every .5 tie of an 8-bit range and values past it; the per-channel
+    weight step too."""
+    from yolov6_tpu_torch.quant.fake_quant import fake_quant, fake_quant_per_channel
+
+    amax = torch.tensor(1.7)
+    scale = float(amax) / 127
+    ties = (torch.arange(-128, 127, dtype=torch.float32) + 0.5) * scale
+    x = torch.cat([torch.randn(100000, generator=torch.Generator().manual_seed(0)) * 2, ties])
+    x = x.to(dtype)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        q = fake_quant(xd, amax.to(dev))
+        (q.float() * torch.linspace(0.5, 1.5, len(x), device=dev)).sum().backward()
+        outs.append((q.detach().cpu(), xd.grad.cpu()))
+    assert outs[1][0].device.type == "cpu" and q.device.type == "cuda"
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    w = torch.randn((64, 32, 3, 3), generator=torch.Generator().manual_seed(1))
+    assert torch.equal(fake_quant_per_channel(w), fake_quant_per_channel(w.to(cuda_device)).cpu())
+
+
+@pytest.mark.cuda
+def test_calibration_and_quantised_forward_on_card_match_cpu(cuda_device):
+    """Small S-opt-qat (deploy): the ranges calibrated on the card equal the
+    CPU's within relative 1e-5 (fp32, TF32 off), and the quantised forward
+    with the CPU's ranges runs on the card (its ranges moved there) and
+    agrees with the CPU's within the decode tests' map tolerance."""
+    from yolov6_tpu_torch.quant.ptq import calibrate
+    from yolov6_tpu_torch.quant.state import quant_mode
+
+    from torch_port_utils import REPO_ROOT, small_config
+
+    cfg = small_config(Config, f"{REPO_ROOT}/configs/repopt/yolov6s_opt_qat.py")
+    torch.manual_seed(0)
+    cpu_model = build_model(cfg, num_classes=80, deploy=True, device="cpu")
+    card_model = build_model(cfg, num_classes=80, deploy=True, device=cuda_device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8) for _ in range(2)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = calibrate(cpu_model, batches)
+        got = calibrate(card_model, batches)
+        assert set(got) == set(want) and all(v.device.type == "cuda" for v in got.values())
+        for key, w in want.items():
+            assert abs(float(got[key]) - float(w)) <= 1e-5 * float(w), key
+        x = torch.from_numpy(batches[0]).permute(0, 3, 1, 2).float() / 255.0
+        with torch.no_grad(), quant_mode(cpu_model, want):
+            head_cpu, _ = cpu_model(x)
+        with torch.no_grad(), quant_mode(card_model, want) as q:
+            assert all(v.device.type == "cuda" for v in q.amax.values())
+            head_card, _ = card_model(x.to(cuda_device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for key in ("cls", "reg"):
+        for a, b in zip(head_cpu[key], head_card[key]):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-4)

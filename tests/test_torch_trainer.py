@@ -137,9 +137,7 @@ def test_resume_continues_bit_for_bit(tiny_set, tmp_path):
     assert straight.evaluate_results == resumed.evaluate_results
 
 
-@pytest.mark.parametrize("flag,item", [("--calib", "Quantisation"),
-                                       ("--quant", "Quantisation"),
-                                       ("--ckpt-backend=orbax", "Do not port"),
+@pytest.mark.parametrize("flag,item", [("--ckpt-backend=orbax", "Do not port"),
                                        ("--cache=ram", "The rest of the trainer"),
                                        ("--write_trainbatch_tb", "The rest of the trainer")])
 def test_unported_options_raise(tiny_set, tmp_path, flag, item):
@@ -266,7 +264,9 @@ def test_distill_teacher_must_fit(tiny_set, tmp_path, fuse_ab_run):
 def test_repopt_config_and_the_gate_repopt_raise(tiny_set, tmp_path):
     """What RepOpt still refuses: an opt config whose scales are its default
     JAX msgpack file (the error names the formats the port reads),
-    ``--quant`` on an ``_opt_qat`` config, and the gate's ``--repopt``
+    ``--quant`` on an ``_opt_qat`` config whose ``pretrained`` is its
+    default JAX file, which is absent (the port downloads nothing; QAT
+    itself is tests/test_torch_trainer_qat.py's), and the gate's ``--repopt``
     beside another gate mode."""
     from yolov6_tpu_torch.tools import learning_gate
 
@@ -276,7 +276,7 @@ def test_repopt_config_and_the_gate_repopt_raise(tiny_set, tmp_path):
         train_cli.main(args)
     args = _args(tiny_set, str(tmp_path), "--epochs", "1", "--quant")
     args.conf_file = osp.join(REPO_ROOT, "configs", "repopt", "yolov6n_opt_qat.py")
-    with pytest.raises(NotImplementedError, match="Quantisation"):
+    with pytest.raises(FileNotFoundError, match="yolov6n_opt.msgpack not found"):
         train_cli.main(args)
     gate_args = learning_gate.get_args_parser().parse_args(
         ["--out", str(tmp_path / "gate"), "--repopt", "--fuse-ab", "--device", "cpu"])

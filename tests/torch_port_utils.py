@@ -176,7 +176,9 @@ def jax_in_float64(fn):
         env.update(zip(jaxpr.invars, map(widen, args)))
         for eqn in jaxpr.eqns:
             ins = [read(v) for v in eqn.invars]
-            if eqn.primitive.name in ("jit", "custom_jvp_call"):
+            # a custom_vjp_call left in the jaxpr is one no gradient goes
+            # through (QAT's straight-through round on the image): its forward
+            if eqn.primitive.name in ("jit", "custom_jvp_call", "custom_vjp_call"):
                 inner = eqn.params.get("jaxpr") or eqn.params["call_jaxpr"]
                 outs = replay(inner.jaxpr, inner.consts, ins)
             else:

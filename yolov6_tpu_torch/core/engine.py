@@ -26,10 +26,20 @@ RepOpt (``training_mode = "repopt"``): the hyper-search checkpoint at
 convs (unless ``pretrained`` is set) and make the step's gradient masks
 (solver/repoptimizer.py).
 
-Not ported, and refused with ``NotImplementedError``: quantisation (ROADMAP
-queue 1, "Quantisation"), the orbax checkpoint backend (queue 1, "Do not
-port"), more than one process ("Parallelism"), the RAM and disk image caches
-and TensorBoard with its train-batch plot ("The rest of the trainer").
+Quantisation (``--quant``, JAX: engine.py:134-166, :506-513, :581-584,
+:684-708): with ``--calib``, ``calibrate()`` records the train graph's conv
+input ranges over ``ptq.calib_batches`` train batches and writes them with
+the fake-quantised weights as ``calib_ckpt.pt`` under
+``ptq.calib_output_path``; without it, QAT: the train graph takes the
+tensors and ranges of ``qat.calib_pt`` (after any ``pretrained`` load), and
+every step's forward, the in-training eval of the EMA and the checkpoints
+(``model`` and ``ema``, each with a ``quant`` entry) carry the frozen
+ranges. Both run with no warmup.
+
+Not ported, and refused with ``NotImplementedError``: the orbax checkpoint
+backend (queue 1, "Do not port"), more than one process ("Parallelism"), the
+RAM and disk image caches and TensorBoard with its train-batch plot ("The
+rest of the trainer").
 """
 
 from __future__ import annotations
@@ -49,12 +59,15 @@ from yolov6_tpu_torch.losses.loss_distill import ComputeLossDistill
 from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
 from yolov6_tpu_torch.losses.loss_fuseab import ComputeLossAB
 from yolov6_tpu_torch.models.yolo import build_model
+from yolov6_tpu_torch.quant.ptq import calibrate, quantize_variables
+from yolov6_tpu_torch.quant.state import quant_mode
 from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
 from yolov6_tpu_torch.solver.repoptimizer import (
     extract_scales, generate_gradient_masks, reinitialize,
 )
 from yolov6_tpu_torch.utils.checkpoint import (
-    load_checkpoint, load_state_dict_partial, read_state_dict, save_checkpoint, strip_optimizer,
+    cpu_copy, load_checkpoint, load_state_dict_partial, read_state_dict, save_checkpoint,
+    strip_optimizer,
 )
 from yolov6_tpu_torch.utils.device import resolve_device
 from yolov6_tpu_torch.utils.events import LOGGER, load_yaml
@@ -66,10 +79,6 @@ def check_supported(args, cfg) -> None:
     together (as the JAX trainer), distillation without a teacher, or either
     recipe on a lite config (the lite family has neither head; the JAX
     package would train the plain lite network instead)."""
-    for flag in ("quant", "calib"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag} is not ported (ROADMAP queue 1, \"Quantisation\")")
     recipes = [f"--{flag}" for flag in ("distill", "fuse_ab") if getattr(args, flag, False)]
     if recipes and cfg.model.backbone.type == "Lite_EffiBackbone":
         raise ValueError(f"{' and '.join(recipes)} on {cfg.model.type}: the lite family has no "
@@ -116,6 +125,31 @@ def read_repopt_scales(cfg):
         raise ValueError(f"{path}: no LinearAddBlock scales; cfg.model.scales takes a "
                          "hyper-search run's checkpoint")
     return state
+
+
+def read_qat_calibration(cfg):
+    """QAT's calibration (JAX: engine.py:144-166): the state dict of
+    ``cfg.qat.calib_pt`` (a ``--quant --calib`` run's ``calib_ckpt.pt``)
+    and the step's ``quant``: its ranges, ``ptq.num_bits``, and
+    ``qat.sensitive_layers_list`` as skips when ``qat.sensitive_layers_skip``.
+    A missing ``calib_pt``, the configs' default JAX ``.msgpack`` file and a
+    file without ranges raise ``ValueError``."""
+    qat = cfg.get("qat") or {}
+    path = qat.get("calib_pt")
+    if not path:
+        raise ValueError("QAT needs a calibrated checkpoint (cfg.qat.calib_pt)")
+    if path.endswith(".msgpack"):
+        raise ValueError(f"{path}: a JAX native msgpack file, which the port does not read; "
+                         "cfg.qat.calib_pt takes the port's own calibration checkpoint, the "
+                         "calib_ckpt.pt of tools/train.py --quant --calib (README, "
+                         "\"Quantisation\")")
+    state, amax = read_state_dict(path, with_quant=True)
+    if amax is None:
+        raise ValueError(f"{path}: no calibrated ranges (no 'quant' entry); cfg.qat.calib_pt "
+                         "takes the calib_ckpt.pt of tools/train.py --quant --calib")
+    skip = qat.get("sensitive_layers_list", []) if qat.get("sensitive_layers_skip") else []
+    return state, dict(amax=amax, num_bits=(cfg.get("ptq") or {}).get("num_bits", 8),
+                       skip_patterns=list(skip))
 
 
 class Trainer:
@@ -166,8 +200,16 @@ class Trainer:
             dict(cfg.solver), self.batch_size,
             world_batch=args.bs_per_device)  # one device: the world batch is bs_per_device
         self.solver_cfg.setdefault("lr_scheduler", cfg.solver.get("lr_scheduler", "Cosine"))
-        self.warmup_stepnum = max(round(self.solver_cfg["warmup_epochs"] * self.max_stepnum),
-                                  1000)
+        quant = bool(getattr(args, "quant", False))
+        self.warmup_stepnum = (0 if quant else
+                               max(round(self.solver_cfg["warmup_epochs"] * self.max_stepnum),
+                                   1000))
+        self.quant = None
+        if quant and not getattr(args, "calib", False):
+            # QAT: the calibration's tensors replace any pretrained load
+            state, self.quant = read_qat_calibration(cfg)
+            self.model.load_state_dict(state, strict=True)
+            LOGGER.info(f"QAT from {cfg.qat.calib_pt}: {len(self.quant['amax'])} ranges")
 
         grad_masks = None
         if cfg.get("training_mode") == "repopt":
@@ -184,7 +226,7 @@ class Trainer:
             self.batch_size, self.warmup_stepnum, (self.img_size, self.img_size),
             half=bool(args.bf16), device=self.device, compute_loss_ab=self.compute_loss_ab,
             teacher=None if self.teacher is None else (self.teacher, self.distill_loss),
-            grad_masks=grad_masks)
+            grad_masks=grad_masks, quant=self.quant)
 
         self.start_epoch = 0
         self.best_ap = 0.0
@@ -206,6 +248,27 @@ class Trainer:
 
         self.epoch_stats, self.eval_stats = [], []
         self.profile_result: Optional[dict] = None
+
+    def calibrate(self) -> str:
+        """``--quant --calib`` (JAX: engine.py:684-708): the train graph's
+        conv input ranges over ``ptq.calib_batches`` batches of the train
+        loader (in eval mode, skipping ``ptq.sensitive_layers_list`` when
+        ``ptq.sensitive_layers_skip``), then every conv weight fake-quantised
+        (no skip, as in JAX), saved as ``{"model": state dict + "quant"}`` to
+        ``calib_ckpt.pt`` under ``ptq.calib_output_path`` (else the run's
+        ``weights/``). Returns the file's path."""
+        ptq = self.cfg.get("ptq") or {}
+        num_bits = ptq.get("num_bits", 8)
+        skip = ptq.get("sensitive_layers_list", []) if ptq.get("sensitive_layers_skip") else []
+        amax = calibrate(self.model, (batch[0] for batch in self.train_loader),
+                         num_bits=num_bits, skip_patterns=skip,
+                         max_batches=ptq.get("calib_batches", 32))
+        state = quantize_variables(self.model.state_dict(), self.model, num_bits)
+        out_dir = ptq.get("calib_output_path", osp.join(self.save_dir, "weights"))
+        path = save_checkpoint({"model": dict(cpu_copy(state), quant=cpu_copy(amax))}, False,
+                               out_dir, "calib_ckpt")
+        LOGGER.info(f"calibrated checkpoint saved to {path}")
+        return path
 
     def _build_losses(self, cfg):
         """The anchor-free loss, and the recipe's loss or ``None``: the AB
@@ -405,16 +468,17 @@ class Trainer:
             self.ap = self.evaluate_results[1]
             self.best_ap = max(self.ap, self.best_ap)
 
-        def cpu(sd):
-            return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
-
         ckpt = {
             "train_state": self.train_step.state_dict(),
-            "model": cpu(self.train_step.model.state_dict()),
-            "ema": cpu(self.train_step.ema.state_dict()),
+            "model": cpu_copy(self.train_step.model.state_dict()),
+            "ema": cpu_copy(self.train_step.ema.state_dict()),
             "epoch": self.epoch,
             "results": [float(v) for v in self.evaluate_results],
         }
+        if self.quant is not None:
+            # the frozen ranges, so that a QAT checkpoint deploys on its own
+            ckpt["model"]["quant"] = cpu_copy(self.quant["amax"])
+            ckpt["ema"]["quant"] = cpu_copy(self.quant["amax"])
         save_ckpt_dir = osp.join(self.save_dir, "weights")
         save_checkpoint(ckpt, is_val_epoch and self.ap == self.best_ap, save_ckpt_dir,
                         "last_ckpt")
@@ -446,7 +510,9 @@ class Trainer:
         model = self.train_step.ema
         evaler.init_model(model)
         t0 = time.perf_counter()
-        preds = evaler.predict_model(model, self.val_loader, task="train")
+        # QAT: the EMA evaluates with its convs' inputs fake-quantised
+        with quant_mode(model, **(self.quant or {})):
+            preds = evaler.predict_model(model, self.val_loader, task="train")
         predict_s = time.perf_counter() - t0
         results = evaler.eval_model(preds, model, self.val_loader, task="train")
         LOGGER.info(f"Epoch: {self.epoch} | mAP@0.5: {results[0]} | mAP@0.50:0.95: {results[1]}")

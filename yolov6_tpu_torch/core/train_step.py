@@ -14,14 +14,16 @@ one slice of the buffer.
 
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from yolov6_tpu_torch.models.effidehead import flatten_head_outputs
 from yolov6_tpu_torch.models.heads.effidehead_fuseab import flatten_ab_outputs
+from yolov6_tpu_torch.quant.state import quant_mode
 from yolov6_tpu_torch.solver.build import (
     param_groups,
     sgd_update,
@@ -77,12 +79,20 @@ class TrainStep:
     solver/repoptimizer.py::generate_gradient_masks) multiply the step's
     gradients before the finite guards, the accumulation and SGD, as the
     JAX step applies its masks to ``value_and_grad``'s gradients; they live
-    in one flat buffer beside the gradients', ones where no mask is given."""
+    in one flat buffer beside the gradients', ones where no mask is given.
+
+    QAT: ``quant = dict(amax=..., num_bits=..., skip_patterns=...)`` runs
+    the model's forward under ``quant/state.py::quant_mode`` with those
+    frozen ranges (JAX: train_step.py:110-112, the ``quant_collection``):
+    each conv's input is fake-quantised, in fp32 inside the bf16 autocast,
+    and the straight-through round passes the gradient. The ranges are
+    not part of the step's state and never change; the teacher and the EMA
+    run without them."""
 
     def __init__(self, model: nn.Module, compute_loss, solver_cfg: Dict, max_stepnum: int,
                  epochs: int, batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
                  half: bool = True, device="cuda", compute_loss_ab=None, teacher=None,
-                 grad_masks=None):
+                 grad_masks=None, quant: Optional[Mapping] = None):
         device = resolve_device(device)
         if teacher is not None and compute_loss_ab is not None:
             raise ValueError("a distillation step takes no anchor-based loss (fuse-AB)")
@@ -93,6 +103,12 @@ class TrainStep:
                                  f"needs fp32 parameters on {device}")
         self.model, self.compute_loss, self.device = model, compute_loss, device
         self.compute_loss_ab, self.teacher = compute_loss_ab, None
+        self.quant = None
+        if quant is not None:
+            self.quant = dict(quant)
+            self.quant["amax"] = {k: torch.as_tensor(v).to(device=device, dtype=torch.float32)
+                                  for k, v in quant["amax"].items()}
+            quant_mode(model, **self.quant).remove()  # a conv without a range raises here
         if teacher is not None:
             self.teacher, self.compute_loss = teacher
             self.teacher.eval().requires_grad_(False)
@@ -193,8 +209,11 @@ class TrainStep:
         self.model.train()
         self._stats_before.copy_(self._stats)
         self._grad.zero_()
+        quant = (quant_mode(self.model, **self.quant) if self.quant is not None
+                 else contextlib.nullcontext())
         with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=self.half):
-            head_out, neck_feats = self.model(x)
+            with quant:
+                head_out, neck_feats = self.model(x)
             if self.teacher is not None:
                 self.teacher.eval()
                 with torch.no_grad():
@@ -301,7 +320,7 @@ class TrainStep:
 def make_train_step(model, compute_loss, solver_cfg: Dict, max_stepnum: int, epochs: int,
                     batch_size: int, warmup_stepnum: int, img_size: Tuple[int, int],
                     half: bool = True, device="cuda", compute_loss_ab=None,
-                    teacher=None, grad_masks=None) -> TrainStep:
+                    teacher=None, grad_masks=None, quant=None) -> TrainStep:
     """The step of ``model`` (``build_model(..., deploy=False, device=device)``)
     under ``compute_loss`` (``losses/loss.py::ComputeLoss``), with the JAX
     ``make_train_step``'s arguments (its ``group_ids`` come from the model
@@ -311,7 +330,8 @@ def make_train_step(model, compute_loss, solver_cfg: Dict, max_stepnum: int, epo
     (``losses/loss_fuseab.py::ComputeLossAB``, for a ``fuse_ab`` model) and
     ``teacher = (teacher_model, distill_loss)`` (``compute_loss`` is then
     unused, as in JAX) select the training recipes (see ``TrainStep``);
-    ``grad_masks`` RepOpt's gradient masks."""
+    ``grad_masks`` RepOpt's gradient masks; ``quant`` QAT's frozen ranges."""
     return TrainStep(model, compute_loss, solver_cfg, max_stepnum, epochs, batch_size,
                      warmup_stepnum, img_size, half=half, device=device,
-                     compute_loss_ab=compute_loss_ab, teacher=teacher, grad_masks=grad_masks)
+                     compute_loss_ab=compute_loss_ab, teacher=teacher, grad_masks=grad_masks,
+                     quant=quant)

@@ -14,8 +14,12 @@ saved ``args.yaml`` winning over the command line. The YOLOv6 v3.0 recipes:
 ``--fuse_ab`` (anchor-aided training), then ``--distill --teacher_model_path
 <the fuse-AB run's best_ckpt.pt> [--distill_feat] [--temperature T]`` (for N
 and S with the DFL config, ``use_dfl=True`` and ``reg_max=16``); a lite config
-(``--img-size 320``) has neither recipe, and both raise ``ValueError``. Flags of
-later slices raise ``NotImplementedError``
+(``--img-size 320``) has neither recipe, and both raise ``ValueError``.
+Quantisation, RepOpt's third stage on the ``configs/repopt/*_opt_qat.py``
+configs: ``--quant --calib`` calibrates the train graph (``pretrained``'s
+weights) and writes ``calib_ckpt.pt`` under ``ptq.calib_output_path``, then
+returns; ``--quant`` trains from ``qat.calib_pt`` with the frozen ranges
+(QAT). Flags of later slices raise ``NotImplementedError``
 (``core/engine.py::check_supported``); the JAX
 CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,
 ``--check-images``/``--check-labels`` and the unused ``--dist_url``/
@@ -128,9 +132,13 @@ def check_and_init(args):
 
 def main(args):
     """Train; returns the ``Trainer`` (its ``epoch_stats``, ``eval_stats``
-    and ``profile_result``)."""
+    and ``profile_result``). With ``--quant --calib`` it calibrates instead
+    (``Trainer.calibrate``, JAX tools/train.py:130-132)."""
     cfg = check_and_init(args)
     trainer = Trainer(args, cfg)
+    if args.quant and args.calib:
+        trainer.calib_path = trainer.calibrate()
+        return trainer
     trainer.train()
     return trainer
 

@@ -11,7 +11,10 @@ either format it knows, told apart by content (both end in ``.pt``): the
 port's own file (a state dict, bare or under ``'ema'`` or ``'model'``, the
 EMA first, as the reference's eval takes it; read with
 ``weights_only=True``) or an upstream YOLOv6 checkpoint
-(``utils/upstream_ckpt.py``). ``load_state_dict_file`` folds a train-form
+(``utils/upstream_ckpt.py``). A PTQ or QAT file (``quant/``) adds a
+``quant`` entry of calibrated ranges beside the tensors of ``model``/``ema``
+(and a PTQ file ``quant_bits``), as the JAX package's ``quant``
+collection. ``load_state_dict_file`` folds a train-form
 dict (RepVGG's and QARepVGG's branches, conv+BN) into the deploy form by
 ``layers/reparam.py::fold_to_deploy``. The JAX package's weights reach the
 port through ``utils/weights.py::state_dict_from_jax``.
@@ -45,35 +48,50 @@ def num_classes_of(state: Mapping[str, torch.Tensor], what: str = "the state dic
     return int(state[cls_keys[0]].shape[0])
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def read_state_dict(path: str, with_quant: bool = False):
     """A model's state dict from the file at ``path``, either format (see
     the module doc), on the CPU. Its keys are checked by the caller, against
-    the graph it loads them into. Raises ``FileNotFoundError`` for a missing
-    file, ``ValueError`` for any other content."""
+    the graph it loads them into. A PTQ or QAT file's ``quant`` entry (the
+    calibrated ranges, ``{JAX path: fp32 scalar}``, beside the tensors) is
+    split off: with ``with_quant`` the return is ``(state dict, ranges or
+    None)``. Raises ``FileNotFoundError`` for a missing file, ``ValueError``
+    for any other content."""
     if not osp.exists(path):
         raise FileNotFoundError(f"weights file {path} not found (the port downloads nothing)")
+    quant = None
     if checkpoint_format(path) == "upstream":
-        return read_upstream_checkpoint(path)
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("ema", "model"):
-        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
-            obj = obj[key]
-            break
-    if not isinstance(obj, dict) or not all(torch.is_tensor(v) for v in obj.values()):
-        raise ValueError(f"{path}: not a state dict of tensors (bare, or under 'ema' or 'model')")
-    return obj
+        obj = read_upstream_checkpoint(path)
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        for key in ("ema", "model"):
+            if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+                obj = obj[key]
+                break
+        if isinstance(obj, dict) and isinstance(obj.get("quant"), dict):
+            obj = dict(obj)
+            quant = obj.pop("quant")
+            if not all(torch.is_tensor(v) and v.dim() == 0 for v in quant.values()):
+                raise ValueError(f"{path}: its 'quant' entry is not a dict of scalar ranges")
+        if not isinstance(obj, dict) or not all(torch.is_tensor(v) for v in obj.values()):
+            raise ValueError(f"{path}: not a state dict of tensors (bare, or under 'ema' or "
+                             "'model')")
+    return (obj, quant) if with_quant else obj
 
 
 def load_state_dict_file(path: str, cfg, device="cuda") -> Model:
     """The deploy graph of ``cfg`` on ``device``, its weights loaded with
     ``strict=True`` from the file at ``path`` (``read_state_dict``: the
     port's own or an upstream checkpoint), folded when they are the train
-    form. The class count comes from the head's class prediction weights."""
-    obj = read_state_dict(path)
+    form. The class count comes from the head's class prediction weights.
+    A PTQ or QAT file's ranges are attached as ``model.quant_ranges`` (else
+    ``None``) and not enabled: the model serves in float, as the JAX eval
+    CLI serves such a file (``quant/state.py::quant_mode`` enables them)."""
+    obj, quant = read_state_dict(path, with_quant=True)
     model = build_model(cfg, num_classes=num_classes_of(obj, path), deploy=True, device=device)
     if any(m in k for k in obj for m in _TRAIN_FORM_MARKERS):
         obj = fold_to_deploy(obj, model)
     model.load_state_dict(obj, strict=True)
+    model.quant_ranges = quant
     return model
 
 
@@ -97,6 +115,12 @@ def load_state_dict_partial(state: Mapping[str, torch.Tensor],
             own[k].copy_(v)
     LOGGER.info(f"partial load: matched {len(matched)}/{len(own)} tensors")
     return len(matched), len(own)
+
+
+def cpu_copy(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """CPU copies of a mapping of tensors (a state dict, or quant ranges), for
+    ``save_checkpoint``."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
 def save_checkpoint(ckpt: Dict[str, Any], is_best: bool, save_dir: str,

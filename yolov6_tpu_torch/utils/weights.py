@@ -73,3 +73,16 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         if leaf == "scale":
             out[".".join(list(mods) + ["num_batches_tracked"])] = torch.tensor(0)
     return out
+
+
+def quant_from_jax(collection) -> Dict[str, torch.Tensor]:
+    """A JAX ``quant`` collection (``{module path...: {"amax": x}}``) -> the
+    port's ranges, ``{"a/b/c": fp32 0-d tensor}`` keyed by the flax module
+    path, as ``quant/state.py::quant_mode`` takes them."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(dict(collection)).items():
+        if path[-1] != "amax":
+            raise KeyError(f"no mapping for JAX quant leaf {'/'.join(path)}")
+        out["/".join(path[:-1])] = torch.tensor(float(np.asarray(value, np.float32)),
+                                                dtype=torch.float32)
+    return out
