@@ -7,8 +7,8 @@ Phases, each of which asserts:
   1. the card, the versions, and the build of every CUDA kernel from csrc/;
   2. each kernel against its plain torch version on the card, at the NMS
      shapes of the serving and eval paths (equal outputs required): the keep
-     on sorted candidates (the tile walk) and on unsorted ones (the argmax
-     loop), under both rules; timed on the sorted ones, the main path's;
+     on sorted candidates (the op as the selection calls it) and on
+     unsorted ones (the wrapper's stable sort first), under both rules; timed on the sorted ones, the main path's;
   3. the serving path at full width: YOLOv6-S (configs/yolov6s.py, 80
      classes, deploy) serving 32 uint8 images of 640x640 in fp32 through
      ``make_end2end_fn``; the NMS kernel must be launched, take the tile walk
@@ -94,13 +94,16 @@ Phases, each of which asserts:
  16. the M KD step: YOLOv6-M with a fuse-AB M teacher, ``ComputeLossDistill``
      with DFL and the channel-wise KD, 5 timed steps;
  17. the distill learning gate (``tools/learning_gate.py --distill`` at its
-     defaults but ``--teacher-epochs 10``: the fuse-AB N teacher 10 epochs,
+     defaults but ``--teacher-epochs 10``, in a child process that runs beside
+     phase 13 and is joined before phase 14, so that the two gates share the
+     card and the host and no timed step does: the fuse-AB N teacher 10 epochs,
      then the distill-NS N student 30, 160 px, fp32): the student's final
      mAP50 > 0.75 and a gain > 0.20, the tile
      walk in every image of its evals, and the first keep with a candidate of
      the teacher's in-training eval, the student's, its checkpoint evals and
-     its exact-NMS pass each held against the plain emit-once keep; it logs
-     the teacher's final mAP50, the trajectory and the wall time;
+     its exact-NMS pass each held against the plain emit-once keep, and its
+     launches counted as its recorder counts them; it logs the teacher's
+     final mAP50, the trajectory and the wall time;
  18. the P6 family at 1280 (configs/yolov6{n6,s6,m6,l6}.py, four levels,
      strides 8-64): each deploy graph serves 32 random uint8 images of
      1280x1280 in bf16 at the serving defaults, whose 34,000 anchors an
@@ -194,7 +197,20 @@ Phases, each of which asserts:
      (1 epoch, its in-training eval quantised) through the train CLI on phase
      31's subset, the QAT checkpoint's ranges equal to the calibration's; and
      ``tools/quantize.py --eval`` on phase 13's gate checkpoint beside the eval
-     CLI's float eval of the same file: PTQ mAP50 at most 0.05 below float.
+     CLI's float eval of the same file: PTQ mAP50 at most 0.05 below float;
+ 33. export and serving: S (phase 3's weights) exported end2end as ``.pt2``
+     b32@640 in bf16 and fp32, each loaded by ``load_serving`` in a fresh
+     ``python3 -c`` that imports only yolov6_tpu_torch and served phase 4's
+     images: the kernel launched from inside the artifact, its keep equal to
+     the plain keep on the artifact's own candidates, the detections as the
+     live serve's (fp32 TF32 off: boxes within 1e-4 of the box scale; bf16
+     within the decode tolerances), both calls timed; ``Evaler.init_artifact``
+     on an eval-protocol ``.pt2`` over 64 of [11]'s images: COCO rows and AP
+     equal to the live Evaler's; S's ONNX file through ``OnnxTorchModule`` at
+     b32 (5e-4 / 1e-4 of the live forward plus decode) and once through the
+     numpy runner at B=1, and [32]'s PTQ S as a QDQ file against its
+     fake-quantised forward (every element within 5e-4 / 1e-4); S traced to TorchScript and run; Lite-S's NCNN
+     files run by the numpy executor against the card's head maps.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -212,6 +228,7 @@ prior-probability init are as built.
 from __future__ import annotations
 
 import json
+from functools import partial
 import math
 import os
 import subprocess
@@ -312,6 +329,8 @@ PHASE_MARKS = []  # (phase tag, host clock) at the start of each phase group
 
 def phase_mark(tag: str) -> None:
     PHASE_MARKS.append((tag, time.perf_counter()))
+    if len(PHASE_MARKS) > 1:
+        log(f"phase group {tag} starts {PHASE_MARKS[-1][1] - PHASE_MARKS[0][1]:.1f} s after [1]")
 
 
 def nvidia_smi_line() -> str:
@@ -377,7 +396,7 @@ def sort_candidates(boxes, scores):
 def keep_work_sorted(boxes, scores, idx, valid, tile: int):
     """(bytes, operations) the keep needs for these inputs once their order is
     known (scores sorted descending, every kept box distinct, as under the
-    default rule). Bytes: every score, which the check of the order reads,
+    default rule). Bytes: every score, which the count of the prefix reads,
     the boxes up to the last candidate visited, and the outputs. Operations:
     per candidate up to the last one visited, 17 of IoU and test per kept box
     ahead of it, and 17 per pair of candidates within one tile of ``tile``.
@@ -393,13 +412,13 @@ def keep_work_sorted(boxes, scores, idx, valid, tile: int):
     pairs = (full * (tile * (tile - 1) // 2) + rem * (rem - 1) // 2).sum()
     B = scores.shape[0]
     nbytes = (scores.numel() * 4 + int(n.sum()) * 16 + idx.numel() * 4 + valid.numel()
-              + 5 * B)
+              + 4 * B)
     return nbytes, int(17 * (ahead + pairs))
 
 
 def keep_work(boxes, scores, idx, valid, iou_thres):
     """(bytes, operations) the greedy keep needs for these inputs in any
-    order (the argmax loop's count): each input read once and each output
+    order (an argmax loop's count): each input read once and each output
     written once; per step run, one compare per candidate for the argmax and
     17 operations of IoU and test per candidate still alive. A step runs for
     each valid row, plus one that finds nothing alive when the loop ends
@@ -408,8 +427,8 @@ def keep_work(boxes, scores, idx, valid, iou_thres):
 
     B, K = scores.shape
     md = idx.shape[1]
-    # idx, valid, and the kernel's path and tiles per image
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + idx.numel() * 4 + valid.numel() + 5 * B
+    # idx, valid, and the kernel's tiles per image
+    nbytes = boxes.numel() * 4 + scores.numel() * 4 + idx.numel() * 4 + valid.numel() + 4 * B
     kept = torch.gather(boxes, 1, idx.long()[..., None].expand(-1, -1, 4))  # [B, md, 4]
     iw = (torch.minimum(kept[..., None, 2], boxes[:, None, :, 2])
           - torch.maximum(kept[..., None, 0], boxes[:, None, :, 0])).clamp(min=0)
@@ -853,7 +872,9 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
     from yolov6_tpu_torch.models.end2end import make_end2end_fn
     from yolov6_tpu_torch.models.yolo import build_model
     from yolov6_tpu_torch.ops import nms as nms_mod
-    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import (
+        TILE, greedy_nms, greedy_nms_op, greedy_nms_plain,
+    )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -865,9 +886,7 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
     torch.cuda.synchronize()
     launches = greedy_nms.launches
     assert launches > 0, f"{label}: serving did not launch the NMS kernel"
-    path = greedy_nms.last_path.tolist()
     tiles = float(greedy_nms.last_tiles.float().mean())
-    assert path == [1] * BATCH, f"{label} serving: not every image took the tile walk: {path}"
     assert num_dets.shape == (BATCH, 1) and boxes.shape == (BATCH, SERVE["max_det"], 4)
     assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     total = int(num_dets.sum())
@@ -889,8 +908,6 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
         for setting, kw in (("serving", SERVE), ("eval protocol", EVAL)):
             dets_k, valid_k = nms_mod.non_max_suppression(preds, **kw)
             torch.cuda.synchronize()
-            paths = greedy_nms.last_path.tolist()
-            assert paths == [1] * BATCH, f"{setting}: not every image took the tile walk: {paths}"
             walk_tiles[setting] = float(greedy_nms.last_tiles.float().mean())
             dets_p, valid_p = plain_emit_once(preds, **kw)
             assert torch.equal(valid_k, valid_p) and torch.equal(dets_k, dets_p), \
@@ -937,11 +954,10 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
                                               emit_once=emit_once)
             assert torch.equal(idx_k, idx_p) and torch.equal(valid_k, valid_p), \
                 f"{label} served candidates, emit_once={emit_once}: the kernel differs from plain"
-            assert (greedy_nms.last_path == 1).all()
             max_abs_err = max(max_abs_err, float((idx_k - idx_p).abs().max()))
-        ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20,
+        ms = cuda_ms(lambda: greedy_nms_op(nms_boxes, cand_scores, md, iou, True), iters=20,
                      queue_ahead=True)
-        call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
+        call_ms = cuda_ms(lambda: greedy_nms_op(nms_boxes, cand_scores, md, iou, True), iters=20)
         plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, cand_scores, md, iou),
                            iters=3, warmup=1)
         bound, by = bound_ms(*keep_work_sorted(nms_boxes, cand_scores, idx_k, valid_k, TILE))
@@ -950,7 +966,7 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
             f"max_det={md}, both rules equal to plain: kernel {ms:.4f} ms, per call "
             f"{call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
             f"({by}; in any order {any_bound:.5f} ms, {any_by}) [{card}]")
-    return dict(launches=launches, path=path[0], tiles_visited=tiles, max_abs_err=max_abs_err,
+    return dict(launches=launches, tiles_visited=tiles, max_abs_err=max_abs_err,
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 any_order_bound_ms=any_bound, K=nms_boxes.shape[1], max_det=md)
 
@@ -973,7 +989,6 @@ def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=
     launches = greedy_nms.launches
     assert launches > 0, f"{label}: bf16 serving did not launch the NMS kernel"
     batch, img = images.shape[0], images.shape[1]
-    assert greedy_nms.last_path.tolist() == [1] * batch, f"{label} bf16: not every image walked"
     assert int(n16.sum()) > 0, f"{label}: bf16 serving found no detections"
     with torch.inference_mode():
         fd_ms = cuda_ms(lambda: forward_decode(images, model, half=True), iters=10, warmup=3)
@@ -1082,7 +1097,7 @@ class KeepRecorder:
         def recording_keep(boxes, scores, max_det, iou_thres, emit_once=True):
             idx, valid = keep(boxes, scores, max_det, iou_thres, emit_once=emit_once)
             tiles = greedy_nms.last_tiles.clone()
-            self.walks.append((greedy_nms.last_path.clone(), tiles, boxes.shape[1]))
+            self.walks.append((tiles, boxes.shape[1]))
             if self.record_all:
                 self.all.append(dict(boxes=boxes.clone(), scores=scores.clone(), max_det=max_det,
                                      iou_thres=iou_thres, emit_once=emit_once, idx=idx.clone(),
@@ -1110,10 +1125,9 @@ class KeepRecorder:
 
         from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms_plain
 
-        paths = torch.cat([p for p, _, _ in self.walks]).tolist()
-        assert paths == [1] * len(paths), f"{what}: not every image took the tile walk"
-        assert len(paths) >= n_images, f"{what}: {len(paths)} images walked, {n_images} evaluated"
-        tiles = float(torch.cat([t for _, t, _ in self.walks]).float().mean())
+        walked = torch.cat([t for t, _ in self.walks])
+        assert len(walked) >= n_images, f"{what}: {len(walked)} images walked, {n_images} evaluated"
+        tiles = float(walked.float().mean())
         assert tiles > 0, f"{what}: the walk visited no tile"
         err = 0.0
         for label in labels:
@@ -1128,13 +1142,13 @@ class KeepRecorder:
             f["kept"] = int(f["valid"].sum())
             err = max(err, float((f["idx"] - idx_p).abs().max()))
         return dict(launches=len(self.walks), tiles_visited=tiles,
-                    K=sorted({k for _, _, k in self.walks}), max_abs_err=err,
+                    K=sorted({k for _, k in self.walks}), max_abs_err=err,
                     first={label: self.first[label] for label in labels})
 
 
     def check_all(self, what: str):
-        """Every recorded launch took the tile walk and equals the plain keep
-        under its rule; returns the launches and the largest index error."""
+        """Every recorded launch equals the plain keep under its rule; returns
+        the launches and the largest index error."""
         import torch
 
         from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms_plain
@@ -1142,13 +1156,38 @@ class KeepRecorder:
         assert self.record_all and len(self.all) == len(self.walks) > 0, what
         err = 0.0
         for i, f in enumerate(self.all):
-            assert bool((self.walks[i][0] == 1).all()), f"{what}: launch {i} took no tile walk"
             idx_p, valid_p = greedy_nms_plain(f["boxes"], f["scores"], f["max_det"],
                                               f["iou_thres"], emit_once=f["emit_once"])
             assert torch.equal(f["idx"], idx_p) and torch.equal(f["valid"], valid_p), \
                 f"{what}: launch {i}'s keep differs from the plain keep"
             err = max(err, float((f["idx"] - idx_p).abs().max()))
         return self.all, err
+
+
+def keep_spy(limit: int = 0):
+    """A ``TorchDispatchMode`` that records, while active, the inputs and
+    outputs of the ``yolov6::greedy_nms`` calls (the first ``limit`` of them,
+    0 for all) in its ``calls`` list as ``(boxes, scores, max_det,
+    iou_thres, emit_once, idx, valid)``: it sees the keep also where a
+    loaded ``.pt2`` calls the op from inside its graph. Every op, the keep
+    included, runs as it would without it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class KeepSpy(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.yolov6.greedy_nms.default and not (
+                    limit and len(self.calls) >= limit):
+                self.calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                        for a in (*args, *out)))
+            return out
+
+    return KeepSpy()
 
 
 def split_per_batch(batch_split) -> dict:
@@ -1172,7 +1211,9 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     import torch
 
     from yolov6_tpu_torch.core.evaler import Evaler
-    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import (
+        TILE, greedy_nms, greedy_nms_op, greedy_nms_plain,
+    )
 
     what = f"{label}{' rect' if rect else ''}{f' shrink {shrink}' if shrink else ''}"
     torch.backends.cudnn.allow_tf32 = True
@@ -1285,8 +1326,8 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     md, iou = first["max_det"], first["iou_thres"]
     assert first["emit_once"] and (md, iou) == (evaler.max_det, evaler.iou_thres)
     k_tiles = float(first["tiles"].float().mean())
-    ms = cuda_ms(lambda: greedy_nms(nms_boxes, scores, md, iou), iters=20, queue_ahead=True)
-    call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, scores, md, iou), iters=20)
+    ms = cuda_ms(lambda: greedy_nms_op(nms_boxes, scores, md, iou, True), iters=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: greedy_nms_op(nms_boxes, scores, md, iou, True), iters=20)
     plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, scores, md, iou), iters=3, warmup=1)
     bound, by = bound_ms(*keep_work_sorted(nms_boxes, scores, idx_k, valid_k, TILE))
     log(f"{tag} greedy_nms on {what}'s first eval batch B={nms_boxes.shape[0]} K={nms_boxes.shape[1]} "
@@ -1514,7 +1555,8 @@ def learning_gate_phase(root: str, card: str) -> dict:
         f"mAP50, mAP50-95) {traj}; gain {result['gain']:.4f}; exact NMS mAP50 "
         f"{result['exact_nms']['map50']:.4f}, mAP50-95 {result['exact_nms']['map50_95']:.4f}, "
         f"delta mAP50-95 {result['nms_delta_map50_95']:+.4f}; training {result['train_s']:.1f} s, "
-        f"gate {wall:.1f} s; {walk['launches']} kernel launches in its evals, the tile walk in "
+        f"gate {wall:.1f} s (beside [17]'s child, sharing the card and the host); "
+        f"{walk['launches']} kernel launches in its evals, the tile walk in "
         f"every image ({walk['tiles_visited']:.2f} tiles/image), the first batch's keep with a "
         f"candidate equal to the plain emit-once keep in each pass ({firsts}) [{card}]")
     assert rc == 0 and result["passed"], f"the learning gate failed: {result}"
@@ -1557,12 +1599,15 @@ def distill_gate_phase(root: str, card: str) -> dict:
             rc = learning_gate.main(args)
             wall = time.perf_counter() - t0
             counts["student"] = greedy_nms.launches - counts["teacher"]
+            launches = greedy_nms.launches
     finally:
         learning_gate._eval_ckpt, learning_gate._distill_prestage = eval_ckpt, prestage
     with open(os.path.join(args.out, "gate_result.json")) as f:
         result = json.load(f)
     labels = ("teacher", "in-training", "default", "exact")
     walk = rec.check("[17] distill gate evals", args.n_val, labels=labels)
+    assert launches == walk["launches"], \
+        f"[17] {launches} kernel launches, {walk['launches']} recorded"
     firsts = "; ".join(f"{k} B={f['boxes'].shape[0]} K={f['boxes'].shape[1]} {f['kept']} kept"
                        for k, f in walk["first"].items())
     teacher = result["teacher"]
@@ -1576,7 +1621,8 @@ def distill_gate_phase(root: str, card: str) -> dict:
         f"mAP50, mAP50-95) {traj} with the original config; gain {result['gain']:.4f}; exact "
         f"NMS mAP50 {result['exact_nms']['map50']:.4f}, delta mAP50-95 "
         f"{result['nms_delta_map50_95']:+.4f}; student training {result['train_s']:.1f} s, gate "
-        f"{wall:.1f} s; kernel launches: {counts['teacher']} in the teacher's eval, "
+        f"{wall:.1f} s (beside [13], sharing the card and the host); kernel launches: "
+        f"{counts['teacher']} in the teacher's eval, "
         f"{counts['student']} in the student's evals, the tile walk in every image "
         f"({walk['tiles_visited']:.2f} tiles/image), the first keep with a candidate equal to "
         f"the plain emit-once keep in each pass ({firsts}) [{card}]")
@@ -1588,6 +1634,52 @@ def distill_gate_phase(root: str, card: str) -> dict:
                 teacher_final_map50=teacher["final_map50"], teacher_train_s=teacher["train_s"],
                 **{k: result[k] for k in ("trajectory", "final_map50", "gain", "exact_nms",
                                           "nms_delta_map50_95", "train_s")})
+
+
+def start_distill_gate(root: str):
+    """Phase 17 runs in a child process (``chip_smoke.py --distill-gate <root>
+    <result.json>``), started before [13] and joined after it, before the
+    timed steps of [14]-[16]: both gates are host-bound (the card idles most
+    of each step), so the distill gate's five minutes overlap the plain
+    gate's three instead of adding to the script's wall time. Only the two
+    gates' wall times share the card and the host. Returns ``(process,
+    result path, log path)``."""
+    out = os.path.join(root, "distill_gate_child.json")
+    log_path = os.path.join(root, "distill_gate_child.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--distill-gate",
+                                 root, out], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log_path
+
+
+def join_distill_gate(child) -> dict:
+    """Wait for [17]'s child, replay its phase lines, and return its result
+    (it asserts the gate's bar and its keeps itself)."""
+    proc, out, log_path = child
+    try:
+        rc = proc.wait(timeout=1200)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith("[17]"):
+            log(line)
+    assert rc == 0, "[17] the distill gate's child failed:\n" + "\n".join(lines[-60:])
+    with open(out) as f:
+        return json.load(f)
+
+
+def distill_gate_child(argv) -> int:
+    """The child of phase 17 (``chip_smoke.py --distill-gate <root> <json>``):
+    the distill gate with its kernel checks, its result written as JSON."""
+    root, out = argv
+    result = distill_gate_phase(root, nvidia_smi_line())
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
 
 
 def recipe_phases(cfgs, images, dev, card: str) -> dict:
@@ -1653,7 +1745,9 @@ def timed_serve_phase(cfg, label: str, model, images, dev, card: str, tag: str,
 
     from yolov6_tpu_torch.models.end2end import make_end2end_fn
     from yolov6_tpu_torch.models.yolo import build_model
-    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import (
+        TILE, greedy_nms, greedy_nms_op, greedy_nms_plain,
+    )
 
     torch.backends.cudnn.allow_tf32 = True
     serve16 = make_end2end_fn(model, **SERVE, with_preprocess=True, half=True, device=dev)
@@ -1667,8 +1761,8 @@ def timed_serve_phase(cfg, label: str, model, images, dev, card: str, tag: str,
     nms_boxes, cand_scores, idx_k, valid_k = (first[k] for k in ("boxes", "scores", "idx",
                                                                   "valid"))
     md, iou = first["max_det"], first["iou_thres"]
-    ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20, queue_ahead=True)
-    call_ms = cuda_ms(lambda: greedy_nms(nms_boxes, cand_scores, md, iou), iters=20)
+    ms = cuda_ms(lambda: greedy_nms_op(nms_boxes, cand_scores, md, iou, True), iters=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: greedy_nms_op(nms_boxes, cand_scores, md, iou, True), iters=20)
     plain_ms = cuda_ms(lambda: greedy_nms_plain(nms_boxes, cand_scores, md, iou), iters=3,
                        warmup=1)
     bound, by = bound_ms(*keep_work_sorted(nms_boxes, cand_scores, idx_k, valid_k, TILE))
@@ -1968,7 +2062,9 @@ def infer_phase(root: str, dev, card: str) -> dict:
     import torch
 
     from yolov6_tpu_torch.data.image_io import imread
-    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import (
+        TILE, greedy_nms, greedy_nms_op, greedy_nms_plain,
+    )
     from yolov6_tpu_torch.tools import infer as infer_cli
     from yolov6_tpu_torch.utils.config import Config
 
@@ -2055,8 +2151,8 @@ def infer_phase(root: str, dev, card: str) -> dict:
     f = runs["fp32"]["first"]
     boxes, scores, idx_k, valid_k = f["boxes"], f["scores"], f["idx"], f["valid"]
     md, iou = f["max_det"], f["iou_thres"]
-    ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20, queue_ahead=True)
-    call_ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20)
+    ms = cuda_ms(lambda: greedy_nms_op(boxes, scores, md, iou, True), iters=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: greedy_nms_op(boxes, scores, md, iou, True), iters=20)
     plain_ms = cuda_ms(lambda: greedy_nms_plain(boxes, scores, md, iou), iters=3, warmup=1)
     bound, by = bound_ms(*keep_work_sorted(boxes, scores, idx_k, valid_k, TILE))
     tiles = float(f["tiles"].float().mean())
@@ -3020,6 +3116,321 @@ def ptq_cli_phase(root: str, dev, card: str) -> dict:
                 max_abs_err=max(fwalk["max_abs_err"], qwalk["max_abs_err"]))
 
 
+# phase group 33: export and serving (the .pt2 artifact, artifact eval, ONNX,
+# TorchScript, NCNN)
+EXPORT_EVAL_IMAGES = 64  # [33b]: the first images of [11]'s val set
+ONNX_TOL = dict(atol=5e-4, rtol=1e-4)  # tools/export.py --check's
+NCNN_TOL = 2e-4  # tools/export.py --format ncnn --check's, fp32
+# [33a]'s child: a fresh interpreter that imports only yolov6_tpu_torch (and
+# this script's keep_spy, which imports torch alone), loads
+# each .pt2 with load_serving and serves the images through it; argv: the
+# images' .npy, then (artifact, outputs' .npz, TF32 on) for each artifact
+ARTIFACT_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from yolov6_tpu_torch.models.end2end import load_serving
+from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
+from chip_smoke import keep_spy
+
+images = torch.from_numpy(np.load(sys.argv[1])).cuda()
+for path, out_path, tf32 in zip(*[iter(sys.argv[2:])] * 3):
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32 == "1"
+    art = load_serving(path, "cuda")
+    greedy_nms.launches = 0
+    with keep_spy() as spy:
+        out = art.call(images)
+    torch.cuda.synchronize()
+    launches = greedy_nms.launches
+    assert len(spy.calls) == launches, (len(spy.calls), launches)
+    boxes, scores, max_det, iou, emit_once, idx, valid = spy.calls[0]
+    idx_p, valid_p = greedy_nms_plain(boxes, scores, max_det, iou, emit_once=emit_once)
+    for _ in range(3):
+        art.call(images)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        art.call(images)
+    end.record()
+    end.synchronize()
+    np.savez(out_path, *[o.cpu().numpy() for o in out])
+    print("CHILD " + json.dumps(dict(
+        path=path, launches=launches,
+        keep_equal=bool(torch.equal(idx, idx_p) and torch.equal(valid, valid_p)),
+        max_abs_err=float((idx - idx_p).abs().max()), K=int(boxes.shape[1]),
+        kept=int(valid.sum()), call_ms=start.elapsed_time(end) / 10,
+        foreign=sorted(n for n in sys.modules
+                       if n.split(".")[0] in ("jax", "flax", "cv2", "yolov6_tpu")))))
+"""
+
+
+def artifact_phase(model, images_np, images, root: str, dev, card: str) -> dict:
+    """Phase 33a: S (phase 3's weights) exported end2end as a ``.pt2`` b32@640
+    (uint8 input, preprocessing in the graph) in bf16 and in fp32, each
+    loaded with ``load_serving`` in a fresh ``python3 -c`` that imports only
+    yolov6_tpu_torch: the kernel launched from inside the artifact (counted
+    there), its first keep equal to the plain keep on the artifact's own
+    candidates; the fp32 detections equal in count and class to the live
+    fp32 serve's (TF32 off on both sides), boxes within 1e-4 of the box
+    scale (IMG) and scores within 1e-4; the bf16 ones against the live bf16
+    serve within the decode tolerances (DECODE_BOX_TOL, DECODE_SCORE_TOL);
+    the artifact's call and the live serve's timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from yolov6_tpu_torch.models.end2end import (
+        export_program, export_serve_module, make_end2end_fn,
+    )
+
+    images_path = os.path.join(root, "serve_images.npy")
+    np.save(images_path, images_np)
+    names = {"export_s_pt2": True, "export_s_pt2_fp32": False}  # name -> bf16
+    argv, export_s = [images_path], {}
+    for name, half in names.items():
+        path = os.path.join(root, f"{name}.pt2")
+        t0 = time.perf_counter()
+        export_program(export_serve_module(model, **SERVE, with_preprocess=True, half=half),
+                       BATCH, (IMG, IMG), path, input_dtype=torch.uint8)
+        export_s[name] = time.perf_counter() - t0
+        # fp32 compares without TF32 on both sides
+        argv += [path, os.path.join(root, f"{name}.npz"), str(int(half))]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    child_s = time.perf_counter() - t0
+    assert res.returncode == 0, f"[33a] the child failed:\n{res.stderr[-4000:]}"
+    children = [json.loads(line[len("CHILD "):]) for line in res.stdout.splitlines()
+                if line.startswith("CHILD ")]
+    assert len(children) == len(names), res.stdout[-4000:]
+    out = {}
+    for (name, half), child in zip(names.items(), children):
+        assert child["foreign"] == [], f"[33a] the child imported {child['foreign']}"
+        assert child["launches"] >= 1, f"[33a] {name}: the artifact launched no NMS kernel"
+        assert child["keep_equal"], f"[33a] {name}: the artifact's keep differs from the plain keep"
+        got = [torch.from_numpy(a) for a in np.load(os.path.join(root, f"{name}.npz")).values()]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = half
+        live = make_end2end_fn(model, **SERVE, with_preprocess=True, half=half, device=dev)
+        want = [t.cpu() for t in live(images)]
+        live_ms = cuda_ms(lambda: live(images), iters=10, warmup=3)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        assert torch.equal(got[0], want[0]), f"[33a] {name}: num_dets differ from the live serve"
+        valid = torch.arange(SERVE["max_det"])[None] < want[0]
+        assert int(valid.sum()) > 0, f"[33a] {name}: no detections"
+        assert torch.equal(got[3][valid], want[3][valid]), f"[33a] {name}: classes differ"
+        box_tol, score_tol = ((DECODE_BOX_TOL, DECODE_SCORE_TOL) if half else
+                              (dict(rtol=0.0, atol=1e-4 * IMG), dict(rtol=0.0, atol=1e-4)))
+        box_err = float((got[1][valid] - want[1][valid]).abs().max())
+        score_err = float((got[2][valid] - want[2][valid]).abs().max())
+        torch.testing.assert_close(got[1][valid], want[1][valid], **box_tol)
+        torch.testing.assert_close(got[2][valid], want[2][valid], **score_tol)
+        path = child["path"]
+        log(f"[33a] {name}: exported b{BATCH}@{IMG} {'bf16' if half else 'fp32'} in "
+            f"{export_s[name]:.2f} s ({os.path.getsize(path) / 2**20:.1f} MiB); in the child "
+            f"({child_s:.2f} s for both: load_serving, serve, checks, timing), "
+            f"{child['launches']} NMS kernel launch(es) "
+            f"a call from inside the artifact, the keep (K={child['K']}, {child['kept']} kept) "
+            f"equal to the plain keep; {int(valid.sum())} detections as the live serve's, boxes "
+            f"max |diff| {box_err:.3e} px, scores {score_err:.3e}; artifact call "
+            f"{child['call_ms']:.3f} ms vs live serve {live_ms:.3f} ms [{card}]")
+        out[name] = dict(launches=child["launches"], max_abs_err=child["max_abs_err"],
+                         K=child["K"], kept=child["kept"], call_ms=child["call_ms"],
+                         live_serve_ms=live_ms, export_s=export_s[name], box_err=box_err,
+                         score_err=score_err)
+    return out
+
+
+def artifact_eval_phase(model, train_data: str, root: str, dev, card: str) -> dict:
+    """Phase 33b: S exported end2end as a ``.pt2`` at the eval protocol
+    (float input, multi-label, 8192 candidates) at b32, evaluated by
+    ``Evaler.init_artifact`` over the first EXPORT_EVAL_IMAGES images of
+    [11]'s val set in fp32 (TF32 off): its COCO rows and AP equal to the
+    live Evaler's on the same model and images, one kernel launch a batch
+    from inside the artifact, the first equal to the plain keep."""
+    import torch
+
+    from yolov6_tpu_torch.core.evaler import Evaler
+    from yolov6_tpu_torch.models.end2end import export_program, export_serve_module
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    data = load_data_config(val_subset(root, EXPORT_EVAL_IMAGES, train_data))
+    path = os.path.join(root, "eval_s.pt2")
+    t0 = time.perf_counter()
+    export_program(export_serve_module(
+        model, conf_thres=EVAL["conf_thres"], iou_thres=EVAL["iou_thres"],
+        max_det=EVAL["max_det"], half=False, multi_label=True, max_nms=EVAL["max_nms"]),
+        BATCH, (IMG, IMG), path, input_dtype=torch.float32)
+    export_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kw = dict(batch_size=BATCH, img_size=IMG, half=False, conf_thres=EVAL["conf_thres"],
+                  iou_thres=EVAL["iou_thres"], max_det=EVAL["max_det"], max_nms=EVAL["max_nms"],
+                  save_dir=root, device=dev)
+        live = Evaler(dict(data), **kw)
+        live.init_model(model)
+        loader = live.init_data(None, "val")
+        want = live.predict_model(model, loader)
+        want_ap = live.eval_model(want, model, loader)
+        art = Evaler(dict(data), **kw)
+        shim = art.init_artifact(path, num_classes=NUM_CLASSES)
+        greedy_nms.launches = 0
+        t0 = time.perf_counter()
+        with keep_spy(limit=1) as spy:  # it costs a Python call an op; the log says so
+            got = art.predict_model(shim, art.init_data(None, "val"))
+        art_s = time.perf_counter() - t0
+        launches = greedy_nms.launches
+        boxes, scores, max_det, iou, emit_once, idx, valid = spy.calls[0]
+        idx_p, valid_p = greedy_nms_plain(boxes, scores, max_det, iou, emit_once=emit_once)
+        got_ap = art.eval_model(got, shim, loader)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    n_batches = -(-EXPORT_EVAL_IMAGES // BATCH)
+    assert launches == n_batches, f"[33b] {launches} kernel launches for {n_batches} batches"
+    assert torch.equal(idx, idx_p) and torch.equal(valid, valid_p), \
+        "[33b] the artifact's first keep differs from the plain keep"
+    assert len(want) > 0, "[33b] the live Evaler found no detection"
+    assert got == want, f"[33b] the artifact's COCO rows differ from the live Evaler's"
+    assert tuple(got_ap[:2]) == tuple(want_ap[:2])
+    log(f"[33b] Evaler.init_artifact on S's eval-protocol .pt2 (exported in {export_s:.2f} s) "
+        f"over {EXPORT_EVAL_IMAGES} images of [11]'s set, fp32 (TF32 off): {len(got)} COCO rows "
+        f"equal to the live Evaler's, AP50 {got_ap[0]:.4f} AP {got_ap[1]:.4f} as the live "
+        f"model's, {launches} kernel launches from inside the artifact, predict "
+        f"{art_s:.2f} s ({EXPORT_EVAL_IMAGES / art_s:.1f} imgs/s) [{card}]")
+    return dict(launches=launches, rows=len(got), ap50=float(got_ap[0]), export_s=export_s,
+                imgs_per_s=EXPORT_EVAL_IMAGES / art_s,
+                max_abs_err=float((idx - idx_p).abs().max()))
+
+
+def onnx_phase(model, images, ptq, dev, card: str) -> dict:
+    """Phase 33c: S's fp32 ONNX file (dynamic batch) through ``OnnxTorchModule``
+    on the card at b32 against the live fp32 forward plus decode (TF32 off),
+    within ONNX_TOL; the same file once through the numpy runner at B=1;
+    then [32]'s PTQ S (``ptq``: its deploy model with fake-quantised weights
+    and its ranges) as a QDQ file through ``OnnxTorchModule`` against the
+    fake-quantised forward plus decode."""
+    import torch
+
+    from yolov6_tpu_torch.export.onnx_export import SENTINEL, export_onnx, make_dynamic_batch
+    from yolov6_tpu_torch.export.onnx_numpy import OnnxRunner
+    from yolov6_tpu_torch.export.onnx_proto import parse_model
+    from yolov6_tpu_torch.export.onnx_quant import encode_parsed, to_qdq
+    from yolov6_tpu_torch.export.torch_export import DeployForward, OnnxTorchModule
+    from yolov6_tpu_torch.quant.state import quant_mode
+
+    x = images.float() / 255.0
+    fwd = DeployForward(model).eval()
+    t0 = time.perf_counter()
+    data = export_onnx(fwd, (x,), input_names=["images"], output_names=["outputs"],
+                       dynamic_batch=True)
+    m = parse_model(data)
+    make_dynamic_batch(m, SENTINEL)
+    data = encode_parsed(m)
+    export_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = fwd(x)
+            got = OnnxTorchModule(data)(x)
+        torch.testing.assert_close(got, want, **ONNX_TOL)
+        err = float((got - want).abs().max())
+        t0 = time.perf_counter()
+        got_np = OnnxRunner(data)(x[:1].cpu().numpy())[0]
+        numpy_s = time.perf_counter() - t0
+        torch.testing.assert_close(torch.from_numpy(got_np), want[:1].cpu(), **ONNX_TOL)
+        np_err = float((torch.from_numpy(got_np) - want[:1].cpu()).abs().max())
+        qmodel, amax = ptq
+        qfwd = DeployForward(qmodel).eval()
+        t0 = time.perf_counter()
+        with quant_mode(qmodel, amax):
+            qdq = to_qdq(export_onnx(qfwd, (x,), input_names=["images"],
+                                     output_names=["outputs"]))
+            with torch.no_grad():
+                qwant = qfwd(x)
+        qdq_s = time.perf_counter() - t0
+        with torch.no_grad():
+            qgot = OnnxTorchModule(qdq)(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    ops = [n.op_type for n in parse_model(qdq).nodes]
+    assert ops.count("QuantizeLinear") == len(amax), "[33c] a quantised conv input not rewritten"
+    torch.testing.assert_close(qgot, qwant, **ONNX_TOL)
+    q_err = float((qgot - qwant).abs().max())
+    log(f"[33c] S's ONNX file (dynamic batch; {len(m.nodes)} nodes, exported and converted in "
+        f"{export_s:.2f} s) through OnnxTorchModule on the card at b{BATCH}@{IMG} fp32 (TF32 "
+        f"off): max |diff| {err:.3e} vs the live forward plus decode (tolerance {ONNX_TOL}); the "
+        f"numpy runner at B=1 in {numpy_s:.2f} s: max |diff| {np_err:.3e}; [32]'s PTQ S as QDQ "
+        f"({ops.count('QuantizeLinear')} activation QDQ pairs, exported in {qdq_s:.2f} s) "
+        f"through OnnxTorchModule: every output within the tolerance of the fake-quantised "
+        f"forward, max |diff| {q_err:.3e} [{card}]")
+    return dict(max_abs_err=err, numpy_b1_err=np_err, numpy_b1_s=numpy_s, export_s=export_s,
+                qdq_max_abs_err=q_err, qdq_export_s=qdq_s)
+
+
+def torchscript_ncnn_phase(model, images, root: str, dev, card: str) -> dict:
+    """Phase 33d: S traced (``export_torchscript``), saved, loaded and run on
+    the card at b32 (fp32, TF32 off) against the live forward plus decode
+    (ONNX_TOL); Lite-S ([26]'s seeded weights) emitted as NCNN files, run by
+    the numpy executor at 320 against the card's Lite-S head maps (fp32)."""
+    import numpy as np
+    import torch
+
+    from yolov6_tpu_torch.export.ncnn_export import export_ncnn
+    from yolov6_tpu_torch.export.ncnn_numpy import NcnnRunner
+    from yolov6_tpu_torch.export.torch_export import DeployForward, export_torchscript
+
+    x = images.float() / 255.0
+    path = os.path.join(root, "s.torchscript.pt")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        export_torchscript(model, (x,), path)
+        loaded = torch.jit.load(path, map_location=dev)
+        with torch.no_grad():
+            got, want = loaded(x), DeployForward(model)(x)
+        ts_s = time.perf_counter() - t0
+        torch.testing.assert_close(got, want, **ONNX_TOL)
+        ts_err = float((got - want).abs().max())
+        lite = deploy_model(lite_config("s"), 30, dev)
+        t0 = time.perf_counter()
+        param, bin_path = export_ncnn(lite, os.path.join(root, "lite_s"), fp16=False)
+        img = np.random.default_rng(0).uniform(0, 1, (LITE_IMG, LITE_IMG, 3)).astype(np.float32)
+        blobs = NcnnRunner(param, bin_path)(img.transpose(2, 0, 1))
+        ncnn_s = time.perf_counter() - t0
+        with torch.no_grad():
+            head, _ = lite(torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    ncnn_err = 0.0
+    for i, (cls, reg) in enumerate(zip(head["cls"], head["reg"])):
+        want_i = torch.cat([torch.sigmoid(cls[0]), reg[0]], 0).cpu().numpy()
+        np.testing.assert_allclose(blobs[f"out{i}"], want_i, rtol=NCNN_TOL, atol=NCNN_TOL)
+        ncnn_err = max(ncnn_err, float(np.abs(blobs[f"out{i}"] - want_i).max()))
+    log(f"[33d] S traced to TorchScript, loaded and run on the card b{BATCH}@{IMG} fp32 in "
+        f"{ts_s:.2f} s: max |diff| {ts_err:.3e} vs the live forward plus decode "
+        f"({'bit-equal' if torch.equal(got, want) else 'not bit-equal'}); Lite-S's NCNN files "
+        f"({os.path.getsize(bin_path) / 2**20:.2f} MiB fp32) emitted and run by the numpy "
+        f"executor at {LITE_IMG} in {ncnn_s:.2f} s: max |diff| {ncnn_err:.3e} vs the card's "
+        f"head maps (tolerance {NCNN_TOL}) [{card}]")
+    return dict(torchscript_max_abs_err=ts_err, torchscript_s=ts_s, ncnn_max_abs_err=ncnn_err,
+                ncnn_s=ncnn_s)
+
+
+def ptq_model(kept, amax, dev):
+    """[32]'s PTQ S: the folded RepOpt S of yolov6s_opt_qat.py with its conv
+    weights fake-quantised per channel, and its ranges."""
+    from yolov6_tpu_torch.layers.reparam import fold_to_deploy
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.quant.ptq import quantize_variables
+
+    model = build_model(config_at("repopt", "yolov6s_opt_qat.py"), num_classes=NUM_CLASSES,
+                        deploy=True, device=dev)
+    model.load_state_dict(fold_to_deploy(kept["ema"], model), strict=True)
+    model.load_state_dict(quantize_variables(model.state_dict(), model), strict=True)
+    return model, amax
+
+
 def main() -> int:
     try:
         import torch
@@ -3038,7 +3449,9 @@ def main() -> int:
     import numpy as np
 
     from yolov6_tpu_torch.ops.cuda import build
-    from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import (
+        TILE, greedy_nms, greedy_nms_op, greedy_nms_plain,
+    )
     from yolov6_tpu_torch.utils.config import Config
 
     t_start = time.perf_counter()
@@ -3063,37 +3476,40 @@ def main() -> int:
         inputs = {"sorted": sort_candidates(*unsorted), "unsorted": unsorted}
         for order, (boxes, scores) in inputs.items():
             for emit_once in (True, False):
-                idx_k, valid_k = greedy_nms(boxes, scores, md, iou, emit_once=emit_once)
+                # sorted: the op as non_max_suppression calls it; unsorted: the
+                # wrapper's stable sort, the walk, and idx mapped back
+                idx_k, valid_k = (greedy_nms_op(boxes, scores, md, iou, emit_once)
+                                  if order == "sorted" else
+                                  greedy_nms(boxes, scores, md, iou, emit_once=emit_once))
                 idx_p, valid_p = greedy_nms_plain(boxes, scores, md, iou, emit_once=emit_once)
                 torch.cuda.synchronize()
                 what = f"{name}, {order}, emit_once={emit_once}"
                 assert torch.equal(valid_k, valid_p), f"{what}: valid differs from the plain keep"
                 assert torch.equal(idx_k, idx_p), f"{what}: idx differs from the plain keep"
-                assert (greedy_nms.last_path == int(order == "sorted")).all(), \
-                    f"{what}: wrong path {greedy_nms.last_path.tolist()}"
                 n_valid = int(valid_k.sum())
                 assert n_valid > B * md // 2, f"{what}: only {n_valid} kept, the chain is too short"
         # times on the sorted candidates under the default rule, the main path's
         boxes, scores = inputs["sorted"]
-        idx_k, valid_k = greedy_nms(boxes, scores, md, iou)
+        keep = partial(greedy_nms_op, emit_once=True)
+        idx_k, valid_k = keep(boxes, scores, md, iou)
         torch.cuda.synchronize()
         tiles = float(greedy_nms.last_tiles.float().mean())
-        ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20, queue_ahead=True)
+        ms = cuda_ms(lambda: keep(boxes, scores, md, iou), iters=20, queue_ahead=True)
         # one row: the scores pass, then the first tile with a single resolve step
-        one_row_ms = cuda_ms(lambda: greedy_nms(boxes, scores, 1, iou), iters=20, queue_ahead=True)
-        call_ms = cuda_ms(lambda: greedy_nms(boxes, scores, md, iou), iters=20)
-        argmax_ms = cuda_ms(lambda: greedy_nms(*unsorted, md, iou), iters=20, queue_ahead=True)
+        one_row_ms = cuda_ms(lambda: keep(boxes, scores, 1, iou), iters=20, queue_ahead=True)
+        call_ms = cuda_ms(lambda: keep(boxes, scores, md, iou), iters=20)
+        unsorted_ms = cuda_ms(lambda: greedy_nms(*unsorted, md, iou), iters=20, queue_ahead=True)
         plain_ms = cuda_ms(lambda: greedy_nms_plain(boxes, scores, md, iou), iters=3, warmup=1)
         b_ms, b_by = bound_ms(*keep_work_sorted(boxes, scores, idx_k, valid_k, TILE))
         any_ms, any_by = bound_ms(*keep_work(boxes, scores, idx_k, valid_k, iou))
         keep_rows[name] = dict(ms=ms, one_row_ms=one_row_ms, call_ms=call_ms,
-                               argmax_ms=argmax_ms, plain_ms=plain_ms,
+                               unsorted_ms=unsorted_ms, plain_ms=plain_ms,
                                bound_ms=b_ms, bound_by=b_by, any_order_bound_ms=any_ms,
                                any_order_bound_by=any_by, tiles_visited=tiles)
         log(f"[2] greedy_nms {name} B={B} K={K} max_det={md} iou={iou}: equal to plain on "
             f"sorted and unsorted candidates under both rules, {int(valid_k.sum())} kept; "
             f"sorted (tile walk, {tiles:.2f} tiles/image): kernel {ms:.4f} ms (with max_det 1 "
-            f"{one_row_ms:.4f} ms), per call {call_ms:.4f} ms; unsorted (argmax loop) {argmax_ms:.4f} ms; plain "
+            f"{one_row_ms:.4f} ms), per call {call_ms:.4f} ms; unsorted (sort, walk, map back) {unsorted_ms:.4f} ms; plain "
             f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms ({b_by}; in any order {any_ms:.5f} ms, "
             f"{any_by}) [{card}]")
 
@@ -3168,16 +3584,20 @@ def main() -> int:
         greedy_nms.launches = 0
         train_cli = train_cli_phase(train_data, root, dev, card)
         train_cli_launches = greedy_nms.launches
-        greedy_nms.launches = 0
-        gate = learning_gate_phase(root, card)
-        gate_launches = greedy_nms.launches
+        distill_child = start_distill_gate(root)  # phase 17, beside [13] alone
+        try:
+            greedy_nms.launches = 0
+            gate = learning_gate_phase(root, card)
+            gate_launches = greedy_nms.launches
+        except BaseException:
+            distill_child[0].kill()
+            distill_child[0].wait()
+            raise
+        distill_gate = join_distill_gate(distill_child)
 
-        # ---- 14.-16. the training recipes' steps; 17. the distill gate
+        # ---- 14.-16. the training recipes' steps, with the card to themselves
         phase_mark("[14]")
         recipes = recipe_phases(cfgs, images, dev, card)
-        greedy_nms.launches = 0
-        distill_gate = distill_gate_phase(root, card)
-        distill_gate_launches = greedy_nms.launches
 
         # ---- 18.-20. the P6 family at 1280: serve, train and fold, evaluate
         phase_mark("[18]")
@@ -3236,14 +3656,25 @@ def main() -> int:
         phase_mark("[32]")
         ptq_serve, amax = ptq_serve_phase(repopt_kept, images, dev, card)
         qat_step = qat_step_phase(repopt_kept, amax, dev, card)
+        ptq = ptq_model(repopt_kept, amax, dev)  # for [33c]
         del repopt_kept, amax
         greedy_nms.launches = 0
         qat_cli = qat_cli_phase(root, repopt_cli, dev, card)
         qat_cli_launches = greedy_nms.launches
         ptq_cli = ptq_cli_phase(root, dev, card)
+
+        # ---- 33. export and serving: S's .pt2 artifact in a fresh process, its
+        # eval, ONNX (and [32]'s PTQ S as QDQ), TorchScript, Lite-S's NCNN files
+        phase_mark("[33]")
+        model = deploy_model(cfgs["s"], 0, dev)
+        export = dict(artifact=artifact_phase(model, images_np, images, root, dev, card))
+        export["eval"] = artifact_eval_phase(model, train_data, root, dev, card)
+        export["onnx"] = onnx_phase(model, images, ptq, dev, card)
+        del ptq
+        export["torchscript_ncnn"] = torchscript_ncnn_phase(model, images, root, dev, card)
+        del model
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
-    assert distill_gate_launches == distill_gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
                                                      "train_m_kd"))
     assert p6_train["train_s6"]["launches"] == p6_train["train_l6"]["launches"] == 0
@@ -3319,7 +3750,10 @@ def main() -> int:
                              "train_s_qat": qat_step["launches"],
                              "qat_cli_eval": qat_cli_launches,
                              "eval_cli_gate_n_float": ptq_cli["float_launches"],
-                             "quantize_cli_eval_gate_n": ptq_cli["launches"]},
+                             "quantize_cli_eval_gate_n": ptq_cli["launches"],
+                             **{name: export["artifact"][name]["launches"]
+                                for name in ("export_s_pt2", "export_s_pt2_fp32")},
+                             "eval_artifact_s": export["eval"]["launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -3343,8 +3777,9 @@ def main() -> int:
                            pan["t_fold_serve"]["max_abs_err"],
                            repopt["opt_fold_serve"]["max_abs_err"], repopt_cli["max_abs_err"],
                            upstream["max_abs_err"], ptq_serve["max_abs_err"],
-                           qat_cli["max_abs_err"], ptq_cli["max_abs_err"]),
-        "path": main["path"],
+                           qat_cli["max_abs_err"], ptq_cli["max_abs_err"],
+                           *(v["max_abs_err"] for v in export["artifact"].values()),
+                           export["eval"]["max_abs_err"]),
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
         "call_ms": main["call_ms"],
@@ -3390,6 +3825,7 @@ def main() -> int:
         "repopt_cli": repopt_cli,
         "upstream": upstream,
         "quant": dict(ptq_serve=ptq_serve, qat_step=qat_step, qat_cli=qat_cli, ptq_cli=ptq_cli),
+        "export": export,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3403,4 +3839,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--upstream-files"]:
         sys.exit(upstream_files_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--distill-gate"]:
+        sys.exit(distill_gate_child(sys.argv[2:]))
     sys.exit(main())

@@ -12,6 +12,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from yolov6_tpu_torch.assigners.anchor_generator import generate_anchors
 from yolov6_tpu_torch.assigners.atss_assigner import atss_assigner
@@ -22,13 +23,29 @@ from yolov6_tpu_torch.losses.loss import ComputeLoss
 from yolov6_tpu_torch.models.effidehead import decode_eval
 from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.ops import nms as nms_mod
-from yolov6_tpu_torch.ops.cuda.nms_kernel import MAX_K, TILE, greedy_nms, greedy_nms_plain
+from yolov6_tpu_torch.ops.cuda.nms_kernel import TILE, greedy_nms, greedy_nms_plain
 from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.data_config import load_data_config
 
 from torch_port_utils import (
     N_CONFIG, clustered_candidates, edge_centred_targets, small_m_config, small_s_config,
 )
+
+
+class _KeepSpy(TorchDispatchMode):
+    """Records, while active, the inputs and outputs of every
+    ``yolov6::greedy_nms`` call, also from inside a loaded artifact, as
+    ``(boxes, scores, max_det, iou_thres, emit_once, idx, valid)``."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.yolov6.greedy_nms.default:
+            self.calls.append((*args, *out))
+        return out
 
 
 @pytest.fixture
@@ -40,6 +57,14 @@ def cuda_device():
 
 def _candidates(device, seed, B, K, **kw):
     return tuple(torch.from_numpy(a).to(device) for a in clustered_candidates(seed, B, K, **kw))
+
+
+def _keep(boxes, scores, max_det, iou, emit_once, is_sorted):
+    """The op itself on sorted candidates, as ``non_max_suppression`` calls
+    it; the wrapper, which sorts first, on unsorted ones."""
+    if is_sorted:
+        return torch.ops.yolov6.greedy_nms(boxes, scores, max_det, iou, emit_once)
+    return greedy_nms(boxes, scores, max_det, iou, emit_once=emit_once)
 
 
 def _sorted(boxes, scores):
@@ -59,26 +84,59 @@ def _sorted(boxes, scores):
     (2, 30000, 300, 0.65, 0),
 ])
 def test_kernel_matches_plain(cuda_device, B, K, max_det, iou, zero_area, sort, emit_once):
-    """Equal idx/valid to the plain version under both rules, on both paths:
-    the tile walk (path 1) on sorted candidates, the argmax loop (path 0) on
-    unsorted ones."""
+    """Equal idx/valid to the plain version under both rules: sorted
+    candidates go to the op itself as the selection hands them over,
+    unsorted ones through the wrapper's stable sort, the walk and the
+    indices mapped back (sort, then compare)."""
     boxes, scores = _candidates(cuda_device, 3, B, K, n_clusters=40, n_cls=20,
                                 zero_area=zero_area)
     if sort:
         boxes, scores = _sorted(boxes, scores)
     before = greedy_nms.launches
-    idx, valid = greedy_nms(boxes, scores, max_det, iou, emit_once=emit_once)
+    idx, valid = _keep(boxes, scores, max_det, iou, emit_once, sort)
     want_idx, want_valid = greedy_nms_plain(boxes, scores, max_det, iou, emit_once=emit_once)
     torch.cuda.synchronize()
     assert greedy_nms.launches == before + 1
     assert torch.equal(valid, want_valid)
     assert torch.equal(idx, want_idx)
-    assert (greedy_nms.last_path == int(sort)).all()
     tiles = greedy_nms.last_tiles
-    if sort:
-        assert (tiles >= 1).all() and (tiles <= -(-K // TILE)).all()
+    assert (tiles >= 1).all() and (tiles <= -(-K // TILE)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_once", [True, False], ids=["emit_once", "pallas_rule"])
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+def test_registered_op_matches_plain(cuda_device, sort, emit_once):
+    """``torch.ops.yolov6.greedy_nms`` itself on the card: on sorted
+    candidates it launches the kernel and equals the plain version; on
+    unsorted ones, sorted by the caller first, its indices mapped back
+    equal the plain version's on the unsorted input."""
+    boxes, scores = _candidates(cuda_device, 5, 4, 8400, n_clusters=40, n_cls=20)
+    want = greedy_nms_plain(boxes, scores, 100, 0.45, emit_once=emit_once)
+    order = torch.arange(8400, device=cuda_device).expand(4, -1)
+    if not sort:
+        scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+        boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
     else:
-        assert (tiles == 0).all()
+        boxes, scores = _sorted(boxes, scores)
+        want = greedy_nms_plain(boxes, scores, 100, 0.45, emit_once=emit_once)
+    before = greedy_nms.launches
+    idx, valid = torch.ops.yolov6.greedy_nms(boxes, scores, 100, 0.45, emit_once)
+    torch.cuda.synchronize()
+    assert greedy_nms.launches == before + 1
+    idx = torch.where(valid, order.gather(1, idx.long()), 0).int()
+    assert torch.equal(valid, want[1]) and torch.equal(idx, want[0])
+
+
+@pytest.mark.cuda
+def test_kernel_takes_any_candidate_count(cuda_device):
+    """With the argmax loop gone, shared memory no longer grows with K: K =
+    60,000 (over the 57,856 the loop allowed) launches and equals plain."""
+    boxes, scores = _sorted(*_candidates(cuda_device, 6, 2, 60000, n_clusters=40, n_cls=20))
+    got = torch.ops.yolov6.greedy_nms(boxes, scores, 300, 0.65, True)
+    want = greedy_nms_plain(boxes, scores, 300, 0.65)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -96,18 +154,16 @@ def test_kernel_rules_on_degenerate_boxes(cuda_device, sort):
         boxes, scores = _sorted(boxes, scores)
     outs = {}
     for emit_once in (True, False):
-        got = greedy_nms(boxes, scores, 150, 0.5, emit_once=emit_once)
+        got = _keep(boxes, scores, 150, 0.5, emit_once, sort)
         want = greedy_nms_plain(boxes, scores, 150, 0.5, emit_once=emit_once)
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-        assert (greedy_nms.last_path == int(sort)).all()
         outs[emit_once] = got
     assert not torch.equal(outs[True][0], outs[False][0])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["non_contiguous", "too_many_candidates", "too_many_rows",
-                                 "misaligned"])
+@pytest.mark.parametrize("bad", ["non_contiguous", "too_many_rows", "misaligned"])
 def test_kernel_wrapper_rejects(cuda_device, bad):
     if bad == "non_contiguous":
         boxes, scores = _candidates(cuda_device, 4, 2, 64)
@@ -116,12 +172,11 @@ def test_kernel_wrapper_rejects(cuda_device, bad):
         boxes = torch.zeros(2 * 64 * 4 + 1, device=cuda_device)[1:].view(2, 64, 4)
         scores = torch.zeros((2, 64), device=cuda_device)
     else:  # too many rows: the kept buffer, 20 bytes a row, outgrows shared memory
-        K = MAX_K + 1 if bad == "too_many_candidates" else 12000
-        boxes = torch.zeros((1, K, 4), device=cuda_device)
-        scores = torch.zeros((1, K), device=cuda_device)
+        boxes = torch.zeros((1, 12000, 4), device=cuda_device)
+        scores = torch.zeros((1, 12000), device=cuda_device)
     max_det = 12000 if bad == "too_many_rows" else 10
     with pytest.raises(ValueError):
-        greedy_nms(boxes, scores, max_det, 0.5)
+        torch.ops.yolov6.greedy_nms(boxes, scores, max_det, 0.5, True)
 
 
 def _fp32_step_on_card_and_cpu(make_cfg, loss_kw, spread_head=False):
@@ -490,3 +545,112 @@ def test_calibration_and_quantised_forward_on_card_match_cpu(cuda_device):
     for key in ("cls", "reg"):
         for a, b in zip(head_cpu[key], head_card[key]):
             np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pt2_artifact_keep_on_card_matches_plain(cuda_device, tmp_path):
+    """A ``.pt2`` of small S exported end2end on the card and loaded back with
+    ``load_serving``: its call launches the kernel (counted from inside the
+    artifact), the launch's keep equals the plain keep on the artifact's own
+    candidates, and the detections equal the live fp32 serve's (TF32 off)."""
+    from yolov6_tpu_torch.models.end2end import (
+        export_program, export_serve_module, load_serving, make_end2end_fn,
+    )
+
+    torch.manual_seed(0)
+    model = build_model(small_s_config(Config), num_classes=80, deploy=True, device=cuda_device)
+    with torch.no_grad():
+        for conv in list(model.detect.cls_preds) + list(model.detect.reg_preds):
+            conv.weight.normal_(0, 0.05)
+            conv.bias.fill_(1.0 if conv in model.detect.reg_preds else 0.0)
+    path = str(tmp_path / "s.pt2")
+    export_program(export_serve_module(model, with_preprocess=True, half=False), 2, (128, 128),
+                   path, input_dtype=torch.uint8)
+    art = load_serving(path, cuda_device)
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda_device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    before = greedy_nms.launches
+    try:
+        with _KeepSpy() as spy:
+            got = art.call(images)
+        torch.cuda.synchronize()
+        launches = greedy_nms.launches - before
+        want = make_end2end_fn(model, with_preprocess=True, half=False, device=cuda_device)(images)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert launches == len(spy.calls) == 1
+    boxes, scores, max_det, iou, emit_once, idx, valid = spy.calls[0]
+    want_idx, want_valid = greedy_nms_plain(boxes, scores, max_det, iou, emit_once=emit_once)
+    assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid) and int(valid.sum()) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-4 * 128)
+
+
+@pytest.mark.cuda
+def test_export_runners_on_card_match_cpu(cuda_device, tmp_path):
+    """Files written by the export CLI at its default device (the card) and
+    run by ``tools/infer_torchscript.py`` and ``tools/onnx_demo.py`` at
+    theirs (the card): the keep launches the kernel, and the detections are
+    the same runners' on the CPU (the TorchScript file traced again on the
+    CPU, since a trace keeps the device of its constants). The ONNX demo
+    runs a plain file (``non_max_suppression``) and an end2end one (its
+    ``NonMaxSuppression`` through the keep)."""
+    import os
+
+    from yolov6_tpu_torch.tools import export as export_cli
+    from yolov6_tpu_torch.tools import infer_torchscript, onnx_demo
+
+    from torch_port_utils import REPO_ROOT, S_CONFIG
+
+    conf = str(tmp_path / "yolov6s_small.py")
+    with open(S_CONFIG) as f, open(conf, "w") as g:
+        g.write(f.read() + "\nmodel['depth_multiple'] = 0.1\nmodel['width_multiple'] = 0.125\n")
+    torch.manual_seed(0)
+    model = build_model(Config.fromfile(conf), num_classes=4, device="cpu")
+    with torch.no_grad():
+        for c in list(model.detect.cls_preds) + list(model.detect.reg_preds):
+            c.weight.normal_(0, 0.05)
+            c.bias.fill_(1.5 if c in model.detect.reg_preds else 0.0)
+    weights = str(tmp_path / "s.pt")
+    torch.save(model.state_dict(), weights)
+
+    def export(fmt, out, *extra):
+        argv = ["--weights", weights, "--config", conf, "--img-size", "64", "--batch-size", "1",
+                "--format", fmt, "--output", str(tmp_path / out), *extra]
+        return export_cli.main(export_cli.get_args_parser().parse_args(argv))
+
+    def by_class_then_box(d):
+        return d[np.lexsort((d[:, 4], d[:, 3], d[:, 2], d[:, 1], d[:, 0], d[:, 5]))]
+
+    jpeg = os.path.join(REPO_ROOT, "data", "images", "image1.jpg")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ts_card, ts_cpu = export("torchscript", "card.pt"), export("torchscript", "cpu.pt",
+                                                                    "--device", "cpu")
+        kw = dict(img_size=(64, 64), conf_thres=0.3, iou_thres=0.45)
+        before = greedy_nms.launches
+        got = infer_torchscript.run(jpeg, ts_card, **kw)
+        assert greedy_nms.launches == before + 1
+        want = infer_torchscript.run(jpeg, ts_cpu, device="cpu", **kw)
+        assert len(want) > 3 and got.shape == want.shape
+        got, want = by_class_then_box(got), by_class_then_box(want)
+        np.testing.assert_array_equal(got[:, 5], want[:, 5])
+        np.testing.assert_allclose(got[:, :4], want[:, :4], atol=1)
+        np.testing.assert_allclose(got[:, 4], want[:, 4], atol=1e-4)
+        for name, extra in (("plain.onnx", ()), ("e2e.onnx", ("--end2end",))):
+            path = export("onnx", name, *extra)
+            argv = ["--model", path, "--source", jpeg, "--conf-thres", "0.3"]
+            before = greedy_nms.launches
+            got = onnx_demo.main(onnx_demo.get_args_parser().parse_args(argv))
+            assert greedy_nms.launches == before + 1, name
+            want = onnx_demo.main(onnx_demo.get_args_parser().parse_args(
+                argv + ["--device", "cpu"]))
+            assert len(want) > 3 and got.shape == want.shape, name
+            got, want = by_class_then_box(got), by_class_then_box(want)
+            np.testing.assert_array_equal(got[:, 5], want[:, 5])
+            np.testing.assert_allclose(got[:, :5], want[:, :5], atol=1e-3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

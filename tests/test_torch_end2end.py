@@ -118,14 +118,23 @@ import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "yolov6_tpu"))
 print("BAD", bad)
+print("EXPORT", sorted(n for n in sys.modules if n.startswith(("yolov6_tpu_torch.export.",
+      "yolov6_tpu_torch.tools.", "yolov6_tpu_torch.quant."))))
 print("MODULES", len([n for n in sys.modules if n.startswith("yolov6_tpu_torch")]))
 """
+
+EXPORT_MODULES = {f"yolov6_tpu_torch.export.{m}" for m in (
+    "onnx_proto", "onnx_numpy", "onnx_export", "onnx_quant", "torch_export", "ncnn_export",
+    "ncnn_numpy")} | {f"yolov6_tpu_torch.tools.{m}" for m in (
+        "export", "infer_torchscript", "onnx_demo", "quantization_ppq")} | {
+    "yolov6_tpu_torch.quant.onnx_ptq", "yolov6_tpu_torch.quant.trt_calibrator"}
 
 
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
     """Importing every module of the port (its eval, train and infer CLIs,
-    the hub, the trainer, the learning gate, the data modules and the
-    training recipes' heads and losses included) and chip_smoke
+    the hub, the trainer, the learning gate, the data modules, the
+    training recipes' heads and losses, and the export package with its
+    tools included) and chip_smoke
     loads none of jax, jaxlib, flax, cv2, PIL, yaml or the JAX package; the
     host augmentation library's source includes only the C++ standard
     library and its build links nothing else, and so does the JPEG
@@ -135,7 +144,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
-    assert int(res.stdout.split("MODULES")[1]) >= 63
+    loaded = set(eval(res.stdout.split("EXPORT")[1].split("MODULES")[0]))
+    assert EXPORT_MODULES <= loaded, EXPORT_MODULES - loaded
+    assert int(res.stdout.split("MODULES")[1]) >= 78
 
     from yolov6_tpu_torch.data import jpeg, native_aug
 

@@ -132,6 +132,63 @@ def test_greedy_nms_wrapper_on_cpu_uses_plain_version():
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
 
 
+@pytest.mark.parametrize("emit_once", [True, False], ids=["emit_once", "pallas_rule"])
+@pytest.mark.parametrize("zero_area", [0, 5], ids=["clustered", "zero_area_boxes"])
+def test_greedy_nms_wrapper_sorts_unsorted_candidates(zero_area, emit_once):
+    """A direct caller's unsorted candidates: the wrapper stable-sorts them,
+    runs the op (whose precondition is that order) and maps ``idx`` back,
+    which equals the plain loop on the unsorted input and, under the Pallas
+    rule, the Pallas kernel in interpret mode (sort, then compare)."""
+    boxes, scores = clustered_candidates(4, B=2, K=384, zero_area=zero_area)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    idx, valid = greedy_nms(b, s, 80, 0.5, emit_once=emit_once)
+    want_idx, want_valid = greedy_nms_plain(b, s, 80, 0.5, emit_once=emit_once)
+    assert torch.equal(idx, want_idx) and torch.equal(valid, want_valid)
+    assert valid.sum() > 40
+    if not emit_once:
+        rows, valid_p = pallas_greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), 80, 0.5,
+                                          interpret=True)
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(valid_p))
+        np.testing.assert_array_equal(
+            idx.numpy(), np.where(valid_p, np.asarray(rows)[..., 5], 0).astype(np.int32))
+
+
+@pytest.mark.parametrize("emit_once", [True, False], ids=["emit_once", "pallas_rule"])
+def test_registered_op_matches_plain(emit_once):
+    """``torch.ops.yolov6.greedy_nms`` on sorted CPU candidates is the plain
+    version, and its fake implementation gives the output shapes and types."""
+    boxes, scores = (torch.from_numpy(a) for a in _sorted(*clustered_candidates(5, B=3, K=300)))
+    got = torch.ops.yolov6.greedy_nms(boxes, scores, 60, 0.45, emit_once)
+    want = greedy_nms_plain(boxes, scores, 60, 0.45, emit_once=emit_once)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fake = torch.ops.yolov6.greedy_nms(mode.from_tensor(boxes), mode.from_tensor(scores), 60,
+                                           0.45, emit_once)
+    assert [(tuple(t.shape), t.dtype) for t in fake] == [((3, 60), torch.int32),
+                                                         ((3, 60), torch.bool)]
+
+
+def test_export_records_the_keep_as_one_node():
+    """``torch.export`` of ``non_max_suppression`` records the keep as one
+    ``yolov6.greedy_nms`` node, and the exported program keeps as the eager
+    function does."""
+    preds = torch.from_numpy(_preds(7))
+
+    class Nms(torch.nn.Module):
+        def forward(self, p):
+            return non_max_suppression(p, 0.25, 0.45, max_det=50)
+
+    ep = torch.export.export(Nms(), (preds,))
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert targets.count("yolov6.greedy_nms.default") == 1
+    # the selection's class argmax alone: the plain loop's 50 steps are not in the graph
+    assert targets.count("aten.argmax.default") == 1
+    got, want = ep.module()(preds), non_max_suppression(preds, 0.25, 0.45, max_det=50)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "empty"])
 def test_greedy_nms_wrapper_rejects_bad_input(bad):
     boxes, scores = (torch.from_numpy(a) for a in clustered_candidates(2, B=2, K=64))

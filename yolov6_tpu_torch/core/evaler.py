@@ -15,10 +15,13 @@ their sum is not the loop's wall time. The device's own time is not among
 them: the batch function's launches reach the card as fast as the host
 queues them, so events around it read the host's queueing.
 
-Not ported: the StableHLO artifact eval (``init_artifact``), the multi-host
-gather (``gather_coco_predictions``), the data-parallel mesh, the TPU's
-bf16 candidate ranking, and the PR/confusion plots (matplotlib):
-``plot_curve`` and ``plot_confusion_matrix`` raise ``NotImplementedError``.
+``init_artifact`` evaluates an end2end ``.pt2`` serving artifact
+(models/end2end.py) in place of a live model, on one device: the JAX
+package's StableHLO artifact eval, whose GSPMD form waits for the multi-card
+work. Not ported: the multi-host gather (``gather_coco_predictions``), the
+data-parallel mesh, the TPU's bf16 candidate ranking, and the PR/confusion
+plots (matplotlib): ``plot_curve`` and ``plot_confusion_matrix`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -138,6 +141,44 @@ class Evaler:
         self._forward_only = torch.inference_mode()(_forward)
         self.model = model
         return model
+
+    def init_artifact(self, path: str, num_classes: int = 80):
+        """Evaluate an end2end ``.pt2`` artifact (``tools/export.py``, format
+        ``pt2`` with ``--end2end``) instead of a live model, on the Evaler's
+        device (JAX: evaler.py:146-211, the analog of the reference's
+        TensorRT-engine eval). It must take float RGB images (exported
+        without ``--with-preprocess``) at the Evaler's batch size; its own
+        thresholds, rule and candidate cap do the NMS, so export it at the
+        eval protocol to score it as the live model is scored. Returns a
+        stand-in model carrying ``num_classes``."""
+        from yolov6_tpu_torch.models.end2end import load_serving
+
+        art = load_serving(path, self.device)
+        (shape, dtype), = art.in_specs
+        if not dtype.is_floating_point:
+            raise ValueError(f"{path} takes {dtype} images: export it without "
+                             "--with-preprocess (the Evaler feeds float RGB in [0, 1])")
+        if shape[0] != self.batch_size:
+            raise ValueError(f"{path} was exported at batch {shape[0]}, the Evaler's is "
+                             f"{self.batch_size}")
+
+        @torch.inference_mode()
+        def _infer(imgs_u8):
+            num_dets, boxes, scores, classes = art.call(imgs_u8.to(dtype) / 255.0)
+            dets = torch.cat([boxes, scores[..., None], classes[..., None].float()], -1)
+            valid = torch.arange(dets.shape[1], device=dets.device)[None] < num_dets
+            return dets, valid
+
+        self._infer = _infer
+        self.artifact = art
+
+        class _Shim:
+            pass
+
+        shim = _Shim()
+        shim.num_classes = num_classes
+        self.model = shim
+        return shim
 
     def _to_device(self, imgs):
         """A host batch (numpy, or a pinned tensor) -> uint8 NHWC on the device,

@@ -17,15 +17,16 @@
 // once; under the Pallas rule it stays the argmax and fills every remaining
 // row, as the Pallas kernel and the JAX loop do.
 //
-// Two algorithms, chosen per image by the block itself (out_path):
-//
-// path 1, the tile walk, when the positive scores form a non-increasing
-// prefix, which is how the selection stage hands candidates over (a stable
-// descending sort, the tail below conf zeroed). The first alive candidate is
-// then the argmax, so greedy NMS is a walk over the prefix in order. What
-// bounds the walk is its dependent chain, not bytes or operations: each
-// input byte is read once and the IoU work is a few hundred thousand
-// operations an image. The design keeps that chain short and on chip:
+// Precondition: per image, the positive scores form a non-increasing prefix,
+// which is how the selection stage hands candidates over (a stable
+// descending sort, the tail below conf zeroed). The wrapper
+// (ops/cuda/nms_kernel.py::greedy_nms) stable-sorts a direct caller's
+// candidates that are not known to be in that order, and maps the indices
+// back. The first alive candidate is then the argmax, so greedy NMS is a
+// walk over the prefix in order: the tile walk. What bounds the walk is its
+// dependent chain, not bytes or operations: each input byte is read once and
+// the IoU work is a few hundred thousand operations an image. The design
+// keeps that chain short and on chip:
 //   (a) tiles of kTile boxes come in with cp.async, double-buffered, so tile
 //       t+1 arrives while tile t resolves; each box is read once, in order;
 //   (b) every tile candidate is tested against the kept buffer in shared
@@ -46,19 +47,11 @@
 // (out_tiles), not max_det steps of three barriers each. What is left per
 // tile is the IoU work of (b) and (c) on one SM, and the launch and the pass
 // over the scores per image. Pairs that do not intersect, most of them
-// under the class offset, skip the IEEE division (iou_above).
+// under the class offset, skip the IEEE division (iou_above). Shared memory
+// is the two tiles, the mask and the kept buffer: 6 KB + 20 B a kept box,
+// whatever K is.
 //
-// path 0, the argmax loop, for any other order (PR 1's design): the working
-// scores live in dynamic shared memory (4*K bytes; a killed candidate's
-// score becomes -1, which stands in for the alive mask); per step a thread
-// scan, a warp-shuffle argmax with the lower index winning ties, a
-// cross-warp reduction, then a strided IoU pass over the alive boxes read
-// from global memory (L2). Its time is about max_det times the latency of
-// one step. It stops early once nothing is alive. No caller in the package
-// reaches it, since non_max_suppression always hands over sorted candidates;
-// it serves direct callers of greedy_nms with candidates in another order.
-//
-// Both paths use one block of 1024 threads per image, so only B of the 132
+// One block of 1024 threads per image, so only B of the 132
 // SMs have work; splitting an image over a cluster of blocks is the next
 // lever.
 //
@@ -75,7 +68,6 @@
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;                   // candidates per tile of the walk
 constexpr int kTileWords = kTile / 32;       // 32-bit words in a mask row
 constexpr int kPerCand = kThreads / kTile;   // threads per tile candidate
@@ -130,91 +122,8 @@ __device__ __forceinline__ void load_tile(float4* dst, const float4* bx, int bas
   cp_async_commit();
 }
 
-// (v, i) <- the better of (v, i) and (ov, oi): higher score, then lower index.
-__device__ __forceinline__ void take_better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    take_better(v, i, ov, oi);
-  }
-}
-
-// Path 0: max_det argmax steps over the working scores in `work`.
-__device__ void argmax_loop(float* work, const float4* __restrict__ bx, int K, int max_det,
-                            float iou_thres, bool emit_once, int32_t* __restrict__ idx,
-                            uint8_t* __restrict__ valid) {
-  __shared__ float warp_v[kWarps];
-  __shared__ int warp_i[kWarps];
-  __shared__ float best_v;
-  __shared__ int best_i;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int step = 0; step < max_det; ++step) {
-    // every live entry is >= -1, so a thread with any entry takes a real index
-    float v = -2.f;
-    int i = K;
-    for (int k = tid; k < K; k += kThreads) {
-      const float s = work[k];
-      if (s > v) {  // strict: the first index wins a tie within the thread
-        v = s;
-        i = k;
-      }
-    }
-    warp_argmax(v, i);
-    if (lane == 0) {
-      warp_v[warp] = v;
-      warp_i[warp] = i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = warp_v[lane];
-      i = warp_i[lane];
-      warp_argmax(v, i);
-      if (lane == 0) {
-        best_v = v;
-        best_i = i;
-      }
-    }
-    __syncthreads();
-    const float cur_v = best_v;
-    const int cur = best_i;
-    if (!(cur_v > 0.f)) {  // nothing alive: every later step emits nothing
-      for (int r = step + tid; r < max_det; r += kThreads) {
-        idx[r] = 0;
-        valid[r] = 0;
-      }
-      return;
-    }
-    if (tid == 0) {
-      idx[step] = cur;
-      valid[step] = 1;
-    }
-    const float4 c = bx[cur];
-    const float area_cur = box_area(c);
-    for (int k = tid; k < K; k += kThreads) {
-      if (work[k] > 0.f) {
-        const float4 o = bx[k];
-        if ((emit_once && k == cur) || iou_above(c, area_cur, o, box_area(o), iou_thres)) {
-          work[k] = -1.f;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Path 1: the tile walk over the sorted prefix of n_pos candidates. Returns
-// the number of tiles visited.
+// The tile walk over the sorted prefix of n_pos candidates. Returns the
+// number of tiles visited.
 __device__ int tile_walk(unsigned char* smem, const float4* __restrict__ bx, int n_pos, int K,
                          int max_det, float iou_thres, bool emit_once,
                          int32_t* __restrict__ idx, uint8_t* __restrict__ valid) {
@@ -384,9 +293,8 @@ __device__ int tile_walk(unsigned char* smem, const float4* __restrict__ bx, int
 __global__ void __launch_bounds__(kThreads)
 greedy_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores, int K,
                   int max_det, float iou_thres, int emit_once, int32_t* __restrict__ out_idx,
-                  uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_path,
-                  int32_t* __restrict__ out_tiles) {
-  // path 0: [K] alive scores, or -1 once dead; path 1: tiles, mask, kept buffer
+                  uint8_t* __restrict__ out_valid, int32_t* __restrict__ out_tiles) {
+  // tiles, mask, kept buffer
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int n_pos_s;
 
@@ -395,41 +303,17 @@ greedy_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ sc
   const float* sc = scores + (size_t)blockIdx.x * K;
   int32_t* idx = out_idx + (size_t)blockIdx.x * max_det;
   uint8_t* valid = out_valid + (size_t)blockIdx.x * max_det;
-  float* work = reinterpret_cast<float*>(smem);
 
   if (tid == 0) n_pos_s = 0;
   __syncthreads();
-  // one pass over the scores: the working copy, the count of positive
-  // scores, and whether they form a non-increasing prefix
+  // one pass over the scores: the length of the positive prefix
   int n_local = 0;
-  int in_order = 1;
-  for (int k = tid; k < K; k += kThreads) {
-    const float s = sc[k];
-    work[k] = s > 0.f ? s : -1.f;
-    n_local += s > 0.f;
-    if (k + 1 < K) {
-      const float next = sc[k + 1];
-      in_order &= !(next > 0.f) || s >= next;
-    }
-  }
+  for (int k = tid; k < K; k += kThreads) n_local += sc[k] > 0.f;
   n_local = __reduce_add_sync(0xffffffffu, n_local);
   if ((tid & 31) == 0 && n_local) atomicAdd(&n_pos_s, n_local);
-  const bool sorted = __syncthreads_and(in_order);
-  const int n_pos = n_pos_s;
-
-  if (sorted) {
-    const int t = tile_walk(smem, bx, n_pos, K, max_det, iou_thres, emit_once != 0, idx, valid);
-    if (tid == 0) {
-      out_path[blockIdx.x] = 1;
-      out_tiles[blockIdx.x] = t;
-    }
-  } else {
-    if (tid == 0) {
-      out_path[blockIdx.x] = 0;
-      out_tiles[blockIdx.x] = 0;
-    }
-    argmax_loop(work, bx, K, max_det, iou_thres, emit_once != 0, idx, valid);
-  }
+  __syncthreads();
+  const int t = tile_walk(smem, bx, n_pos_s, K, max_det, iou_thres, emit_once != 0, idx, valid);
+  if (tid == 0) out_tiles[blockIdx.x] = t;
 }
 
 }  // namespace
@@ -437,11 +321,9 @@ greedy_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ sc
 extern "C" {
 
 // Dynamic shared memory the kernel takes for K candidates and max_det rows:
-// the larger of path 0's working scores and path 1's tiles, mask and kept
-// buffer.
+// the two tiles, the overlap mask and the kept buffer.
 int yolov6_greedy_nms_smem_bytes(int K, int max_det) {
-  const int walk = kWalkFixedBytes + 20 * (max_det < K ? max_det : K);
-  return 4 * K > walk ? 4 * K : walk;
+  return kWalkFixedBytes + 20 * (max_det < K ? max_det : K);
 }
 
 // Lets launches on the current device take up to max_bytes of dynamic
@@ -452,21 +334,21 @@ int yolov6_greedy_nms_init(int max_bytes) {
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
 }
 
-// boxes [B, K, 4] (16-byte aligned) and scores [B, K] fp32, contiguous;
-// idx [B, max_det] int32, valid [B, max_det] bytes, path [B] bytes (1 for
-// the tile walk, 0 for the argmax loop) and tiles [B] int32 (tiles the walk
-// visited) are written. emit_once != 0 selects the default rule, 0 the
+// boxes [B, K, 4] (16-byte aligned) and scores [B, K] fp32, contiguous,
+// the positive scores of each image a non-increasing prefix; idx [B,
+// max_det] int32, valid [B, max_det] bytes and tiles [B] int32 (tiles the
+// walk visited) are written. emit_once != 0 selects the default rule, 0 the
 // Pallas rule. Needs yolov6_greedy_nms_init on this device first, with at
 // least yolov6_greedy_nms_smem_bytes(K, max_det). Launches on `stream` and
 // returns the CUDA error code of the launch (0 on success); it does not
 // synchronise.
 int yolov6_greedy_nms(const void* boxes, const void* scores, int B, int K, int max_det,
-                      float iou_thres, int emit_once, void* idx, void* valid, void* path,
-                      void* tiles, void* stream) {
+                      float iou_thres, int emit_once, void* idx, void* valid, void* tiles,
+                      void* stream) {
   const int smem = yolov6_greedy_nms_smem_bytes(K, max_det);
   greedy_nms_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const float4*)boxes, (const float*)scores, K, max_det, iou_thres, emit_once,
-      (int32_t*)idx, (uint8_t*)valid, (uint8_t*)path, (int32_t*)tiles);
+      (int32_t*)idx, (uint8_t*)valid, (int32_t*)tiles);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,22 @@
-"""Greedy NMS keep: the CUDA kernel's wrapper and its plain torch version.
+"""Greedy NMS keep: the registered op ``yolov6::greedy_nms``, its CUDA
+kernel's launch and its plain torch version.
 
 The kernel (csrc/nms_kernel.cu) replaces two TPU-side keeps of the JAX
 package: the Pallas kernel yolov6_tpu/ops/pallas/nms_kernel.py::_nms_kernel
 and, under the default rule, yolov6_tpu/ops/nms.py::_tiled_keep with
 _emit_topk_kept. See the source for what bounds it on the H100 and how its
 design answers that.
+
+The keep is a ``torch.library`` custom op, so that ``torch.export`` and
+``torch.jit.trace`` record it as one node and a loaded artifact launches the
+kernel (the JAX artifact carries its Pallas kernel the same way). Its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and its fake implementation gives the output shapes; there is no
+other. The op's precondition: the positive scores of each image form a
+non-increasing prefix (the order ``non_max_suppression`` hands over); it
+checks its inputs' shapes and types on every device. ``greedy_nms``, the
+wrapper for other callers, stable-sorts the candidates first and maps
+``idx`` back.
 
 Both versions take ``boxes [B, K, 4]`` (xyxy, class offset applied) and
 ``scores [B, K]`` (0 below conf), and return ``idx [B, max_det] int32`` (the
@@ -32,8 +44,6 @@ import torch
 # dynamic shared memory a block may use on sm_90 (232,448 bytes), less the
 # kernel's static scratch
 SMEM_LIMIT = 232448 - 1024
-# the argmax loop keeps one float per candidate in shared memory
-MAX_K = SMEM_LIMIT // 4
 TILE = 128  # candidates per tile of the kernel's tile walk (kTile in the source)
 
 
@@ -75,7 +85,7 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.yolov6_greedy_nms_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.yolov6_greedy_nms_smem_bytes.restype = ctypes.c_int
@@ -102,14 +112,7 @@ def _init_device(index: int) -> None:
                            f"{lib.yolov6_cuda_error_string(err).decode()}")
 
 
-def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
-               iou_thres: float, emit_once: bool = True):
-    """Greedy NMS keep: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor. Counts kernel launches in ``greedy_nms.launches``; each
-    launch leaves, in ``greedy_nms.last_path`` and ``greedy_nms.last_tiles``,
-    [B] device tensors of the path each image took (1: the tile walk over
-    sorted candidates, 0: the argmax loop) and the tiles it visited, to be
-    read after a synchronise."""
+def _check(boxes: torch.Tensor, scores: torch.Tensor, max_det: int) -> None:
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"need boxes [B,K,4] and scores [B,K], got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
@@ -120,41 +123,76 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
     B, K = scores.shape
     if B < 1 or K < 1 or max_det < 1:
         raise ValueError(f"empty NMS problem: B={B}, K={K}, max_det={max_det}")
-    if boxes.device.type == "cpu":
-        return greedy_nms_plain(boxes, scores, max_det, iou_thres, emit_once)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"no NMS kernel for device {boxes.device}")
+
+
+@torch.library.custom_op("yolov6::greedy_nms", mutates_args=(), device_types="cpu")
+def greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor, max_det: int, iou_thres: float,
+                  emit_once: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keep on candidates in the op's order (module doc). On the CPU:
+    the plain version."""
+    _check(boxes, scores, max_det)
+    return greedy_nms_plain(boxes, scores, max_det, iou_thres, emit_once)
+
+
+@greedy_nms_op.register_kernel("cuda")
+def _greedy_nms_cuda(boxes, scores, max_det, iou_thres, emit_once):
+    """The kernel's launch on the current stream of the tensors' device.
+    Counts the launch in ``greedy_nms.launches`` and leaves the tiles each
+    image visited in ``greedy_nms.last_tiles`` ([B] int32 on the device, to
+    be read after a synchronise). A failed build or launch raises."""
+    _check(boxes, scores, max_det)
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (the kernel reads them as float4)")
+    B, K = scores.shape
     smem = _smem_bytes(K, max_det)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"K={K}, max_det={max_det} need {smem} bytes of shared memory, "
-                         f"more than the kernel's {SMEM_LIMIT} (K <= {MAX_K}, and 20 bytes "
-                         f"a kept box for min(K, max_det))")
-    # one allocation for the four outputs: idx and tiles (int32) first, then
-    # valid and path (bytes)
-    n = B * max_det
-    out = torch.empty(5 * (n + B), dtype=torch.uint8, device=boxes.device)
-    idx = out[:4 * n].view(torch.int32).view(B, max_det)
-    tiles = out[4 * n:4 * (n + B)].view(torch.int32)
-    valid = out[4 * (n + B):4 * (n + B) + n].view(torch.bool).view(B, max_det)
-    path = out[4 * (n + B) + n:]
+        raise ValueError(f"max_det={max_det} needs {smem} bytes of shared memory, more than "
+                         f"the kernel's {SMEM_LIMIT} (20 bytes a kept box for min(K, max_det))")
+    idx = torch.empty((B, max_det), dtype=torch.int32, device=boxes.device)
+    valid = torch.empty((B, max_det), dtype=torch.bool, device=boxes.device)
+    tiles = torch.empty((B,), dtype=torch.int32, device=boxes.device)
     lib = _lib()
     with torch.cuda.device(boxes.device):
         _init_device(torch.cuda.current_device())
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.yolov6_greedy_nms(boxes.data_ptr(), scores.data_ptr(), B, K, max_det,
                                     float(iou_thres), int(bool(emit_once)), idx.data_ptr(),
-                                    valid.data_ptr(), path.data_ptr(), tiles.data_ptr(), stream)
+                                    valid.data_ptr(), tiles.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: "
                            f"{lib.yolov6_cuda_error_string(err).decode()}")
     greedy_nms.launches += 1
-    greedy_nms.last_path, greedy_nms.last_tiles = path, tiles
+    greedy_nms.last_tiles = tiles
+    return idx, valid
+
+
+@greedy_nms_op.register_fake
+def _greedy_nms_fake(boxes, scores, max_det, iou_thres, emit_once):
+    _check(boxes, scores, max_det)
+    B = boxes.shape[0]
+    return (boxes.new_empty((B, max_det), dtype=torch.int32),
+            boxes.new_empty((B, max_det), dtype=torch.bool))
+
+
+def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int,
+               iou_thres: float, emit_once: bool = True):
+    """Greedy NMS keep on candidates in any order: stable-sorted by
+    descending score, kept by ``yolov6::greedy_nms`` (the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor; any other device
+    raises), ``idx`` mapped back to the caller's order. The sort keeps what
+    the greedy loop keeps in any order. Counts kernel launches in
+    ``greedy_nms.launches``, also those made from a loaded artifact."""
+    _check(boxes, scores, max_det)
+    B, K = scores.shape
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    boxes = boxes.gather(1, order[..., None].expand(B, K, 4)).contiguous()
+    idx, valid = greedy_nms_op(boxes, scores.contiguous(), max_det, float(iou_thres),
+                               bool(emit_once))
+    idx = torch.where(valid, order.gather(1, idx.long()), 0).to(torch.int32)
     return idx, valid
 
 
 greedy_nms.launches = 0
-greedy_nms.last_path = greedy_nms.last_tiles = None
+greedy_nms.last_tiles = None

@@ -8,7 +8,9 @@ Every step keeps static shapes, as in the JAX package:
      stable descending sort, as ``lax.top_k`` orders them).
   3. class offset: boxes shifted by class * MAX_WH so one IoU geometry does
      per-class NMS.
-  4. the greedy keep (ops/cuda/nms_kernel.py), chosen by ``method``:
+  4. the greedy keep (ops/cuda/nms_kernel.py; the registered op
+     ``yolov6::greedy_nms``, one node of an exported graph), chosen by
+     ``method``:
 
      | method            | rule                    | CUDA tensor | CPU tensor |
      | ----------------- | ----------------------- | ----------- | ---------- |
@@ -36,14 +38,15 @@ import torch
 import torch.nn.functional as F
 
 from yolov6_tpu_torch.ops.boxes import xywh2xyxy
-from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
+from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms_op, greedy_nms_plain
 
 MAX_WH = 4096  # reference: utils/nms.py:54
-# method -> (keep, emit_once); see the module doc
+# method -> (keep, emit_once); see the module doc. The selection hands the
+# op its candidates sorted, the op's precondition.
 _KEEPS = {
-    None: (greedy_nms, True),
-    "tiled": (greedy_nms, True),
-    "pallas": (greedy_nms, False),
+    None: (greedy_nms_op, True),
+    "tiled": (greedy_nms_op, True),
+    "pallas": (greedy_nms_op, False),
     "loop": (greedy_nms_plain, False),
 }
 
@@ -157,8 +160,8 @@ def _keep_and_gather(candidates, keep, emit_once: bool, max_det: int, iou_thres:
     """Run ``keep`` under the rule ``emit_once`` on the output of
     ``_select_candidates`` and gather ``(dets, valid)`` by its indices."""
     cand_boxes, nms_boxes, scores, cls_idx = candidates
-    idx, valid = keep(nms_boxes.contiguous(), scores.contiguous(), max_det, iou_thres,
-                      emit_once=emit_once)
+    idx, valid = keep(nms_boxes.contiguous(), scores.contiguous(), max_det, float(iou_thres),
+                      emit_once)
     idx = idx.long()
     dets = torch.cat([
         _gather_rows(cand_boxes, idx),

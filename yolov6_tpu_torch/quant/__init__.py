@@ -1,5 +1,6 @@
-"""INT8 fake quantisation, PTQ calibration and QAT (port of yolov6_tpu/quant/,
-without the ONNX-level PTQ and QDQ export)."""
+"""INT8 fake quantisation, PTQ calibration and QAT (port of yolov6_tpu/quant/);
+the ONNX-level PTQ is ``onnx_ptq``, the TensorRT calibration stream
+``trt_calibrator``, and the QDQ export export/onnx_quant.py."""
 
 from yolov6_tpu_torch.quant.fake_quant import (  # noqa: F401
     fake_quant,

@@ -5,9 +5,12 @@
 
 ``--weights`` is a ``torch.save``d state dict (``utils/checkpoint.py``).
 ``run`` is also the in-training eval API. ``--device`` defaults to ``cuda``
-and raises without it. Not ported: ``--artifact`` (StableHLO), the TPU's
-``--bf16-select``, ``--plot_curve`` and ``--plot_confusion_matrix`` (they
-need matplotlib), and the weight download (a missing file raises).
+and raises without it. ``--artifact <file>.pt2`` evaluates an end2end
+serving artifact (``tools/export.py --end2end``, without
+``--with-preprocess``, at ``--batch-size``) in place of ``--weights``: the
+JAX CLI's StableHLO artifact eval. Not ported: the TPU's ``--bf16-select``,
+``--plot_curve`` and ``--plot_confusion_matrix`` (they need matplotlib), and
+the weight download (a missing file raises).
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ def get_args_parser(add_help=True):
     parser.add_argument("--row-select", choices=("grouped", "topk"), default="grouped",
                         help="per-anchor class pre-reduction of the NMS candidates")
     parser.add_argument("--do_pr_metric", action="store_true")
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="evaluate an end2end .pt2 serving artifact (tools/export.py "
+                             "--end2end, no --with-preprocess) in place of --weights")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; cuda raises when there is no GPU")
     return parser
@@ -89,11 +95,13 @@ def run(
     max_nms=8192,
     row_select="grouped",
     device="cuda",
+    artifact=None,
 ):
     """Evaluate a model (reference tools/eval.py:run, :88-159); returns
     ``((AP50, AP), COCO rows)``. ``model`` is a deploy model already on
     ``device``; without it the model is built from ``config`` and
-    ``weights``."""
+    ``weights``, or with ``artifact`` an end2end ``.pt2`` is evaluated
+    (``Evaler.init_artifact``)."""
     Evaler.check_task(task)
     if task != "train":
         os.makedirs(save_dir, exist_ok=True)
@@ -107,12 +115,18 @@ def run(
         max_nms=max_nms, row_select=row_select, do_coco_metric=do_coco_metric,
         do_pr_metric=do_pr_metric, device=device,
     )
-    if model is None:
-        model = load_state_dict_file(weights, Config.fromfile(config), device=evaler.device)
-        if model.num_classes != data["nc"]:
-            raise ValueError(f"{weights} predicts {model.num_classes} classes, "
-                             f"the dataset has nc={data['nc']}")
-    evaler.init_model(model)
+    if artifact:
+        if task == "speed":
+            raise ValueError("--task speed times a live model; an artifact's call is timed "
+                             "by chip_smoke.py [33a]")
+        model = evaler.init_artifact(artifact, num_classes=data["nc"])
+    else:
+        if model is None:
+            model = load_state_dict_file(weights, Config.fromfile(config), device=evaler.device)
+            if model.num_classes != data["nc"]:
+                raise ValueError(f"{weights} predicts {model.num_classes} classes, "
+                                 f"the dataset has nc={data['nc']}")
+        evaler.init_model(model)
     if task == "speed":
         evaler.measure_speed(batch_size)
         return (0.0, 0.0), []
@@ -160,7 +174,7 @@ def main(args):
         infer_on_rect=args.infer_on_rect, verbose=args.verbose,
         do_pr_metric=args.do_pr_metric, specific_shape=args.specific_shape,
         height=args.height, width=args.width, max_nms=args.max_nms,
-        row_select=args.row_select, device=args.device,
+        row_select=args.row_select, device=args.device, artifact=args.artifact,
     )
     if args.task != "speed":
         LOGGER.info(f"mAP@0.5: {ap50:.5f}  mAP@0.5:0.95: {ap:.5f}  (results in {save_dir})")
