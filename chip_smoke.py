@@ -41,7 +41,7 @@ Phases, each of which asserts:
  10. YOLOv6-L (configs/yolov6l.py, ``conv_silu`` blocks): the deploy graph
      serves b32@640 in bf16 through the kernel (timed), and the train form
      takes 3 + 5 steps in bf16 with DFL;
- 11. COCO evaluation: the port's generator writes a synthetic val set of 160
+ 11. COCO evaluation: the port's generator writes a synthetic val set of 64
      PNG images of mixed sizes (80 class names); a mock detector that emits
      the letterboxed GT boxes must score AP50 > 0.99 and AP > 0.95 through
      the port's loader, Evaler and evaluator; then the Evaler runs S and M
@@ -55,11 +55,11 @@ Phases, each of which asserts:
      conversion; also over batches built beforehand, with no loader thread
      running), the COCO scoring time, ``measure_speed``, and the device's
      time and idle share from a profiled second pass;
- 12. the train CLI: a 160-image PNG train split beside phase 11's val set
+ 12. the train CLI: a 96-image PNG train split beside phase 11's val set
      (the same sizes, another seed); ``tools/train.py::main`` trains
      YOLOv6-S (80 classes, the config's data_aug: mosaic 1.0, mixup 0.0)
      b32@640 in bf16 for 2 epochs, epoch 0 on the mosaic branch and epoch 1
-     on the letterbox+affine branch, with one in-training eval of the 160
+     on the letterbox+affine branch, with one in-training eval of the 64
      val images (at conf 0 through the config's eval_params, so that the
      barely trained model gives the kernel candidates), then resumes from
      the epoch-1 checkpoint for a third epoch: every loss finite, the
@@ -118,14 +118,14 @@ Phases, each of which asserts:
      9 trains M (10 timed steps, the split, peak memory, then 3 ATSS steps),
      then folded and served b32@1280 as in phase 7;
  20. L6 through the Evaler at its repro protocol (1280, shrink 41, conf
-     0.03, IoU 0.65, multi-label, max_det 300) over phase 11's 160 PNG
+     0.03, IoU 0.65, multi-label, max_det 300) over phase 11's 64 PNG
      images, with phase 11's checks and numbers;
  21. the MBLA stage (configs/mbla/): X-MBLA's deploy graph serves b32@640
      as in phase 18; S-MBLA's training step at b32@640 (DFL, TAL) as phase 6
      (20 timed steps), then folded and served as in phase 7;
  22. N6 through the train CLI at 1280, batch 8, 2 epochs (both on the ATSS
-     branch) over the first 64 images of phase 12's split, with one
-     in-training eval of the 160 val images at conf 0: its first keep with a
+     branch) over the first 32 images of phase 12's split, with one
+     in-training eval of the 64 val images at conf 0: its first keep with a
      candidate held against the plain emit-once keep; imgs/s an epoch,
      loader wait and step time a step;
  23. inference: the repository's demo JPEGs (data/images) decode to the
@@ -153,10 +153,10 @@ Phases, each of which asserts:
  25. Lite-S's training step at b32@320 (TAL, SIoU, no DFL), 20 timed steps,
      the split and peak memory, 3 ATSS steps, then folded (DPBlock's biased
      convs with their BNs) and served at conf 0.001 as in phase 7;
- 26. Lite-S through the Evaler at 320 over phase 11's 160 PNG images at the
+ 26. Lite-S through the Evaler at 320 over phase 11's 64 PNG images at the
      eval protocol, with phase 11's checks and numbers;
  27. Lite-S through the train CLI at 320, batch 32, 2 epochs (both on ATSS)
-     over phase 22's 64 train images, with one in-training eval at conf 0 (its
+     over phase 22's 32 train images, with one in-training eval at conf 0 (its
      first keep with a candidate held against the plain keep); then the
      infer CLI at ``--img-size 320`` over data/images with Lite-S's seeded
      serve weights (K = 2000, every keep equal to the plain keep) and
@@ -210,7 +210,22 @@ Phases, each of which asserts:
      b32 (5e-4 / 1e-4 of the live forward plus decode) and once through the
      numpy runner at B=1, and [32]'s PTQ S as a QDQ file against its
      fake-quantised forward (every element within 5e-4 / 1e-4); S traced to TorchScript and run; Lite-S's NCNN
-     files run by the numpy executor against the card's head maps.
+     files run by the numpy executor against the card's head maps;
+ 34. data parallel on the one card (``parallel/dist.py``, ``layers/sync_bn.py``),
+     each rank a child process: [34a] two gloo ranks take [6]'s cell (S's
+     train form, b32@640 global, 16 a rank, the bench's data and solver) in
+     fp32 with TF32 off for 3 steps, held to one process at b32 with the JAX
+     SPMD contract's tolerances (step-0 loss rtol 1e-4; parameters and BN
+     running statistics after step 0 rtol 2e-3, atol 1e-6; trajectory rtol
+     2e-3), both ranks bit-equal and no keep launched; [34b]
+     ``tools/train.py::main`` in two gloo ranks, global b32, 2 epochs over
+     64 train images with ``--cache disk`` and an eval of 64 val images at the
+     end: each rank launches the keep on its device (its first keep with a
+     candidate equal to the plain keep), rank 0's gathered rows equal a
+     one-process Evaler's on the run's EMA row for row, both ranks hold the
+     same APs, and rank 1 writes nothing under the run's directory; [34c]
+     [6]'s bf16 step in an NCCL group of one equals the step without a group
+     bit for bit (as a second plain step does), beside [34a] and [34b].
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -296,8 +311,9 @@ L6_BATCHES = (32, 16, 8)
 L6_FREE_SHARE = 0.10
 # phase 20: the repro protocol's L6 row (configs/experiment/eval_640_repro.py)
 L6_EVAL_SHRINK = 41
-# phase 22: N6 through the train CLI on the first 64 images of phase 12's split
-P6_TRAIN_CLI = dict(n_train=64, batch=8, epochs=2, stop_aug_last_n_epoch=1, workers=8)
+# phase 22: N6 through the train CLI on the first 32 images of phase 12's split
+# (first 64)
+P6_TRAIN_CLI = dict(n_train=32, batch=8, epochs=2, stop_aug_last_n_epoch=1, workers=8)
 
 # phase 23: the infer CLI at its defaults (conf 0.4, IoU 0.45, max_det 1000;
 # the inferer's max_nms 2000) over data/images: random S scores each of its
@@ -1004,11 +1020,12 @@ def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=
     return out
 
 
-# the eval phase's set: 160 PNG images in four sizes (w, h), so that the
+# the eval phase's set: 64 PNG images in four sizes (w, h), so that the
 # loader both shrinks (INTER_AREA, 768x576) and enlarges (INTER_LINEAR, 320x240)
-# (160, as the train split: at 320 each the script outran its time limit on a
-# slower host)
-EVAL_SET = dict(n_val=160, seed=0, sizes=[(640, 480), (480, 640), (768, 576), (320, 240)])
+# (first 320, then 160: each cut kept the script under its time limit on a
+# slower host as phase groups were added; two b32 batches still exercise the
+# pipeline and the rect buckets)
+EVAL_SET = dict(n_val=64, seed=0, sizes=[(640, 480), (480, 640), (768, 576), (320, 240)])
 
 
 def write_eval_set(root: str, card: str) -> dict:
@@ -1340,9 +1357,10 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     return out
 
 
-# the train CLI phase's set: 160 PNG train images beside the eval set, in its
-# sizes, from another seed
-TRAIN_SET = dict(n_train=160, seed=1, sizes=EVAL_SET["sizes"])
+# the train CLI phase's set: 96 PNG train images beside the eval set, in its
+# sizes, from another seed (first 160): three b32 steps an epoch, so that the
+# profile window (steps 2-4 of the first epoch) still opens, on one step
+TRAIN_SET = dict(n_train=96, seed=1, sizes=EVAL_SET["sizes"])
 TRAIN_CLI = dict(epochs=2, stop_aug_last_n_epoch=1, workers=8, profiled_steps=3)
 # the train CLI's in-training eval threshold, set through the config's
 # eval_params: after 3 epochs from random init S scores every anchor below
@@ -1376,7 +1394,7 @@ def write_train_split(root: str, card: str) -> str:
     return path
 
 
-def augmentation_ms(data_path: str, card: str, n: int = 32) -> dict:
+def augmentation_ms(data_path: str, card: str, n: int = 16) -> dict:
     """The train path's host cost an image on one thread, by branch: the
     whole sample, and within it the C++ pass (mosaic, warp, flips) and the
     numpy HSV pass, over ``n`` samples of the train split at 640."""
@@ -1938,8 +1956,8 @@ def train_subset(root: str, n_train: int) -> str:
 
 def p6_train_cli_phase(root: str, dev, card: str) -> dict:
     """Phase 22: N6 through ``tools/train.py`` at 1280, batch 8, 2 epochs over
-    the first 64 images of phase 12's split (both epochs on ATSS, the first
-    on the mosaic branch), with one in-training eval of the 160 val images at
+    the first 32 images of phase 12's split (both epochs on ATSS, the first
+    on the mosaic branch), with one in-training eval of the 64 val images at
     conf 0 (through the config's eval_params, as phase 12); its first keep
     with a candidate held against the plain emit-once keep."""
     from yolov6_tpu_torch.tools import train as train_cli
@@ -2286,8 +2304,8 @@ def lite_train_phase(dev, card: str) -> dict:
 
 def lite_cli_phase(root: str, dev, card: str) -> dict:
     """Phase 27: Lite-S through ``tools/train.py`` at 320, batch 32, 2 epochs
-    (both on ATSS) over phase 22's 64 train images, with one in-training
-    eval of the 160 val images at conf 0, its first keep with a candidate
+    (both on ATSS) over phase 22's 32 train images, with one in-training
+    eval of the 64 val images at conf 0, its first keep with a candidate
     held against the plain emit-once keep; then ``tools/infer.py`` at
     ``--img-size 320`` over data/images with Lite-S's seeded serve weights
     (every keep, B=1, equal to the plain keep), and ``hub.yolov6lite_s`` with
@@ -3431,6 +3449,477 @@ def ptq_model(kept, amax, dev):
     return model, amax
 
 
+# phase 34: data parallel on the one card. A process group needs processes
+# of its own, so each rank is a child (``chip_smoke.py --ddp-step|--ddp-cli
+# <root> <rank> <world>``, ``--ddp-nccl <root>``); the two gloo ranks share
+# cuda:0 and gloo stages every collective through the host, so [34a]'s ms a
+# step is no speed figure. [34a] holds the ranks' step to the one-process
+# step at the global batch with the JAX SPMD contract's tolerances
+# (tests/test_train_step_spmd_modes.py): the step-0 loss within rtol 1e-4,
+# the parameters after step 0 and the BN running statistics after step 0
+# and after the last step within rtol 2e-3 and atol 1e-6 of each element,
+# the loss trajectory within rtol 2e-3. Step 0 is a warmup step that moves
+# only the biases (the weights' and BN weights' learning rate starts at 0);
+# steps 1-2 move every group, and each group's update over them is held by
+# the contract's norm-ratio and cosine detectors (the elements beyond the
+# per-element tolerance at the end are counted and printed)
+DDP = dict(world=2, steps=3, loss_rtol=1e-4, rtol=2e-3, atol=1e-6, traj_rtol=2e-3,
+           cli_epochs=2, cli_n=64, cli_batch=32, timeout=600)
+
+
+def ddp_cell_step(dev, half: bool):
+    """[6]'s cell, S's train form (He-normal convs from seed 0, as built from
+    seed 0 otherwise), the bench's solver and data at the global batch: returns
+    the step and the images and targets of the global batch."""
+    import torch
+
+    from yolov6_tpu_torch.core.train_step import make_train_step
+    from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
+    from yolov6_tpu_torch.utils.config import Config
+
+    t = TRAIN
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", "yolov6s.py"))
+    sol = cfg.solver
+    torch.manual_seed(0)  # the head's init draws from the default generator
+    model, loss_fn, _ = recipe_step(cfg, None, dev, torch.Generator(device=dev).manual_seed(0),
+                                    t["epochs"])
+    solver = scale_hyperparams_for_batch(dict(
+        lr0=sol.lr0, lrf=sol.lrf, momentum=sol.momentum, weight_decay=sol.weight_decay,
+        warmup_epochs=sol.warmup_epochs, warmup_momentum=sol.warmup_momentum,
+        warmup_bias_lr=sol.warmup_bias_lr, lr_scheduler="Cosine"), BATCH)
+    step = make_train_step(model, loss_fn, solver, t["max_stepnum"], t["epochs"], BATCH,
+                           t["warmup_stepnum"], (IMG, IMG), half=half, device=dev)
+    images, targets = bench_batch(BATCH, IMG, t["max_labels"], t["labels"], dev)
+    return step, images, targets
+
+
+def ddp_steps(step, images, targets) -> dict:
+    """``DDP["steps"]`` steps at [6]'s epoch: the losses, ms a step (CUDA
+    events around each), the flat parameters before, after step 0 and at the
+    end, the BN statistics after step 0 and at the end (CPU copies), and the
+    parameter groups' sizes and ids."""
+    import torch
+
+    out = dict(losses=[], ms=[], before=step._param.cpu(), group_ids=step._group_ids,
+               sizes=[len(g) for g in step._split(step._param)])
+    for i in range(DDP["steps"]):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, _ = step(images, targets, TRAIN["epoch"])
+        b.record()
+        b.synchronize()
+        out["ms"].append(a.elapsed_time(b))
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["step0"], out["stats0"] = step._param.cpu(), step._stats.cpu()
+    out["end"], out["stats_end"] = step._param.cpu(), step._stats.cpu()
+    return out
+
+
+def ddp_start(flag: str, root: str, *argv, env=None) -> tuple:
+    """Start the child ``chip_smoke.py <flag> <root> <argv...>``, its output
+    to files under ``root`` (no pipe for a rank to block on)."""
+    name = os.path.join(root, flag.strip("-") + "".join(f"_{a}" for a in argv))
+    out, err = open(name + ".out", "w"), open(name + ".err", "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, root, *argv],
+                            stdout=out, stderr=err, text=True, cwd=ROOT, env=env)
+    out.close()
+    err.close()
+    return proc, name
+
+
+def ddp_wait(children: list, tag: str) -> list:
+    """Wait for ``ddp_start``'s children, relay their ``tag`` lines, and raise
+    if any fails; returns their standard outputs."""
+    failed, outs = [], []
+    for proc, name in children:
+        try:
+            proc.wait(timeout=DDP["timeout"])
+        except subprocess.TimeoutExpired:
+            for p, _ in children:
+                p.kill()
+            proc.wait()
+        with open(name + ".out") as f:
+            out = f.read()
+        outs.append(out)
+        for line in out.splitlines():
+            if line.startswith(tag):
+                log(line)
+        if proc.returncode != 0:
+            with open(name + ".err") as f:
+                print(out[-4000:] + f.read()[-8000:], file=sys.stderr)
+            failed.append(os.path.basename(name))
+    if failed:
+        raise RuntimeError(f"{tag} children {failed} failed")
+    return outs
+
+
+def ddp_join(root: str, name: str, rank: int, world: int):
+    """The gloo group ``name`` of the children, through a file under ``root``."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, name + '.store')}",
+                            rank=rank, world_size=world)
+    torch.cuda.set_device(0)
+
+
+def ddp_step_child(argv) -> int:
+    """[34a]'s rank: the cell's step on its half of the global batch, fp32
+    with TF32 off, in the gloo group; saves its results under ``root``."""
+    import torch
+    import torch.distributed as dist
+
+    from yolov6_tpu_torch.layers.sync_bn import SyncBatchNorm
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.parallel.dist import broadcast_
+
+    root, rank, world = argv[0], int(argv[1]), int(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ddp_join(root, "ddp_step", rank, world)
+    dev = torch.device("cuda")
+    step, images, targets = ddp_cell_step(dev, half=False)
+    n_sync = sum(type(m) is SyncBatchNorm for m in step.model.modules())
+    assert n_sync > 100, f"{n_sync} synchronised BatchNorms"
+    per = BATCH // world
+    part = slice(rank * per, (rank + 1) * per)
+    greedy_nms.launches = 0
+    out = ddp_steps(step, images[part].contiguous(), targets[part].contiguous())
+    out.update(launches=greedy_nms.launches, n_sync=n_sync)
+    # every rank holds rank 0's state, bit for bit
+    for name, flat in (("params", step._param), ("stats", step._stats), ("ema", step._ema[0])):
+        ref = flat.clone()
+        broadcast_(ref)
+        out[f"same_{name}"] = bool(torch.equal(ref, flat))
+    log(f"[34a] rank {rank}: {DDP['steps']} steps of b{per}@{IMG} fp32 (TF32 off), "
+        f"{n_sync} synchronised BatchNorms, ms a step {[round(v, 1) for v in out['ms']]} "
+        f"(gloo through the host, two ranks on one card: no speed figure)")
+    if rank == 0:
+        torch.save(out, os.path.join(root, "ddp_step_rank0.pt"))
+    else:
+        torch.save({k: out[k] for k in ("losses", "ms", "launches", "n_sync", "same_params",
+                                        "same_stats", "same_ema")},
+                   os.path.join(root, f"ddp_step_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def ddp_one_process(dev) -> dict:
+    """[34a]'s reference: the one-process step at b32, fp32 with TF32 off."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        step, images, targets = ddp_cell_step(dev, half=False)
+        one = ddp_steps(step, images, targets)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del step, images, targets
+    torch.cuda.empty_cache()
+    return one
+
+
+def ddp_step_phase(root: str, one: dict, wall: float, card: str) -> dict:
+    """[34a]: the two gloo ranks' results (b16 each, children that have
+    ended after ``wall`` s) held to the one-process step ``one``."""
+    import torch
+
+    world = DDP["world"]
+    ranks = [torch.load(os.path.join(root, f"ddp_step_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    r0 = ranks[0]
+    for r in ranks:
+        assert r["same_params"] and r["same_stats"] and r["same_ema"], "the ranks' states differ"
+        assert r["losses"] == r0["losses"] and r["launches"] == 0
+    assert torch.equal(r0["before"], one["before"]), "the ranks started from other weights"
+    assert all(math.isfinite(v) for v in one["losses"] + r0["losses"])
+    loss_err = abs(r0["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    assert loss_err <= DDP["loss_rtol"], f"[34a] step-0 loss {r0['losses'][0]} vs {one['losses'][0]}"
+    traj = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+    assert traj <= DDP["traj_rtol"], f"[34a] loss trajectory {r0['losses']} vs {one['losses']}"
+
+    def beyond(got, want):
+        """How many elements lie beyond rtol 2e-3 / atol 1e-6, and by how much."""
+        excess = (got - want).abs() - (DDP["atol"] + DDP["rtol"] * want.abs())
+        return int((excess > 0).sum()), float(excess.max())
+
+    # each group's update over steps 1-2 (step 0 moves the biases only): the
+    # contract's chaos detectors, and how many elements lie beyond tolerance
+    names = {0: "BN weights", 1: "weights", 2: "biases"}
+    groups = {}
+    parts = [t.split(r0["sizes"]) for t in (one["step0"], one["end"], r0["step0"], r0["end"])]
+    for g, a0, a1, b0, b1 in zip(r0["group_ids"], *parts):
+        u_one, u_two = (a1 - a0).double(), (b1 - b0).double()
+        n_beyond, excess = beyond(b1, a1)
+        groups[names[g]] = dict(
+            n=len(a1), n_beyond=n_beyond, excess=excess,
+            update_ratio=float(u_two.norm() / u_one.norm()),
+            update_cos=float(u_one @ u_two / (u_one.norm() * u_two.norm())),
+            diff_over_update=float((u_two - u_one).norm() / u_one.norm()),
+            max_diff=float((b1 - a1).abs().max()), max_update=float(u_one.abs().max()))
+    held = {what: beyond(r0[key], one[key]) for key, what in (
+        ("step0", "parameters after step 0"), ("stats0", "BN statistics after step 0"),
+        ("stats_end", "BN statistics at the end"))}
+    diff0 = float((r0["step0"] - one["step0"]).abs().max())
+    log(f"[34a] 2 gloo ranks (b{BATCH // world} each, {r0['n_sync']} synchronised BatchNorms) "
+        f"against one process at b{BATCH}, S train form at [6]'s cell in fp32 (TF32 off): "
+        f"step-0 loss {r0['losses'][0]:.6f} vs {one['losses'][0]:.6f} (rel {loss_err:.2e}), "
+        f"losses {[round(v, 5) for v in r0['losses']]} (trajectory rel {traj:.2e}); elements "
+        f"beyond rtol 2e-3 / atol 1e-6: " + ", ".join(f"{what} {n}" for what, (n, _) in
+                                                      held.items())
+        + f" (largest parameter difference after step 0 {diff0:.3e}); each group's update "
+        f"over steps 1-2: " + "; ".join(
+            f"{k} ({v['n']}): norm ratio {v['update_ratio']:.6f}, cosine {v['update_cos']:.6f}, "
+            f"|difference| / |update| {v['diff_over_update']:.3e}, largest difference "
+            f"{v['max_diff']:.3e} of largest update {v['max_update']:.3e}, {v['n_beyond']} "
+            f"elements at the end beyond rtol 2e-3 / atol 1e-6 (by up to {v['excess']:.3e})"
+            for k, v in groups.items())
+        + f"; the ranks' states bit-equal; ms a step: one process "
+        f"{[round(v, 1) for v in one['ms']]}, ranks {[round(v, 1) for v in r0['ms']]}; "
+        f"children {wall:.1f} s [{card}]")
+    for what, (n_beyond, excess) in held.items():
+        assert n_beyond == 0, (f"[34a] {what}: {n_beyond} elements beyond rtol 2e-3 / atol "
+                               f"1e-6, by up to {excess:.3g}")
+    for k, v in groups.items():
+        assert v["max_update"] > 0, f"[34a] steps 1-2 did not move the {k}"
+        assert 0.93 < v["update_ratio"] < 1.07 and v["update_cos"] > 0.98, f"[34a] {k}: {v}"
+    return dict(launches=sum(r["launches"] for r in ranks), loss_rel=loss_err, traj_rel=traj,
+                groups=groups, one_ms=one["ms"], rank_ms=r0["ms"], n_sync=r0["n_sync"],
+                children_wall_s=wall)
+
+
+def record_writes(root: str) -> list:
+    """Record every write-mode ``open``, ``os.makedirs`` and ``os.replace``
+    under ``root`` made by this process from now on."""
+    import builtins
+
+    writes = []
+    real_open, real_makedirs, real_replace = builtins.open, os.makedirs, os.replace
+
+    def under(path):
+        return isinstance(path, (str, os.PathLike)) and \
+            os.path.abspath(os.fspath(path)).startswith(root)
+
+    def open_(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+") and under(file):
+            writes.append(("open", os.fspath(file)))
+        return real_open(file, mode, *a, **k)
+
+    def makedirs(name, *a, **k):
+        if under(name):
+            writes.append(("makedirs", os.fspath(name)))
+        return real_makedirs(name, *a, **k)
+
+    def replace(src, dst, *a, **k):
+        if under(dst):
+            writes.append(("replace", os.fspath(dst)))
+        return real_replace(src, dst, *a, **k)
+
+    builtins.open, os.makedirs, os.replace = open_, makedirs, replace
+    return writes
+
+
+def ddp_cli_argv(root: str) -> list:
+    """[34b]'s train CLI arguments; the parent writes the config copy and the
+    subsets before the ranks start, and the ranks only read them."""
+    conf = os.path.join(root, "yolov6s_ddp_cli.py")
+    if not os.path.exists(conf):
+        cli_config(root, os.path.join(ROOT, "configs", "yolov6s.py"), "yolov6s_ddp_cli.py")
+    data_path = val_subset(root, DDP["cli_n"], train_subset(root, DDP["cli_n"]))
+    return ["--data-path", data_path, "--conf-file", conf, "--img-size", str(IMG),
+            "--batch-size", str(DDP["cli_batch"]), "--epochs", str(DDP["cli_epochs"]),
+            "--workers", "4", "--eval-final-only", "--stop_aug_last_n_epoch", "1",
+            "--cache", "disk", "--output-dir", os.path.join(root, "train_ddp"), "--name", "s",
+            "--bf16", "--log-interval", "1", "--seed", "0", "--device", "cuda"]
+
+
+def ddp_cli_child(argv) -> int:
+    """[34b]'s rank: ``tools/train.py::main`` in the gloo group, its keep
+    launches counted and its first keep with a candidate held against the
+    plain keep; saves its results under ``root``."""
+    import torch
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.tools import train as train_cli
+
+    root, rank, world = argv[0], int(argv[1]), int(argv[2])
+    ddp_join(root, "ddp_cli", rank, world)
+    args = train_cli.get_args_parser().parse_args(ddp_cli_argv(root))
+    writes = record_writes(os.path.abspath(args.output_dir)) if rank else None
+    greedy_nms.launches = 0
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args)
+        wall = time.perf_counter() - t0
+    launches = greedy_nms.launches
+    n_shard = len(trainer.val_loader._indices())
+    walk = rec.check(f"[34b] rank {rank}'s in-training eval", n_shard)
+    assert launches == walk["launches"] == -(-n_shard // trainer.val_loader.batch_size)
+    stats = trainer.epoch_stats
+    assert all(math.isfinite(v) for e in stats for v in e["mean_loss"]), stats
+    cache = trainer.train_loader.dataset
+    out = dict(launches=launches, max_abs_err=walk["max_abs_err"], n_shard=n_shard,
+               results=trainer.evaluate_results, save_dir=trainer.save_dir, writes=writes,
+               epochs=stats, wall_s=wall, cache=cache.cache,
+               cache_files=len(os.listdir(cache.disk_cache_dir)),
+               predictions=trainer.predictions if rank == 0 else None)
+    log(f"[34b] rank {rank}: {len(stats)} epochs of b{args.batch_size // world}@{IMG} bf16 "
+        f"(--cache disk, {out['cache_files']} images in the shared tier), steps "
+        f"{[e['steps'] for e in stats]}, {[round(e['imgs_per_s'], 1) for e in stats]} imgs/s a "
+        f"rank; eval of its {n_shard} val images: {launches} keep launches on its device, the "
+        f"first keep with a candidate (K {walk['first']['eval']['boxes'].shape[1]}) equal to "
+        f"the plain keep; AP50 {trainer.evaluate_results[0]:.5f}; {wall:.1f} s")
+    torch.save(out, os.path.join(root, f"ddp_cli_rank{rank}.pt"))
+    return 0
+
+
+def ddp_cli_phase(root: str, wall: float, dev, card: str) -> dict:
+    """[34b]: the train CLI's two gloo ranks on the card (children that have
+    ended after ``wall`` s); rank 0's gathered rows held, row for row,
+    against a one-process Evaler on the run's EMA."""
+    import torch
+
+    from yolov6_tpu_torch.core.evaler import Evaler
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.utils.checkpoint import load_checkpoint
+    from yolov6_tpu_torch.utils.config import Config
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    world = DDP["world"]
+    argv = ddp_cli_argv(root)
+    ranks = [torch.load(os.path.join(root, f"ddp_cli_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    r0, r1 = ranks
+    assert r1["writes"] == [], f"[34b] rank 1 wrote {r1['writes'][:4]}"
+    out_dir = os.path.join(root, "train_ddp")
+    assert os.listdir(out_dir) == ["s"] and r0["save_dir"] == r1["save_dir"]
+    weights = os.path.join(r0["save_dir"], "weights")
+    assert {"last_ckpt.pt", "best_ckpt.pt"} <= set(os.listdir(weights))
+    assert r0["results"] == r1["results"], "the ranks hold other APs"
+    assert sum(r["n_shard"] for r in ranks) == DDP["cli_n"]
+    assert all(r["cache"] == "disk" and 0 < r["cache_files"] <= DDP["cli_n"] for r in ranks)
+
+    args = dict(zip(argv[::2], argv[1::2]))
+    cfg = Config.fromfile(args["--conf-file"])
+    model = build_model(cfg, NUM_CLASSES, deploy=False, device=dev)
+    model.load_state_dict(load_checkpoint(os.path.join(weights, "last_ckpt.pt"))["model"],
+                          strict=True)
+    evaler = Evaler(load_data_config(args["--data-path"]), batch_size=DDP["cli_batch"] // world,
+                    img_size=IMG, conf_thres=TRAIN_CLI_EVAL["conf_thres"], iou_thres=0.65,
+                    device=dev)
+    evaler.init_model(model)
+    with KeepRecorder() as rec:
+        rows = evaler.predict_model(model, evaler.init_data(None, "val"), task="train")
+    walk = rec.check("[34b] one-process Evaler", DDP["cli_n"])
+    assert len(rows) > 0 and len(r0["predictions"]) == len(rows)
+    assert r0["predictions"] == rows, "[34b] rank 0's gathered rows differ from one process's"
+    log(f"[34b] tools/train.py::main in 2 gloo ranks on the card (global b{DDP['cli_batch']}, "
+        f"{DDP['cli_epochs']} epochs over {DDP['cli_n']} train images, --cache disk): each rank "
+        f"launched the keep on its device ({r0['launches']} + {r1['launches']}), each first keep "
+        f"equal to the plain keep; rank 0's {len(rows)} gathered COCO rows equal, row for row, a "
+        f"one-process Evaler's on the run's EMA ({walk['launches']} launches); both ranks hold "
+        f"AP50 {r0['results'][0]:.5f}, AP {r0['results'][1]:.5f}; only rank 0 wrote the run; "
+        f"children {wall:.1f} s [{card}]")
+    return dict(launches_rank0=r0["launches"], launches_rank1=r1["launches"],
+                evaler_launches=walk["launches"], rows=len(rows), results=r0["results"],
+                epochs=[r["epochs"] for r in ranks], children_wall_s=wall,
+                max_abs_err=max(r0["max_abs_err"], r1["max_abs_err"], walk["max_abs_err"]))
+
+
+def ddp_nccl_child(argv) -> int:
+    """[34c]: [6]'s step (bf16) twice without a process group, then once in
+    an NCCL group of one, whose collectives run (the parameters' broadcast,
+    the loss normalisers' and the gradient's sums) and change no value;
+    prints whether each equals the first bit for bit, and whether the
+    helpers give back what they were given under NCCL: rows gathered from
+    the host, a sum of a host tensor (staged through the card) and an
+    object broadcast through the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.parallel.dist import (
+        all_gather_rows, all_reduce_sum_, broadcast_object, initialize_distributed, world_size,
+    )
+
+    root = argv[0]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda")
+
+    def run():
+        step, images, targets = ddp_cell_step(dev, half=True)
+        loss, comp = step(images, targets, TRAIN["epoch"])
+        state = step.state_dict()
+        ema = {k: v.cpu() for k, v in step.ema.state_dict().items()}
+        return state, ema, float(loss)
+
+    greedy_nms.launches = 0
+    plain = run()
+    again = run()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(root, 'nccl.store')}",
+                            rank=0, world_size=1)
+    assert initialize_distributed("cuda") == torch.device("cuda", 0)
+    assert dist.get_backend() == "nccl" and world_size() == 1
+    nccl = run()
+    rows = np.random.default_rng(0).random((300, 7))
+    gathered = all_gather_rows(rows)
+    host = torch.arange(6.0)
+    all_reduce_sum_(host)
+    obj = {"ap": (0.5, 0.25), "rows": 300}
+    helpers = (len(gathered) == 1 and np.array_equal(gathered[0], rows)
+               and torch.equal(host, torch.arange(6.0)) and broadcast_object(obj) == obj)
+    dist.destroy_process_group()
+
+    def same(a, b):
+        return all(torch.equal(a[0][k], b[0][k]) for k in a[0]) and \
+            all(torch.equal(a[1][k], b[1][k]) for k in a[1]) and a[2] == b[2]
+
+    res = dict(repeat_equal=same(plain, again), nccl_equal=same(plain, nccl),
+               helpers_equal=helpers, launches=greedy_nms.launches, loss=plain[2])
+    log(f"[34c] {json.dumps(res)}")
+    return 0
+
+
+def ddp_phases(root: str, dev, card: str) -> dict:
+    """Phase group 34 (see the module doc): [34c]'s child starts first, then
+    [34a]'s reference step runs here, then [34a]'s and [34b]'s ranks run side
+    by side (no time of theirs is a claim), and the results are checked as
+    each group ends."""
+    world = DDP["world"]
+    nccl = [ddp_start("--ddp-nccl", root, env=dict(os.environ,
+                                                   CUBLAS_WORKSPACE_CONFIG=":4096:8"))]
+    try:
+        one = ddp_one_process(dev)
+        ddp_cli_argv(root)  # the config copy and the subsets, before the ranks read them
+        t0 = time.perf_counter()
+        step_ranks = [ddp_start("--ddp-step", root, str(r), str(world)) for r in range(world)]
+        cli_ranks = [ddp_start("--ddp-cli", root, str(r), str(world)) for r in range(world)]
+        try:
+            ddp_wait(step_ranks, "[34a]")
+            step = ddp_step_phase(root, one, time.perf_counter() - t0, card)
+        finally:
+            ddp_wait(cli_ranks, "[34b]")
+        cli = ddp_cli_phase(root, time.perf_counter() - t0, dev, card)
+    finally:
+        out, = ddp_wait(nccl, "[34c] [")
+    res = json.loads(next(line for line in out.splitlines() if line.startswith("[34c] "))[6:])
+    assert res["repeat_equal"], "[34c] the plain step is not reproducible bit for bit"
+    assert res["nccl_equal"], "[34c] the step in an NCCL group of one differs from the plain step"
+    assert res["helpers_equal"], "[34c] a collective helper under NCCL changed its input"
+    assert res["launches"] == 0
+    log(f"[34c] [6]'s step (S b{BATCH}@{IMG} bf16) in an NCCL process group of one equals the "
+        f"step without a group bit for bit (parameters, statistics, momentum, EMA, counters; "
+        f"loss {res['loss']:.6f}), as a second plain step does; the gather of host rows, the "
+        f"sum of a host tensor and an object's broadcast through NCCL give back their "
+        f"inputs [{card}]")
+    return dict(step=step, cli=cli, nccl=res,
+                launches=step["launches"] + cli["launches_rank0"] + cli["launches_rank1"])
+
+
 def main() -> int:
     try:
         import torch
@@ -3673,6 +4162,10 @@ def main() -> int:
         del ptq
         export["torchscript_ncnn"] = torchscript_ncnn_phase(model, images, root, dev, card)
         del model
+        # ---- 34. data parallel: the step across two gloo ranks on the card, the
+        # train CLI across them, the step in an NCCL group of one
+        phase_mark("[34]")
+        ddp = ddp_phases(root, dev, card)
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
@@ -3681,6 +4174,7 @@ def main() -> int:
     assert mbla["train_s"]["launches"] == 0 and p6_cli_launches == p6_cli["launches"]
     assert infer_launches == infer["launches"] + infer["gate_launches"]
     assert repopt_cli_launches == repopt_cli["launches"]
+    assert ddp["step"]["launches"] == ddp["nccl"]["launches"] == 0
     assert pan["train_t"]["launches"] == repopt["launches"] == qat_step["launches"] == 0
     assert qat_cli_launches == qat_cli["launches"]
     log("phase wall times (s): " + ", ".join(
@@ -3753,7 +4247,12 @@ def main() -> int:
                              "quantize_cli_eval_gate_n": ptq_cli["launches"],
                              **{name: export["artifact"][name]["launches"]
                                 for name in ("export_s_pt2", "export_s_pt2_fp32")},
-                             "eval_artifact_s": export["eval"]["launches"]},
+                             "eval_artifact_s": export["eval"]["launches"],
+                             "train_ddp_step_ranks": ddp["step"]["launches"],
+                             "train_cli_ddp_eval_rank0": ddp["cli"]["launches_rank0"],
+                             "train_cli_ddp_eval_rank1": ddp["cli"]["launches_rank1"],
+                             "eval_ddp_one_process": ddp["cli"]["evaler_launches"],
+                             "train_nccl_step": ddp["nccl"]["launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -3779,7 +4278,7 @@ def main() -> int:
                            upstream["max_abs_err"], ptq_serve["max_abs_err"],
                            qat_cli["max_abs_err"], ptq_cli["max_abs_err"],
                            *(v["max_abs_err"] for v in export["artifact"].values()),
-                           export["eval"]["max_abs_err"]),
+                           export["eval"]["max_abs_err"], ddp["cli"]["max_abs_err"]),
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
         "call_ms": main["call_ms"],
@@ -3826,6 +4325,7 @@ def main() -> int:
         "upstream": upstream,
         "quant": dict(ptq_serve=ptq_serve, qat_step=qat_step, qat_cli=qat_cli, ptq_cli=ptq_cli),
         "export": export,
+        "data_parallel": ddp,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3841,4 +4341,10 @@ if __name__ == "__main__":
         sys.exit(upstream_files_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--distill-gate"]:
         sys.exit(distill_gate_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ddp-step"]:
+        sys.exit(ddp_step_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ddp-cli"]:
+        sys.exit(ddp_cli_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ddp-nccl"]:
+        sys.exit(ddp_nccl_child(sys.argv[2:]))
     sys.exit(main())

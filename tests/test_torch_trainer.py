@@ -7,6 +7,7 @@ at 64 px with configs/yolov6n.py at full width.
 - 2 epochs straight equal 1 epoch then a resume for the second, bit for bit,
   on every buffer of the step (parameters, BN statistics, momentum, EMA,
   counters) and on the EMA's state dict;
+- ``--cache ram|disk`` and a process group of one train as the plain run;
 - the training recipes: ``--fuse_ab`` for one epoch with the DFL config (the
   distill recipe's teacher), then ``--distill --teacher_model_path`` against
   its ``best_ckpt.pt``, whose stripped checkpoint ``tools/eval.py`` loads with
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from yolov6_tpu_torch.core.engine import Trainer
+from yolov6_tpu_torch.layers.sync_bn import SyncBatchNorm
 from yolov6_tpu_torch.tools import train as train_cli
 from yolov6_tpu_torch.utils.checkpoint import load_checkpoint, load_state_dict_file
 from yolov6_tpu_torch.utils.config import Config
@@ -138,7 +140,6 @@ def test_resume_continues_bit_for_bit(tiny_set, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [("--ckpt-backend=orbax", "Do not port"),
-                                       ("--cache=ram", "The rest of the trainer"),
                                        ("--write_trainbatch_tb", "The rest of the trainer")])
 def test_unported_options_raise(tiny_set, tmp_path, flag, item):
     """Each refusal names its ROADMAP queue item by its title."""
@@ -148,10 +149,47 @@ def test_unported_options_raise(tiny_set, tmp_path, flag, item):
     assert not os.path.exists(osp.join(str(tmp_path), "run"))
 
 
-def test_more_than_one_process_raises(tiny_set, tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        train_cli.main(_args(tiny_set, str(tmp_path), "--epochs", "1"))
+@pytest.fixture(scope="module")
+def one_epoch(tiny_set, tmp_path_factory):
+    """One epoch with the mosaic on and an eval, no image cache."""
+    return train_cli.main(_args(tiny_set, str(tmp_path_factory.mktemp("one_epoch")),
+                                "--epochs", "1", "--stop_aug_last_n_epoch", "0"))
+
+
+def _assert_same_run(got, want):
+    a, b = got.train_step.state_dict(), want.train_step.state_dict()
+    assert sorted(a) == sorted(b)
+    for key in b:
+        assert torch.equal(a[key], b[key]), key
+    assert got.evaluate_results == want.evaluate_results
+
+
+@pytest.mark.parametrize("flag", ["--cache=ram", "--cache-ram", "--cache=disk"])
+def test_image_caches_train_as_uncached(tiny_set, tmp_path, one_epoch, flag):
+    """``--cache ram|disk`` (``--cache-ram``) train the epoch of the uncached
+    run bit for bit, from the cache tier they name."""
+    trainer = train_cli.main(_args(tiny_set, str(tmp_path), "--epochs", "1",
+                                   "--stop_aug_last_n_epoch", "0", flag))
+    assert trainer.train_loader.dataset.cache == ("disk" if "disk" in flag else "ram")
+    _assert_same_run(trainer, one_epoch)
+
+
+def test_a_process_group_of_one_trains_as_one_process(tiny_set, tmp_path, one_epoch):
+    """The CLI in a gloo group of one (as torchrun --nproc_per_node 1 gives,
+    here initialised by the caller): the group is used as it is, the model
+    keeps plain BatchNorm, and the run equals the one without a group."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        trainer = train_cli.main(_args(tiny_set, str(tmp_path), "--epochs", "1",
+                                       "--stop_aug_last_n_epoch", "0"))
+        assert dist.get_world_size() == 1 and trainer.world == 1
+    finally:
+        dist.destroy_process_group()
+    assert all(type(m) is not SyncBatchNorm for m in trainer.model.modules())
+    _assert_same_run(trainer, one_epoch)
 
 
 def test_trainer_needs_a_device_without_cuda(tiny_set, tmp_path, monkeypatch):

@@ -30,16 +30,29 @@ Quantisation (``--quant``, JAX: engine.py:134-166, :506-513, :581-584,
 :684-708): with ``--calib``, ``calibrate()`` records the train graph's conv
 input ranges over ``ptq.calib_batches`` train batches and writes them with
 the fake-quantised weights as ``calib_ckpt.pt`` under
-``ptq.calib_output_path``; without it, QAT: the train graph takes the
+``ptq.calib_output_path`` (across ranks, the ranges' maximum over every
+rank's batches); without it, QAT: the train graph takes the
 tensors and ranges of ``qat.calib_pt`` (after any ``pretrained`` load), and
 every step's forward, the in-training eval of the EMA and the checkpoints
 (``model`` and ``ema``, each with a ``quant`` entry) carry the frozen
 ranges. Both run with no warmup.
 
+Data parallel (JAX: engine.py:56-62, 334-352, 540-640): under torchrun
+(``tools/train.py`` joins the group, ``parallel/dist.py``) each rank loads
+its shard of the train set at ``batch_size // world`` (padded by wrap-around,
+as the JAX shards are) and steps with synchronised BatchNorm, global loss
+normalisers and the summed gradient (``core/train_step.py``), so N ranks at
+a global batch B take the step of one process at B. Every rank predicts its
+shard of the val set with the keep kernel on its own device; the COCO rows
+are gathered, rank 0 scores them and broadcasts ``(AP50, AP)``, so that the
+best-checkpoint tracking agrees on every rank. Rank 0 alone logs at INFO,
+writes the checkpoints, the profile and ``predictions.json``. ``--cache
+ram|disk`` (``--cache-ram`` is ``ram``) keeps the train path's decoded,
+pre-resized images (``data/datasets.py``).
+
 Not ported, and refused with ``NotImplementedError``: the orbax checkpoint
-backend (queue 1, "Do not port"), more than one process ("Parallelism"), the
-RAM and disk image caches and TensorBoard with its train-batch plot ("The
-rest of the trainer").
+backend (queue 1, "Do not port") and TensorBoard with its train-batch plot
+("The rest of the trainer").
 """
 
 from __future__ import annotations
@@ -51,7 +64,7 @@ from typing import Optional
 
 import torch
 
-from yolov6_tpu_torch.core.evaler import Evaler
+from yolov6_tpu_torch.core.evaler import Evaler, gather_coco_predictions
 from yolov6_tpu_torch.core.train_step import make_train_step
 from yolov6_tpu_torch.data.data_load import create_dataloader
 from yolov6_tpu_torch.losses.loss import ComputeLoss
@@ -59,6 +72,10 @@ from yolov6_tpu_torch.losses.loss_distill import ComputeLossDistill
 from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
 from yolov6_tpu_torch.losses.loss_fuseab import ComputeLossAB
 from yolov6_tpu_torch.models.yolo import build_model
+from yolov6_tpu_torch.parallel.dist import (
+    all_reduce_max_, broadcast_object, is_main_process, process_shard_info, rank_device,
+    world_size,
+)
 from yolov6_tpu_torch.quant.ptq import calibrate, quantize_variables
 from yolov6_tpu_torch.quant.state import quant_mode
 from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
@@ -93,12 +110,6 @@ def check_supported(args, cfg) -> None:
         raise NotImplementedError(
             f"--ckpt-backend {args.ckpt_backend}: the port saves with torch.save only (orbax "
             "is on ROADMAP queue 1, \"Do not port\")")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training on more than one process is not ported "
-                                  "(ROADMAP queue 1, \"Parallelism\")")
-    if getattr(args, "cache", None) or getattr(args, "cache_ram", False):
-        raise NotImplementedError("the RAM and disk image caches are not ported (ROADMAP "
-                                  "queue 1, \"The rest of the trainer\")")
     if getattr(args, "write_trainbatch_tb", False):
         raise NotImplementedError("TensorBoard and the train-batch plot are not ported "
                                   "(ROADMAP queue 1, \"The rest of the trainer\")")
@@ -167,7 +178,12 @@ class Trainer:
         check_supported(args, cfg)
         self.args = args
         self.cfg = cfg
-        self.device = resolve_device(getattr(args, "device", "cuda"))
+        self.device = rank_device(resolve_device(getattr(args, "device", "cuda")))
+        self.main_process = is_main_process()
+        self.world = world_size()
+        if args.batch_size % self.world:
+            raise ValueError(f"--batch-size {args.batch_size} (the global batch) does not "
+                             f"split over {self.world} ranks")
         self.max_epoch = args.epochs
         self.save_dir = args.save_dir
         self.data_dict = load_yaml(args.data_path)
@@ -198,7 +214,7 @@ class Trainer:
 
         self.solver_cfg = scale_hyperparams_for_batch(
             dict(cfg.solver), self.batch_size,
-            world_batch=args.bs_per_device)  # one device: the world batch is bs_per_device
+            world_batch=args.bs_per_device and args.bs_per_device * self.world)
         self.solver_cfg.setdefault("lr_scheduler", cfg.solver.get("lr_scheduler", "Cosine"))
         quant = bool(getattr(args, "quant", False))
         self.warmup_stepnum = (0 if quant else
@@ -263,11 +279,14 @@ class Trainer:
         amax = calibrate(self.model, (batch[0] for batch in self.train_loader),
                          num_bits=num_bits, skip_patterns=skip,
                          max_batches=ptq.get("calib_batches", 32))
+        amax = {k: all_reduce_max_(v) for k, v in amax.items()}  # over every rank's batches
         state = quantize_variables(self.model.state_dict(), self.model, num_bits)
         out_dir = ptq.get("calib_output_path", osp.join(self.save_dir, "weights"))
-        path = save_checkpoint({"model": dict(cpu_copy(state), quant=cpu_copy(amax))}, False,
-                               out_dir, "calib_ckpt")
-        LOGGER.info(f"calibrated checkpoint saved to {path}")
+        path = osp.join(out_dir, "calib_ckpt.pt")
+        if self.main_process:
+            path = save_checkpoint({"model": dict(cpu_copy(state), quant=cpu_copy(amax))},
+                                   False, out_dir, "calib_ckpt")
+            LOGGER.info(f"calibrated checkpoint saved to {path}")
         return path
 
     def _build_losses(self, cfg):
@@ -321,16 +340,28 @@ class Trainer:
         return teacher.eval().requires_grad_(False)
 
     def get_data_loader(self, args, cfg, data_dict):
-        """The augmenting, shuffled train loader and the val loader, one
-        process each (reference: engine.py:378-404)."""
+        """The augmenting, shuffled train loader and the val loader of this
+        rank's shard, each at ``batch_size // world`` (JAX: engine.py:334-352).
+        The train shards are padded by wrap-around to one length, so every
+        rank takes the same steps; the val shards are not, so that no
+        detection is counted twice."""
         pin = self.device.type == "cuda"
+        shard_id, num_shards = process_shard_info()
+        cache = getattr(args, "cache", None) or ("ram" if getattr(args, "cache_ram", False)
+                                                 else None)
+        if cache == "ram" and num_shards > 1 and self.main_process:
+            LOGGER.warning("--cache ram keeps a copy a rank of every image its mosaic and mixup "
+                           "draw, up to the whole train set a rank (world x the set on the "
+                           "host); --cache disk keeps one copy that the ranks share")
         train_loader, _ = create_dataloader(
-            data_dict["train"], args.img_size, self.batch_size, hyp=dict(cfg.data_aug),
-            augment=True, data_dict=data_dict, task="train", num_workers=args.workers,
-            max_labels=args.max_labels, pin_memory=pin, seed=args.seed)
+            data_dict["train"], args.img_size, self.batch_size // num_shards,
+            hyp=dict(cfg.data_aug), augment=True, data_dict=data_dict, task="train",
+            num_workers=args.workers, max_labels=args.max_labels, pin_memory=pin,
+            seed=args.seed, shard_id=shard_id, num_shards=num_shards, cache=cache)
         val_loader, _ = create_dataloader(
-            data_dict["val"], args.img_size, self.batch_size, hyp={}, data_dict=data_dict,
-            task="val", num_workers=args.workers, pin_memory=pin)
+            data_dict["val"], args.img_size, self.batch_size // num_shards, hyp={},
+            data_dict=data_dict, task="val", num_workers=args.workers, pin_memory=pin,
+            shard_id=shard_id, num_shards=num_shards, pad_shards=False)
         return train_loader, val_loader
 
     def _stop_strong_aug(self) -> None:
@@ -374,7 +405,7 @@ class Trainer:
         cuda = self.device.type == "cuda"
         log_interval = self.args.log_interval
         profile_at = (range(2, 5) if getattr(self.args, "profile", False)
-                      and epoch_num == self.start_epoch else range(0))
+                      and epoch_num == self.start_epoch and self.main_process else range(0))
         prof = None
         events, wait_s, mean = [], 0.0, None
         t_epoch = time.perf_counter()
@@ -467,6 +498,8 @@ class Trainer:
             self.eval_model()
             self.ap = self.evaluate_results[1]
             self.best_ap = max(self.ap, self.best_ap)
+        if not self.main_process:  # rank 0 writes the checkpoints
+            return
 
         ckpt = {
             "train_state": self.train_step.state_dict(),
@@ -491,7 +524,10 @@ class Trainer:
 
     def eval_model(self) -> None:
         """In-training eval of the EMA (reference: engine.py:222-269); the
-        config's ``eval_params`` override the defaults (reference :236-264)."""
+        config's ``eval_params`` override the defaults (reference :236-264).
+        Across ranks each rank predicts its val shard, the rows are gathered
+        (``predictions`` holds them on every rank), rank 0 scores them and
+        the APs are broadcast (JAX: engine.py:594-640)."""
         ep = self.cfg.get("eval_params") or {}
 
         def val(key, default):
@@ -501,9 +537,10 @@ class Trainer:
             return default if v is None else v
 
         evaler = Evaler(
-            self.data_dict, batch_size=val("batch_size", self.batch_size),
+            self.data_dict, batch_size=val("batch_size", self.batch_size) // self.world,
             img_size=val("img_size", self.img_size), conf_thres=val("conf_thres", 0.03),
-            iou_thres=val("iou_thres", 0.65), save_dir=self.save_dir,
+            iou_thres=val("iou_thres", 0.65),
+            save_dir=self.save_dir if self.main_process else "",
             shrink_size=val("shrink_size", 0) or 0, verbose=val("verbose", False),
             do_coco_metric=val("do_coco_metric", True), do_pr_metric=val("do_pr_metric", False),
             device=self.device)
@@ -514,7 +551,11 @@ class Trainer:
         with quant_mode(model, **(self.quant or {})):
             preds = evaler.predict_model(model, self.val_loader, task="train")
         predict_s = time.perf_counter() - t0
-        results = evaler.eval_model(preds, model, self.val_loader, task="train")
+        preds = gather_coco_predictions(preds, self.val_loader.dataset.img_paths)
+        results = (evaler.eval_model(preds, model, self.val_loader, task="train")[:2]
+                   if self.main_process else None)
+        results = broadcast_object(results)  # rank 0's APs on every rank
+        self.predictions = preds
         LOGGER.info(f"Epoch: {self.epoch} | mAP@0.5: {results[0]} | mAP@0.50:0.95: {results[1]}")
         self.evaluate_results = tuple(float(v) for v in results[:2])
         n_img = int(evaler.speed_result[0])
@@ -524,4 +565,5 @@ class Trainer:
 
     def strip_model(self) -> None:
         LOGGER.info(f"\nTraining completed in {(time.time() - self.start_time) / 3600:.3f} hours.")
-        strip_optimizer(osp.join(self.save_dir, "weights"), self.epoch)
+        if self.main_process:
+            strip_optimizer(osp.join(self.save_dir, "weights"), self.epoch)

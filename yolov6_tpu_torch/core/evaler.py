@@ -17,11 +17,13 @@ queues them, so events around it read the host's queueing.
 
 ``init_artifact`` evaluates an end2end ``.pt2`` serving artifact
 (models/end2end.py) in place of a live model, on one device: the JAX
-package's StableHLO artifact eval, whose GSPMD form waits for the multi-card
-work. Not ported: the multi-host gather (``gather_coco_predictions``), the
-data-parallel mesh, the TPU's bf16 candidate ranking, and the PR/confusion
-plots (matplotlib): ``plot_curve`` and ``plot_confusion_matrix`` raise
-``NotImplementedError``.
+package's StableHLO artifact eval (its GSPMD form is not ported).
+
+Across ranks (``parallel/dist.py``) each rank's Evaler predicts its shard of
+the val set on its own device, and ``gather_coco_predictions`` gathers the
+rows for rank 0 to score (the trainer's in-training eval). Not ported: the
+TPU's bf16 candidate ranking, and the PR/confusion plots (matplotlib):
+``plot_curve`` and ``plot_confusion_matrix`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 
 from yolov6_tpu_torch.data.data_load import create_dataloader
 from yolov6_tpu_torch.ops.nms import non_max_suppression
+from yolov6_tpu_torch.parallel.dist import all_gather_rows, world_size
 from yolov6_tpu_torch.utils.coco_eval import COCOEvaluator, coco80_to_coco91_class
 from yolov6_tpu_torch.utils.data_config import load_data_config
 from yolov6_tpu_torch.utils.device import resolve_device
@@ -513,3 +516,14 @@ def decode_pred_rows(rows: np.ndarray, img_paths) -> list:
             "score": float(r[6]),
         })
     return out
+
+
+def gather_coco_predictions(pred_results, img_paths) -> list:
+    """Every rank's COCO prediction rows, in rank order, on every rank (JAX:
+    evaler.py:555-578): each rank encodes its rows (``encode_pred_rows``,
+    the image as its index in ``img_paths``), the rows are gathered padded
+    to the largest count and decoded. The identity for one process."""
+    if world_size() == 1:
+        return pred_results
+    parts = all_gather_rows(encode_pred_rows(pred_results, img_paths))
+    return decode_pred_rows(np.concatenate(parts), img_paths)

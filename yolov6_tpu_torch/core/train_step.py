@@ -10,6 +10,15 @@ branches are a few whole-buffer ``torch.where`` selects on device booleans:
 the step reads no value on the host, as the jitted JAX step reads none.
 Parameters are ordered by group (BN weights, weights, biases), so a group is
 one slice of the buffer.
+
+Data parallel (``parallel/dist.py``): each rank steps on its slice of the
+global batch. The BatchNorms are synchronised (``layers/sync_bn.py``), the
+loss normalisers are global (``losses/``), so each rank's loss is its share
+of the global batch's, and one sum over the ranks of the flat gradient
+buffer before the guards gives every rank the JAX step's gradient: the
+guards, the accumulation, the masks and SGD then run alike on every rank.
+The buffers start from rank 0's, and the returned loss and components are
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -21,8 +30,10 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from yolov6_tpu_torch.layers.sync_bn import convert_sync_batchnorm
 from yolov6_tpu_torch.models.effidehead import flatten_head_outputs
 from yolov6_tpu_torch.models.heads.effidehead_fuseab import flatten_ab_outputs
+from yolov6_tpu_torch.parallel.dist import all_reduce_sum_, broadcast_
 from yolov6_tpu_torch.quant.state import quant_mode
 from yolov6_tpu_torch.solver.build import (
     param_groups,
@@ -96,6 +107,7 @@ class TrainStep:
         device = resolve_device(device)
         if teacher is not None and compute_loss_ab is not None:
             raise ValueError("a distillation step takes no anchor-based loss (fuse-AB)")
+        convert_sync_batchnorm(model)
         named = list(model.named_parameters())
         for name, p in named:
             if p.device.type != device.type or p.dtype != torch.float32:
@@ -139,6 +151,8 @@ class TrainStep:
             _flatten_into([ema_buffers[n] for n, _ in float_bufs], **f32),
             _flatten_into([ema_buffers[n] for n, _ in int_bufs], torch.int64, device),
         ]
+        for flat in [self._param, self._stats, self._counts, *self._ema]:
+            broadcast_(flat)
         self._stats_before = torch.empty_like(self._stats)
         self._grad = torch.zeros_like(self._param)
         self._momentum = torch.zeros_like(self._param)
@@ -234,7 +248,9 @@ class TrainStep:
                 loss_ab, comp_ab = self.compute_loss_ab(feats_hw, cls_ab, reg_ab, targets, h, w)
                 loss, components = loss + loss_ab, components + comp_ab
         loss.backward()
-        return loss.detach(), components
+        all_reduce_sum_(self._grad)
+        summed = all_reduce_sum_(torch.cat([loss.detach()[None], components]))
+        return summed[0], summed[1:]
 
     @torch.no_grad()
     def update(self, epoch) -> None:

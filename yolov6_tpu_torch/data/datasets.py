@@ -13,12 +13,22 @@ under a random affine (optionally mixed up with a second mosaic), else the
 letterbox and a random affine; then the HSV jitter and the flips. The pixel
 passes are ``data/native_aug.py``'s C++ library; every random value is drawn
 from a ``Draws`` seeded by ``(seed, epoch, index)``, so a sample does not
-depend on which loader thread made it. The JAX package's RAM and disk image
-caches and its C++ batch loader (``native/dataload.cc``) are not ported.
+depend on which loader thread made it. The JAX package's C++ batch loader
+(``native/dataload.cc``) is not ported.
 
-The label cache and the COCO GT file have names of their own
+The train path's image caches (JAX: datasets.py:143-182, 374-460) keep its
+decoded, pre-resized RGB image: ``cache="ram"`` in the dataset's memory, at
+first use; ``cache="disk"`` as one ``.npy`` an image in
+``.torch_img_cache_{dir}_{img_size}`` beside the images, written through a
+temporary name and ``os.replace`` so that ranks sharing the directory never
+read a torn file. A cached sample is the uncached one bit for bit: the
+draws, the mosaic and the HSV pass read the same bytes. Neither tier checks
+an image that changed after it was cached.
+
+The label cache, the COCO GT file and the disk tier have names of their own
 (``.{dir}.torch_cache.json``, ``.{dir}_torch_coco_gt.json``), so that the
-JAX package and the port can run on one set.
+JAX package and the port can run on one set; the first two are written
+through a temporary name too.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import json
 import logging
 import os
 import os.path as osp
+import threading
 from multiprocessing.pool import ThreadPool
 from pathlib import Path
 from typing import List, Optional
@@ -87,10 +98,15 @@ class TrainValDataset:
         height: Optional[int] = None,
         width: Optional[int] = None,
         seed: int = 0,
+        cache: Optional[str] = None,
     ):
         if augment and (rect or specific_shape or (hyp or {}).get("shrink_size")):
             raise ValueError("augment=True takes no rect batches, specific_shape or "
                              "shrink_size (the port's train path has none of them)")
+        if cache not in (None, "ram", "disk"):
+            raise ValueError(f"cache={cache!r}: None, 'ram' or 'disk'")
+        if cache and not augment:
+            raise ValueError("the image caches keep the train path's images (augment=True)")
         self.img_dir = img_dir
         self.img_size = img_size
         self.batch_size = batch_size
@@ -109,6 +125,13 @@ class TrainValDataset:
 
         self.img_paths, self.labels, self.shapes = self._load_annotations(img_dir)
         self.n = len(self.img_paths)
+        self.cache = cache
+        self._ram = [None] * self.n if cache == "ram" else None
+        if cache == "disk":
+            self.disk_cache_dir = osp.join(
+                osp.dirname(osp.dirname(self.img_paths[0])) or ".",
+                f".torch_img_cache_{osp.basename(str(img_dir))}_{img_size}")
+            os.makedirs(self.disk_cache_dir, exist_ok=True)
         if self.rect:
             self._setup_rect_batches()
         else:
@@ -173,8 +196,8 @@ class TrainValDataset:
                 results = pool.map(parse, zip(img_paths, label_paths))
             cached = {p: {"labels": rows, "shape": list(shape)} for p, rows, shape in results}
             try:
-                with open(cache_path, "w") as f:
-                    json.dump({"hash": cache_key, "version": CACHE_VERSION, "labels": cached}, f)
+                _write_json({"hash": cache_key, "version": CACHE_VERSION, "labels": cached},
+                            cache_path)
             except OSError as e:
                 LOGGER.warning(f"could not write the label cache {cache_path}: {e}")
 
@@ -244,17 +267,52 @@ class TrainValDataset:
             im = resize(im, (int(w0 * ratio), int(h0 * ratio)))
         return im, (h0, w0), im.shape[:2]
 
+    def _disk_file(self, index) -> str:
+        path = self.img_paths[index]
+        stem = osp.splitext(osp.basename(path))[0]
+        return osp.join(self.disk_cache_dir,
+                        f"{stem}.{hashlib.md5(path.encode()).hexdigest()[:10]}.rgb.npy")
+
     def load_image_rgb(self, index):
         """The train path's decode and pre-resize (JAX: datasets.py:396-459
         ``_load_image_rgb``): RGB, INTER_LINEAR to ``img_size / max(h0, w0)``
-        whatever the size. Returns ``(RGB image, (h0, w0), (h, w))``."""
+        whatever the size, served from the cache tier when there is one.
+        Returns ``(RGB image, (h0, w0), (h, w))``; the image is shared with
+        the cache and is not to be written."""
+        if self._ram is not None and self._ram[index] is not None:
+            return self._ram[index]
+        cache_file = self._disk_file(index) if self.cache == "disk" else None
+        if cache_file is not None and osp.exists(cache_file):
+            try:
+                im = np.load(cache_file)
+                w0, h0 = self._resolve_shape(index)
+                return im, (h0, w0), im.shape[:2]
+            except (OSError, ValueError) as e:
+                LOGGER.warning(f"re-decoding {self.img_paths[index]}: cache file {e}")
         im = np.ascontiguousarray(imread(self.img_paths[index])[:, :, ::-1])
         h0, w0 = im.shape[:2]
         ratio = self.img_size / max(h0, w0)
         dst_h, dst_w = int(h0 * ratio), int(w0 * ratio)
         if (dst_h, dst_w) != (h0, w0):
             im = resize_linear(im, (dst_w, dst_h))
-        return im, (h0, w0), im.shape[:2]
+        out = im, (h0, w0), im.shape[:2]
+        if self._ram is not None:
+            self._ram[index] = out
+        elif cache_file is not None:
+            tmp = f"{cache_file}.{os.getpid()}.{threading.get_ident()}.tmp.npy"
+            try:
+                np.save(tmp, im)
+                os.replace(tmp, cache_file)
+            except OSError as e:
+                LOGGER.warning(f"could not write the image cache {cache_file}: {e}")
+        return out
+
+    def _resolve_shape(self, index):
+        """The cached (w, h) of one image, read from its header if unknown."""
+        w0, h0 = self.shapes[index]
+        if w0 <= 0 or h0 <= 0:
+            w0, h0 = image_size(self.img_paths[index])
+        return int(w0), int(h0)
 
     def _one_mosaic(self, index, target_hw, rng: Draws, flip_lr, flip_ud):
         """One mosaic of ``index`` and three drawn images (JAX:
@@ -379,10 +437,18 @@ class TrainValDataset:
                     }
                 )
                 ann_id += 1
-        with open(save_path, "w") as f:
-            json.dump(out, f)
+        _write_json(out, save_path)
         LOGGER.info(f"COCO-format GT labels saved to {save_path}")
         return save_path
+
+
+def _write_json(obj, path: str) -> None:
+    """``json.dump`` through a temporary name: a reader (another rank) sees
+    the old file or the new one, never a torn one."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
 
 
 class LoadData:

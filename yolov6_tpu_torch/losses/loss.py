@@ -4,6 +4,11 @@ assignment (port of yolov6_tpu/losses/loss.py:28-204).
 As in the JAX package, the per-anchor losses are dense and weighted by
 ``fg_mask``, the same sums as the reference's masked selects at fixed shapes,
 and the assigner runs on the device with the loss.
+
+Across ranks (``parallel/dist.py``) each rank's loss is its own sums over
+the global normaliser (``target_scores_sum`` summed over the ranks, its
+guard taken on that sum), so the ranks' losses add up to the loss of the
+global batch, and the step sums their gradients.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from yolov6_tpu_torch.assigners.atss_assigner import atss_assigner
 from yolov6_tpu_torch.assigners.tal_assigner import task_aligned_assigner
 from yolov6_tpu_torch.models.effidehead import dfl_project
 from yolov6_tpu_torch.ops.boxes import bbox2dist, dist2bbox, elementwise_box_iou, xywh2xyxy
+from yolov6_tpu_torch.parallel.dist import global_sum
 
 
 def varifocal_loss(pred_score, gt_score, label, alpha=0.75, gamma=2.0):
@@ -140,7 +146,7 @@ class ComputeLoss:
         target_labels = torch.where(fg_mask, target_labels, self.num_classes)
         one_hot_label = F.one_hot(target_labels, self.num_classes + 1)[..., :-1].float()
         loss_cls = varifocal_loss(pred_scores, target_scores, one_hot_label)
-        target_scores_sum = target_scores.sum()
+        target_scores_sum = global_sum(target_scores.sum())
         denom = torch.where(target_scores_sum > 1, target_scores_sum, 1.0)
         loss_cls = loss_cls / denom
 

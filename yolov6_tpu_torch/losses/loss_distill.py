@@ -7,7 +7,10 @@ and optionally channel-wise KD on the neck maps, every KD term decayed by a
 cosine over the epochs. The reference's quirks are kept, since the tests
 hold them: the class KD softmaxes post-sigmoid scores again; the DFL KD is
 the mean KL over positive anchors times the sum of the box weights; the
-denominator guard is ``target_scores_sum > 0``.
+denominator guard is ``target_scores_sum > 0``. Across ranks the
+normalisers (``target_scores_sum``, the positive count and the box weights'
+sum of the DFL KD, the channel-wise KD's batch) are the global batch's, as
+in ``losses/loss.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from yolov6_tpu_torch.assigners.tal_assigner import task_aligned_assigner
 from yolov6_tpu_torch.losses.loss import ComputeLoss, bbox_decode, df_loss, varifocal_loss
 from yolov6_tpu_torch.models.effidehead import flatten_head_outputs
 from yolov6_tpu_torch.ops.boxes import bbox2dist, elementwise_box_iou, xywh2xyxy
+from yolov6_tpu_torch.parallel.dist import global_sum, world_size
 
 
 def _kl_terms(student, teacher, temperature, dim):
@@ -55,7 +59,8 @@ def distill_loss_cw(s_feats, t_feats, temperature: float = 1.0):
     """Channel-wise KD over the neck maps (JAX: loss_distill.py:48-60): for
     each channel a softmax over its spatial positions (the last two axes of
     an NCHW map), the KL summed and divided by batch times channels, times
-    T². The teacher's maps are data, not a gradient path."""
+    T². The batch is the global one: across ranks each rank's share of the
+    sum over it. The teacher's maps are data, not a gradient path."""
     total = 0.0
     for s, t in zip(s_feats, t_feats):
         n, c = s.shape[:2]
@@ -63,7 +68,8 @@ def distill_loss_cw(s_feats, t_feats, temperature: float = 1.0):
         t2 = t.detach().float().reshape(n, c, -1) / temperature
         log_p_s = torch.log_softmax(s2, -1)
         log_p_t = torch.log_softmax(t2, -1)
-        total = total + (log_p_t.exp() * (log_p_t - log_p_s)).sum() * temperature ** 2 / (n * c)
+        total = total + (log_p_t.exp() * (log_p_t - log_p_s)).sum() * temperature ** 2 \
+            / (n * world_size() * c)
     return total
 
 
@@ -152,7 +158,7 @@ class ComputeLossDistill(ComputeLoss):
         target_labels = torch.where(fg_mask, target_labels, self.num_classes)
         one_hot_label = F.one_hot(target_labels, self.num_classes + 1)[..., :-1].float()
         loss_cls = varifocal_loss(pred_scores, target_scores, one_hot_label)
-        target_scores_sum = target_scores.sum()
+        target_scores_sum = global_sum(target_scores.sum())
         denom = torch.where(target_scores_sum > 0, target_scores_sum, 1.0)
         loss_cls = loss_cls / denom
 
@@ -175,8 +181,8 @@ class ComputeLossDistill(ComputeLoss):
             # the reference's DFL KD is the mean KL over the positive anchors
             # times the sum of the box weights, not a weighted sum per anchor
             kd = distill_loss_dfl_per_anchor(s_dist, t_dist, self.temperature, self.reg_max)
-            kd_mean = (kd * fg).sum() / fg.sum().clamp(min=1.0)
-            d_loss_dfl = kd_mean * bbox_weight.sum() / denom
+            kd_mean = (kd * fg).sum() / global_sum(fg.sum()).clamp(min=1.0)
+            d_loss_dfl = kd_mean * global_sum(bbox_weight.sum()) / denom
         else:
             loss_dfl = d_loss_dfl = zero
 

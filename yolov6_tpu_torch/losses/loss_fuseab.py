@@ -5,7 +5,8 @@ It is not ``ComputeLoss`` over other anchors: three anchors a cell
 (``generate_anchors(..., mode="ab")``), TAL with ``topk=26``, no DFL, boxes
 decoded as xywh offsets around the anchor points in stride units, and a
 denominator guard of ``target_scores_sum > 0`` where the main loss has
-``> 1``.
+``> 1``. Across ranks ``target_scores_sum`` is the global batch's, as in
+``losses/loss.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from yolov6_tpu_torch.assigners.tal_assigner import task_aligned_assigner
 from yolov6_tpu_torch.losses.loss import ComputeLoss, varifocal_loss
 from yolov6_tpu_torch.ops.boxes import elementwise_box_iou, xywh2xyxy
+from yolov6_tpu_torch.parallel.dist import global_sum
 
 
 class ComputeLossAB(ComputeLoss):
@@ -77,7 +79,7 @@ class ComputeLossAB(ComputeLoss):
         target_labels = torch.where(fg_mask, target_labels, self.num_classes)
         one_hot_label = F.one_hot(target_labels, self.num_classes + 1)[..., :-1].float()
         loss_cls = varifocal_loss(pred_scores, target_scores, one_hot_label)
-        target_scores_sum = target_scores.sum()
+        target_scores_sum = global_sum(target_scores.sum())
         denom = torch.where(target_scores_sum > 0, target_scores_sum, 1.0)
         loss_cls = loss_cls / denom
 

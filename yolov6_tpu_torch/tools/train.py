@@ -19,7 +19,16 @@ Quantisation, RepOpt's third stage on the ``configs/repopt/*_opt_qat.py``
 configs: ``--quant --calib`` calibrates the train graph (``pretrained``'s
 weights) and writes ``calib_ckpt.pt`` under ``ptq.calib_output_path``, then
 returns; ``--quant`` trains from ``qat.calib_pt`` with the frozen ranges
-(QAT). Flags of later slices raise ``NotImplementedError``
+(QAT). Data parallel, one process a rank:
+
+    torchrun --nproc_per_node N -m yolov6_tpu_torch.tools.train ... --batch-size B
+
+(B the global batch, B // N a rank; NCCL on the cards, gloo with ``--device
+cpu``): the group is joined before the trainer is built, rank 0 names and
+writes the run's directory, and N ranks take the step of one process at B
+(``core/engine.py``). ``--cache ram|disk`` (``--cache-ram``) keeps the
+decoded, pre-resized train images. ``--write_trainbatch_tb`` and
+``--ckpt-backend orbax`` raise ``NotImplementedError``
 (``core/engine.py::check_supported``); the JAX
 CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,
 ``--check-images``/``--check-labels`` and the unused ``--dist_url``/
@@ -36,6 +45,9 @@ import random
 import numpy as np
 
 from yolov6_tpu_torch.core.engine import Trainer, check_supported
+from yolov6_tpu_torch.parallel.dist import (
+    broadcast_object, initialize_distributed, is_main_process,
+)
 from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.events import LOGGER, load_yaml, save_yaml
 from yolov6_tpu_torch.utils.general import check_img_size, find_latest_checkpoint, increment_name
@@ -96,7 +108,8 @@ def get_args_parser(add_help=True):
 def check_and_init(args):
     """The save dir, resume with the run's saved args, the image size and the
     seeds; writes ``args.yaml`` (reference: tools/train.py:65-109). Returns
-    the config."""
+    the config. Across ranks rank 0 names and makes the directory and
+    writes ``args.yaml``; every rank reads a resumed run's."""
     if args.resume:
         checkpoint_path = (args.resume if isinstance(args.resume, str)
                            else find_latest_checkpoint())
@@ -114,26 +127,31 @@ def check_and_init(args):
         args.resume = checkpoint_path
         LOGGER.info(f"Resume training from checkpoint {checkpoint_path}")
     else:
-        args.save_dir = str(increment_name(osp.join(args.output_dir, args.name)))
+        args.save_dir = broadcast_object(
+            str(increment_name(osp.join(args.output_dir, args.name))) if is_main_process()
+            else None)
 
     cfg = Config.fromfile(args.conf_file)
     if "training_mode" not in cfg:
         cfg.training_mode = "repvgg"
     check_supported(args, cfg)
-    os.makedirs(args.save_dir, exist_ok=True)
-
     args.img_size = check_img_size(args.img_size, 32, floor=args.img_floor)
 
     random.seed(args.seed)
     np.random.seed(args.seed)
-    save_yaml(vars(args), osp.join(args.save_dir, "args.yaml"))
+    if is_main_process():
+        os.makedirs(args.save_dir, exist_ok=True)
+        save_yaml(vars(args), osp.join(args.save_dir, "args.yaml"))
     return cfg
 
 
 def main(args):
     """Train; returns the ``Trainer`` (its ``epoch_stats``, ``eval_stats``
     and ``profile_result``). With ``--quant --calib`` it calibrates instead
-    (``Trainer.calibrate``, JAX tools/train.py:130-132)."""
+    (``Trainer.calibrate``, JAX tools/train.py:130-132). Under torchrun it
+    first joins the process group (JAX tools/train.py:120-127); a group the
+    caller initialised is used as it is."""
+    initialize_distributed(args.device)
     cfg = check_and_init(args)
     trainer = Trainer(args, cfg)
     if args.quant and args.calib:

@@ -2,6 +2,10 @@
 yolov6_tpu/utils/events.py, without the ``yaml`` package, which the machine
 with the card lacks, and without TensorBoard).
 
+Every rank but the main one logs warnings only (JAX: events.py:18-60):
+``RANK`` decides at import, the process group when ``set_logging`` runs again
+once it is up (``parallel/dist.py::initialize_distributed``).
+
 ``save_yaml`` writes a flat mapping (identifier keys; scalars and lists of
 scalars) as ``key: value`` lines in flow style (strings in double quotes,
 ``null``, ``true``/``false``, floats with a dot), which ``yaml.safe_load``
@@ -15,18 +19,29 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 
 from yolov6_tpu_torch.utils.data_config import load_data_config
 
 
+def _main_process() -> bool:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return int(os.environ.get("RANK", "0")) == 0
+
+
 def set_logging(name: str = "yolov6_tpu_torch") -> logging.Logger:
-    """The package's logger, INFO to stderr as bare messages."""
+    """The package's logger to stderr as bare messages: INFO on the main
+    process, WARNING on the other ranks (the package's module loggers
+    inherit the level)."""
     logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler()
         handler.setFormatter(logging.Formatter("%(message)s"))
         logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if _main_process() else logging.WARNING)
     logger.propagate = False
     return logger
 
@@ -64,8 +79,11 @@ def save_yaml(data: dict, save_path: str) -> None:
         else:
             text = _scalar(value, key)
         lines.append(f"{key}: {text}")
-    with open(save_path, "w") as f:
+    # through a temporary name: another rank may be reading the file
+    tmp = f"{save_path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         f.write("\n".join(lines) + "\n")
+    os.replace(tmp, save_path)
 
 
 def load_yaml(file_path: str) -> dict:
