@@ -14,8 +14,10 @@ Phases, each of which asserts:
      ``make_end2end_fn``; the NMS kernel must be launched, take the tile walk
      in every image (at the serving setting and at the eval protocol) and find
      detections; the default keep must equal the plain emit-once keep and
-     ``'pallas'`` the plain loop on the same predictions, and the CPU decode
-     of two of the images must agree with the CUDA decode;
+     ``'pallas'`` the plain loop on the same predictions, ``'perclass'``
+     (the JAX package's per-class keep) must launch the kernel and equal the
+     default keep, and the CPU decode of two of the images must agree with
+     the CUDA decode (M in phase 8 the same);
   4. times of the bf16 serving function, with CUDA events;
   5. a torch.profiler trace of the bf16 serving function: kernel time by
      name and the device's idle share;
@@ -40,7 +42,9 @@ Phases, each of which asserts:
      serve of phase 7;
  10. YOLOv6-L (configs/yolov6l.py, ``conv_silu`` blocks): the deploy graph
      serves b32@640 in bf16 through the kernel (timed), and the train form
-     takes 3 + 5 steps in bf16 with DFL;
+     takes 3 + 5 steps in bf16 with DFL; then ``utils/model_info.py`` on
+     the S, M and L deploy graphs at 640, built on ``meta``, logged beside
+     BASELINE.md's parameters and FLOPs;
  11. COCO evaluation: the port's generator writes a synthetic val set of 64
      PNG images of mixed sizes (80 class names); a mock detector that emits
      the letterboxed GT boxes must score AP50 > 0.99 and AP > 0.95 through
@@ -54,7 +58,11 @@ Phases, each of which asserts:
      (loader wait, the host's time to queue the batch function, copy, host
      conversion; also over batches built beforehand, with no loader thread
      running), the COCO scoring time, ``measure_speed``, and the device's
-     time and idle share from a profiled second pass;
+     time and idle share from a profiled second pass; one more, untimed S
+     eval with ``do_pr_metric``, ``plot_curve`` and
+     ``plot_confusion_matrix`` must launch the keep once a batch and write
+     the five PNGs (read back at 2250x1500), logging the host seconds of
+     ``ap_per_class`` and of the rendering;
  12. the train CLI: a 96-image PNG train split beside phase 11's val set
      (the same sizes, another seed); ``tools/train.py::main`` trains
      YOLOv6-S (80 classes, the config's data_aug: mosaic 1.0, mixup 0.0)
@@ -71,7 +79,14 @@ Phases, each of which asserts:
      logs imgs/s per epoch with the loader, the loader wait and the step's
      time (CUDA events) a step, the augmentation's host ms an image (the C++
      pass, the HSV pass), the device's idle share over 3 profiled steps of
-     epoch 0, and the in-training eval's imgs/s;
+     epoch 0, and the in-training eval's imgs/s. The run writes TensorBoard
+     with ``--write_trainbatch_tb``: its event file, read back by
+     ``read_events`` (both CRCs), must hold per epoch the 8 scalars, the LRs
+     equal to ``group_lrs_host``, a 1920x1920 ``train_batch`` at the epoch's
+     first step, and after the eval one ``val_img_*`` an image with a
+     prediction (up to 8); the plot's and the event writes' host seconds are
+     logged. Then ``data/vis_dataset.py`` draws the labels of 4 of the split's
+     images;
  13. the learning gate (``tools/learning_gate.py`` at its defaults: YOLOv6-N,
      160 px, 256 train and 64 val images, 4 classes, 30 epochs, batch 16,
      seed 0, the exact-NMS pass on): final mAP50 > 0.75 and a gain > 0.20,
@@ -223,7 +238,8 @@ Phases, each of which asserts:
      end: each rank launches the keep on its device (its first keep with a
      candidate equal to the plain keep), rank 0's gathered rows equal a
      one-process Evaler's on the run's EMA row for row, both ranks hold the
-     same APs, and rank 1 writes nothing under the run's directory; [34c]
+     same APs, and rank 1 writes nothing under the run's directory, where
+     rank 0 writes one TensorBoard event file; [34c]
      [6]'s bf16 step in an NCCL group of one equals the step without a group
      bit for bit (as a second plain step does), beside [34a] and [34b].
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
@@ -941,6 +957,21 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
             f"eval protocol ((default, pallas) detections: {counts}); the default keep took "
             f"the tile walk in every image of both (tiles/image: {walk_tiles})")
 
+        # 'perclass' (the JAX package's per-class keep) on the same predictions
+        # at the serving setting: through the kernel, the default's output
+        t0 = time.perf_counter()
+        greedy_nms.launches = 0
+        pc_dets, pc_valid = nms_mod.non_max_suppression(preds, **SERVE, method="perclass")
+        torch.cuda.synchronize()
+        perclass_launches = greedy_nms.launches
+        dets_d, valid_d = nms_mod.non_max_suppression(preds, **SERVE)
+        assert perclass_launches > 0, f"{label}: 'perclass' did not launch the kernel"
+        assert torch.equal(pc_valid, valid_d) and torch.equal(pc_dets, dets_d), \
+            f"{label}: 'perclass' differs from the default keep"
+        log(f"{tag} non_max_suppression(method='perclass') on {label}'s served predictions: "
+            f"{perclass_launches} kernel launch(es), {int(pc_valid.sum())} detections equal to "
+            f"the default keep's; {time.perf_counter() - t0:.2f} s")
+
         # two of the images on the CPU, fp32
         cpu_serve = make_end2end_fn(cpu_model, **SERVE, with_preprocess=True, half=False,
                                     device="cpu")
@@ -984,7 +1015,8 @@ def serve_phase(cfg, label: str, model, images_np, images, dev, card: str, tag: 
             f"({by}; in any order {any_bound:.5f} ms, {any_by}) [{card}]")
     return dict(launches=launches, tiles_visited=tiles, max_abs_err=max_abs_err,
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                any_order_bound_ms=any_bound, K=nms_boxes.shape[1], max_det=md)
+                any_order_bound_ms=any_bound, K=nms_boxes.shape[1], max_det=md,
+                perclass_launches=perclass_launches)
 
 
 def time_serve(model, label: str, images, dev, card: str, tag: str, profile_tag=None):
@@ -1357,6 +1389,174 @@ def eval_phase(model, label: str, data: dict, dev, card: str, rect: bool = False
     return out
 
 
+PLOT_FILES = ("PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png",
+              "confusion_matrix.png")
+
+
+def eval_plots_phase(model, data: dict, root: str, dev, card: str) -> dict:
+    """[11]: one more, untimed S eval over the val set with ``do_pr_metric``,
+    ``plot_curve`` and ``plot_confusion_matrix``: the keep launched once a
+    batch (its first keep with a candidate equal to the plain keep) and the
+    five PNGs written, each read back at 2250x1500; logs the host seconds of
+    ``ap_per_class`` and of the rendering."""
+    from yolov6_tpu_torch.core.evaler import Evaler
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.utils import metrics
+
+    out_dir = os.path.join(root, "eval_plots")
+    os.makedirs(out_dir)
+    render = {"curves": 0.0}
+    real = {name: getattr(metrics, name) for name in ("plot_pr_curve", "plot_mc_curve")}
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                render["curves"] += time.perf_counter() - t0
+        return wrapper
+
+    t_start = time.perf_counter()
+    evaler = Evaler(dict(data), batch_size=BATCH, img_size=IMG, half=True, save_dir=out_dir,
+                    do_pr_metric=True, plot_curve=True, plot_confusion_matrix=True, device=dev)
+    evaler.init_model(model)
+    loader = evaler.init_data(None, "val")
+    for name, fn in real.items():
+        setattr(metrics, name, timed(fn))
+    try:
+        with KeepRecorder() as rec:
+            greedy_nms.launches = 0
+            evaler.predict_model(model, loader)
+            launches = greedy_nms.launches
+    finally:
+        for name, fn in real.items():
+            setattr(metrics, name, fn)
+    walk = rec.check("[11] eval with plots", EVAL_SET["n_val"])
+    assert launches == len(evaler.batch_split) == walk["launches"], launches
+    assert evaler.pr_results is not None and all(math.isfinite(v) for v in evaler.pr_results)
+    assert sorted(f for f in os.listdir(out_dir) if f.endswith(".png")) == sorted(PLOT_FILES)
+    for name in PLOT_FILES:
+        shape = imread(os.path.join(out_dir, name)).shape
+        assert shape == (1500, 2250, 3), f"[11] {name}: {shape}"
+    wall = time.perf_counter() - t_start
+    ap_s = evaler.plot_s["ap_per_class"]
+    cm_s = evaler.plot_s["confusion_matrix"]
+    log(f"[11] eval S with do_pr_metric, plot_curve and plot_confusion_matrix over "
+        f"{EVAL_SET['n_val']} images: {launches} kernel launches (the first keep with a "
+        f"candidate equal to the plain keep); the five PNGs at 2250x1500; host seconds: "
+        f"ap_per_class {ap_s:.3f} (of which rendering the four curves {render['curves']:.3f}), "
+        f"the confusion matrix's rendering {cm_s:.3f}; PR mAP50 {evaler.pr_results[0]:.5f}; "
+        f"{wall:.1f} s in all [{card}]")
+    return dict(launches=launches, max_abs_err=walk["max_abs_err"], wall_s=wall,
+                ap_per_class_s=ap_s, curves_render_s=render["curves"], confusion_render_s=cm_s,
+                pr_results=list(evaler.pr_results))
+
+
+# BASELINE.md's params (M) and FLOPs (G) at 640 (upstream README.md:41-44)
+MODEL_INFO_BASELINE = {"s": (18.5, 45.3), "m": (34.9, 85.8), "l": (59.6, 150.7)}
+
+
+def model_info_phase(card: str) -> dict:
+    """``utils/model_info.py`` on the S, M and L deploy graphs at 640, built on
+    ``meta``: parameters and FLOPs beside BASELINE.md's."""
+    import torch
+
+    from yolov6_tpu_torch.models.yolo import build_model
+    from yolov6_tpu_torch.utils.config import Config
+    from yolov6_tpu_torch.utils.model_info import count_flops, count_params, get_model_info
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, (params_m, gflops) in MODEL_INFO_BASELINE.items():
+        cfg = Config.fromfile(os.path.join(ROOT, "configs", f"yolov6{name}.py"))
+        with torch.device("meta"):
+            model = build_model(cfg, NUM_CLASSES, deploy=True, device="meta")
+        n, flops = count_params(model), count_flops(model, (IMG, IMG))
+        info = get_model_info(model, (IMG, IMG))
+        assert info.startswith(f"Params: {n / 1e6:.2f}M, GFLOPs: "), info
+        out[name] = dict(params_m=n / 1e6, gflops=flops / 1e9, baseline_params_m=params_m,
+                         baseline_gflops=gflops)
+        log(f"[10] model_info YOLOv6-{name.upper()} deploy @{IMG}: {info} (BASELINE.md "
+            f"{params_m}M / {gflops}G; FLOPs {100 * (flops / 1e9 / gflops - 1):+.2f}%)")
+    log(f"[10] model_info of S, M and L on meta: {time.perf_counter() - t0:.2f} s [{card}]")
+    return out
+
+
+def vis_dataset_phase(data_path: str, root: str, card: str) -> dict:
+    """[12]: ``data/vis_dataset.py`` on the first 4 images of the train split:
+    4 PNGs at their sources' sizes, each with labels drawn."""
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.data.vis_dataset import visualize
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    data = load_data_config(data_path)
+    img_dir = data["train"]
+    label_dir = img_dir.replace(os.path.join("images", "train"), os.path.join("labels", "train"))
+    t0 = time.perf_counter()
+    written = visualize(img_dir, label_dir, os.path.join(root, "vis"),
+                        class_names=data["names"], max_images=4)
+    secs = time.perf_counter() - t0
+    assert len(written) == 4, written
+    for path in written:
+        src = imread(os.path.join(img_dir, os.path.basename(path)))
+        drawn = imread(path)
+        assert drawn.shape == src.shape and (drawn != src).any(), path
+    log(f"[12] vis_dataset on 4 train images: 4 PNGs with their labels drawn in {secs:.2f} s "
+        f"[{card}]")
+    return dict(images=len(written), wall_s=secs)
+
+
+TB_SCALARS = ("val/mAP@0.5", "val/mAP@0.50:0.95", "train/iou_loss", "train/dist_focalloss",
+              "train/cls_loss", "x/lr0", "x/lr1", "x/lr2")
+
+
+def tensorboard_check(trainer, path: str, epochs: int, card: str) -> dict:
+    """[12]'s event file, read back by ``read_events``: per epoch the eight
+    scalars at ``epoch + 1`` with the LRs of ``group_lrs_host``, a
+    1920x1920 ``train_batch`` at each epoch's first step, and after the
+    final eval one ``val_img_*`` an image with a prediction (up to 8)."""
+    import numpy as np
+
+    from yolov6_tpu_torch.solver.build import group_lrs_host
+    from yolov6_tpu_torch.utils.tb_writer import read_events
+
+    t0 = time.perf_counter()
+    events = read_events(path)
+    read_s = time.perf_counter() - t0
+    scalars, images = {}, {}
+    for e in events:
+        for tag, v in e.get("scalars", {}).items():
+            scalars.setdefault(tag, {})[e["step"]] = v
+        for tag, v in e.get("images", {}).items():
+            images.setdefault(tag, {})[e["step"]] = v
+    steps = trainer.max_stepnum
+    assert sorted(scalars) == sorted(TB_SCALARS), sorted(scalars)
+    for tag in TB_SCALARS:
+        assert sorted(scalars[tag]) == list(range(1, epochs + 1)), (tag, sorted(scalars[tag]))
+    for epoch in range(epochs):
+        lrs = group_lrs_host((epoch + 1) * steps, float(epoch), trainer.warmup_stepnum,
+                             trainer.solver_cfg, trainer.max_epoch)
+        for k, lr in enumerate(lrs):
+            assert scalars[f"x/lr{k}"][epoch + 1] == float(np.float32(lr)), (epoch, k)
+    batch = images.pop("train_batch")
+    assert sorted(batch) == [1 + steps * e for e in range(epochs)], sorted(batch)
+    assert all((v["height"], v["width"]) == (1920, 1920) for v in batch.values())
+    with_rows = len({r["image_id"] for r in trainer.predictions})
+    above = len({r["image_id"] for r in trainer.predictions if r["score"] >= 0.3})
+    assert sorted(images) == [f"val_img_{i}" for i in range(1, min(8, with_rows) + 1)], \
+        sorted(images)
+    assert all(list(v) == [epochs] for v in images.values())
+    log(f"[12] TensorBoard event file ({os.path.getsize(path)} bytes, read back and both CRCs "
+        f"checked in {read_s:.2f} s): the 8 scalars at steps 1..{epochs}, the LRs equal to "
+        f"group_lrs_host, train_batch 1920x1920 at steps {sorted(batch)}, {len(images)} "
+        f"val_img_* after the final eval ({with_rows} images with a prediction, {above} "
+        f"with one of score 0.3 or more) [{card}]")
+    return dict(events=len(events), bytes=os.path.getsize(path), val_images=len(images),
+                read_s=read_s)
+
+
 # the train CLI phase's set: 96 PNG train images beside the eval set, in its
 # sizes, from another seed (first 160): three b32 steps an epoch, so that the
 # profile window (steps 2-4 of the first epoch) still opens, on one step
@@ -1461,13 +1661,34 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
             "--stop_aug_last_n_epoch", str(t["stop_aug_last_n_epoch"]),
             "--save_ckpt_on_last_n_epoch", "1", "--output-dir", os.path.join(root, "train"),
             "--name", "s", "--bf16", "--profile", "--log-interval", "5", "--seed", "0",
-            "--device", "cuda"]
+            "--device", "cuda", "--write_trainbatch_tb"]
     args = train_cli.get_args_parser().parse_args(argv)
-    with KeepRecorder() as rec:
+    plot_s = []
+    plot_train_batch = Trainer.plot_train_batch
+
+    def timed_plot(self, *a, **k):
         t0 = time.perf_counter()
-        trainer = train_cli.main(args)
-        wall = time.perf_counter() - t0
+        try:
+            return plot_train_batch(self, *a, **k)
+        finally:
+            plot_s.append(time.perf_counter() - t0)
+
+    Trainer.plot_train_batch = timed_plot
+    try:
+        with KeepRecorder() as rec:
+            t0 = time.perf_counter()
+            trainer = train_cli.main(args)
+            wall = time.perf_counter() - t0
+    finally:
+        Trainer.plot_train_batch = plot_train_batch
     weights = os.path.join(args.save_dir, "weights")
+    ev_files = [f for f in os.listdir(args.save_dir) if f.startswith("events.out.tfevents.")]
+    assert len(ev_files) == 1, ev_files
+    tb = tensorboard_check(trainer, os.path.join(args.save_dir, ev_files[0]), t["epochs"], card)
+    tb.update(write_s=trainer.tblogger.write_s, plot_train_batch_s=plot_s)
+    log(f"[12] TensorBoard host seconds: plot_train_batch {[round(v, 3) for v in plot_s]} "
+        f"(16 of 32 tiles, 2560 px resized to 1920), the event writes (PNG encode, CRC-32C, "
+        f"write) {trainer.tblogger.write_s:.3f} in all [{card}]")
     n_val = EVAL_SET["n_val"]
     walk = rec.check("[12] in-training eval", n_val)
     first = walk["first"]["eval"]
@@ -1537,7 +1758,7 @@ def train_cli_phase(data_path: str, root: str, dev, card: str) -> dict:
         f"checkpoint folded into the deploy graph ({n_params / 1e6:.2f} M params, strict) "
         f"[{card}]")
     return dict(launches=walk["launches"], epochs=stats + rstats, eval=trainer.eval_stats,
-                profile=prof, tiles_visited=walk["tiles_visited"], wall_s=wall,
+                profile=prof, tiles_visited=walk["tiles_visited"], wall_s=wall, tensorboard=tb,
                 resume_wall_s=rwall, max_abs_err=max(walk["max_abs_err"], rwalk["max_abs_err"]))
 
 
@@ -3792,6 +4013,8 @@ def ddp_cli_phase(root: str, wall: float, dev, card: str) -> dict:
              for r in range(world)]
     r0, r1 = ranks
     assert r1["writes"] == [], f"[34b] rank 1 wrote {r1['writes'][:4]}"
+    events = [f for f in os.listdir(r0["save_dir"]) if f.startswith("events.out.tfevents.")]
+    assert len(events) == 1, f"[34b] event files: {events}"
     out_dir = os.path.join(root, "train_ddp")
     assert os.listdir(out_dir) == ["s"] and r0["save_dir"] == r1["save_dir"]
     weights = os.path.join(r0["save_dir"], "weights")
@@ -3819,7 +4042,8 @@ def ddp_cli_phase(root: str, wall: float, dev, card: str) -> dict:
         f"launched the keep on its device ({r0['launches']} + {r1['launches']}), each first keep "
         f"equal to the plain keep; rank 0's {len(rows)} gathered COCO rows equal, row for row, a "
         f"one-process Evaler's on the run's EMA ({walk['launches']} launches); both ranks hold "
-        f"AP50 {r0['results'][0]:.5f}, AP {r0['results'][1]:.5f}; only rank 0 wrote the run; "
+        f"AP50 {r0['results'][0]:.5f}, AP {r0['results'][1]:.5f}; only rank 0 wrote the run, its "
+        f"one TensorBoard event file included; "
         f"children {wall:.1f} s [{card}]")
     return dict(launches_rank0=r0["launches"], launches_rank1=r1["launches"],
                 evaler_launches=walk["launches"], rows=len(rows), results=r0["results"],
@@ -4051,6 +4275,7 @@ def main() -> int:
                           profile=False)
     train_l_launches = greedy_nms.launches
     del step
+    model_info = model_info_phase(card)
 
     # ---- 11.-13. COCO evaluation of S and M (and S on rect batches) on a PNG
     # set, the train CLI on a train split beside it, the learning gate
@@ -4062,6 +4287,7 @@ def main() -> int:
         perfect_mock_phase(data, dev, card)
         model = deploy_model(cfgs["s"], 0, dev)
         eval_s = eval_phase(model, "YOLOv6-S", data, dev, card)
+        eval_plots = eval_plots_phase(model, data, root, dev, card)
         eval_s_rect = eval_phase(model, "YOLOv6-S", data, dev, card, rect=True)
         del model
         model = deploy_model(cfgs["m"], 1, dev)
@@ -4073,6 +4299,7 @@ def main() -> int:
         greedy_nms.launches = 0
         train_cli = train_cli_phase(train_data, root, dev, card)
         train_cli_launches = greedy_nms.launches
+        vis = vis_dataset_phase(train_data, root, card)
         distill_child = start_distill_gate(root)  # phase 17, beside [13] alone
         try:
             greedy_nms.launches = 0
@@ -4193,6 +4420,9 @@ def main() -> int:
                              "serve_l": serve_l_launches, "train_l": train_l_launches,
                              "eval_s": eval_s["launches"], "eval_m": eval_m["launches"],
                              "eval_s_rect": eval_s_rect["launches"],
+                             "serve_perclass": main["perclass_launches"],
+                             "serve_m_perclass": m_serve["perclass_launches"],
+                             "eval_s_plots": eval_plots["launches"],
                              "train_cli_eval": train_cli_launches,
                              "learning_gate_eval": gate_launches,
                              "train_fuse_ab": recipes["train_fuse_ab"]["launches"],
@@ -4257,6 +4487,7 @@ def main() -> int:
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
                            train_cli["max_abs_err"], gate["max_abs_err"],
+                           eval_plots["max_abs_err"],
                            fold["max_abs_err"], fold_m["max_abs_err"],
                            recipes["fuse_ab_fold_serve"]["max_abs_err"],
                            recipes["distill_ns_fold_serve"]["max_abs_err"],
@@ -4326,6 +4557,9 @@ def main() -> int:
         "quant": dict(ptq_serve=ptq_serve, qat_step=qat_step, qat_cli=qat_cli, ptq_cli=ptq_cli),
         "export": export,
         "data_parallel": ddp,
+        "eval_plots": eval_plots,
+        "model_info": model_info,
+        "vis_dataset": vis,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -66,7 +66,7 @@ def test_coco_evaluator_matches_jax(seed):
         np.testing.assert_allclose([ap, ap50], [ap_j, ap50_j], **TOL)
 
 
-def test_pr_metrics_match_jax():
+def test_pr_metrics_match_jax(tmp_path):
     rng = np.random.default_rng(4)
     iouv = np.linspace(0.5, 0.95, 10)
     tps, confs, pcls, tcls = [], [], [], []
@@ -89,10 +89,15 @@ def test_pr_metrics_match_jax():
     for a, b in zip(out, out_j):
         np.testing.assert_allclose(a, b, **TOL)
     assert out[2].mean() > 0
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        metrics.ap_per_class(*args, plot=True)
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        cm.plot()
+    # the plots are written, and plotting changes no returned value
+    from yolov6_tpu_torch.data.image_io import imread
+
+    plotted = metrics.ap_per_class(*args, plot=True, save_dir=str(tmp_path), names=("a", "b", "c"))
+    for a, b in zip(plotted, out):
+        np.testing.assert_array_equal(a, b)
+    cm.plot(save_dir=str(tmp_path), names=("a", "b", "c"))
+    for name in ("PR_curve", "F1_curve", "P_curve", "R_curve", "confusion_matrix"):
+        assert imread(str(tmp_path / f"{name}.png")).shape == (1500, 2250, 3), name
 
 
 @pytest.fixture(scope="module")

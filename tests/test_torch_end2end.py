@@ -116,7 +116,8 @@ for m in pkgutil.walk_packages(yolov6_tpu_torch.__path__, "yolov6_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "yolov6_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "yolov6_tpu",
+                                    "matplotlib", "tensorboard", "tensorboardX"))
 print("BAD", bad)
 print("EXPORT", sorted(n for n in sys.modules if n.startswith(("yolov6_tpu_torch.export.",
       "yolov6_tpu_torch.tools.", "yolov6_tpu_torch.quant."))))
@@ -135,8 +136,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     the hub, the trainer, the learning gate, the data modules, the
     training recipes' heads and losses, and the export package with its
     tools included) and chip_smoke
-    loads none of jax, jaxlib, flax, cv2, PIL, yaml or the JAX package; the
-    host augmentation library's source includes only the C++ standard
+    loads none of jax, jaxlib, flax, cv2, PIL, yaml, matplotlib, tensorboard,
+    tensorboardX or the JAX package; the host augmentation library's source includes only the C++ standard
     library and its build links nothing else, and so does the JPEG
     decoder's."""
     res = subprocess.run([sys.executable, "-c", PORT_IMPORT_CHECK], cwd=REPO_ROOT,

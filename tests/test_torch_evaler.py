@@ -263,18 +263,35 @@ def test_evaler_and_cli_refuse_cuda_without_a_card(sets, tmp_path, monkeypatch):
                      save_dir=str(tmp_path))
 
 
-def test_evaler_refuses_plots_before_it_predicts(sets):
-    """The plots need matplotlib: asking for one fails at construction,
-    before any batch runs."""
-    for kw in (dict(plot_curve=True), dict(plot_confusion_matrix=True)):
-        with pytest.raises(NotImplementedError, match="matplotlib"):
-            Evaler(dict(sets["native"]), do_pr_metric=True, device="cpu", **kw)
+def test_evaler_refuses_plots_before_it_predicts(sets, tmp_path):
+    """Construction with the plots succeeds, and a PR-metric run writes the
+    five PNGs into ``save_dir`` (none without one); its ``pr_results`` equal
+    those of a run without plots."""
+    from yolov6_tpu_torch.data.image_io import imread
+
+    torch.manual_seed(0)
+    model = build_model(small_s_config(Config), num_classes=NC, device="cpu")
+    results = {}
+    for plots in (False, True):
+        out = tmp_path / str(plots)
+        out.mkdir()
+        ev = Evaler(dict(sets["native"]), batch_size=BATCH, img_size=EVAL_IMG_SIZE,
+                    conf_thres=0.0, half=False, save_dir=str(out), do_pr_metric=True,
+                    plot_curve=plots, plot_confusion_matrix=plots, device="cpu")
+        ev.init_model(model)
+        ev.predict_model(model, ev.init_data(None, "val"))
+        results[plots] = ev.pr_results
+        pngs = sorted(p.name for p in out.glob("*.png"))
+        assert pngs == (sorted(["PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png",
+                                "confusion_matrix.png"]) if plots else [])
+        for name in pngs:
+            assert imread(str(out / name)).shape == (1500, 2250, 3)
+    assert results[True] is not None and results[True] == results[False]
 
 
-def test_cli_evaluates_a_saved_state_dict(sets, tmp_path):
-    """``python -m yolov6_tpu_torch.tools.eval`` on small S (a config file and
-    a state dict written here, the head spread so that it detects) exits 0
-    with the mAP line."""
+def _small_s_files(tmp_path):
+    """A config file of small S and a state dict of it, the head spread so
+    that it detects."""
     torch.manual_seed(0)
     model = build_model(small_s_config(Config), num_classes=NC, device="cpu")
     with torch.no_grad():
@@ -287,6 +304,14 @@ def test_cli_evaluates_a_saved_state_dict(sets, tmp_path):
                             "model['width_multiple'] = 0.125\n")
     weights = tmp_path / "small_s.pt"
     torch.save({"ema": model.state_dict()}, weights)
+    return cfg_path, weights
+
+
+def test_cli_evaluates_a_saved_state_dict(sets, tmp_path):
+    """``python -m yolov6_tpu_torch.tools.eval`` on small S (a config file and
+    a state dict written here, the head spread so that it detects) exits 0
+    with the mAP line."""
+    cfg_path, weights = _small_s_files(tmp_path)
     cmd = [sys.executable, "-m", "yolov6_tpu_torch.tools.eval", "--data",
            os.path.join(os.path.dirname(os.path.dirname(sets["native"]["val"])), "data.json"),
            "--config", str(cfg_path), "--weights", str(weights), "--device", "cpu",
@@ -297,3 +322,41 @@ def test_cli_evaluates_a_saved_state_dict(sets, tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "mAP@0.5:" in res.stderr and "Average Precision" in res.stdout, res.stderr[-3000:]
     assert os.path.exists(tmp_path / "runs" / "exp" / "predictions.json")
+
+
+def test_cli_plot_flags_parse_and_write_as_jaxs(sets, tmp_path):
+    """``--plot_curve`` (default true; ``false``, ``0``, ``no`` in any case
+    turn it off) and ``--plot_confusion_matrix`` parse as the JAX CLI's; with
+    ``--do_pr_metric`` a run at the defaults writes the four curve PNGs and
+    ``--plot_confusion_matrix`` adds the fifth."""
+    import importlib.util
+
+    from yolov6_tpu_torch.data.image_io import imread
+
+    spec = importlib.util.spec_from_file_location("_jax_eval_cli",
+                                                  os.path.join(REPO_ROOT, "tools", "eval.py"))
+    jax_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_cli)
+    for argv in ([], ["--plot_curve", "false"], ["--plot_curve", "No"], ["--plot_curve", "0"],
+                 ["--plot_curve", "True"], ["--plot_confusion_matrix"],
+                 ["--do_pr_metric", "--plot_curve", "yes", "--plot_confusion_matrix"]):
+        ours = eval_cli.get_args_parser().parse_args(argv)
+        theirs = jax_cli.get_args_parser().parse_args(argv)
+        for key in ("plot_curve", "plot_confusion_matrix", "do_pr_metric"):
+            assert getattr(ours, key) == getattr(theirs, key), (argv, key)
+
+    cfg_path, weights = _small_s_files(tmp_path)
+    data = os.path.join(os.path.dirname(os.path.dirname(sets["native"]["val"])), "data.json")
+    curves = ["F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png"]
+    for name, extra, want in (("defaults", [], curves),
+                              ("matrix", ["--plot_confusion_matrix"],
+                               sorted(curves + ["confusion_matrix.png"]))):
+        args = eval_cli.get_args_parser().parse_args([
+            "--data", data, "--config", str(cfg_path), "--weights", str(weights),
+            "--device", "cpu", "--batch-size", str(BATCH), "--img-size", str(EVAL_IMG_SIZE),
+            "--save_dir", str(tmp_path / "runs"), "--name", name, "--do_pr_metric",
+            "--conf-thres", "0.001", *extra])
+        eval_cli.main(args)
+        out = tmp_path / "runs" / name
+        assert sorted(p.name for p in out.glob("*.png")) == want
+        assert all(imread(str(out / p)).shape == (1500, 2250, 3) for p in want)

@@ -288,10 +288,53 @@ def test_degenerate_box_nms_matches_jax(kind, methods):
 
 @pytest.mark.parametrize("method", ["perclass"])
 def test_unported_keep_methods_raise(method):
-    with pytest.raises(NotImplementedError):
-        non_max_suppression(torch.from_numpy(_preds(0, A=20)), method=method)
+    """``'perclass'`` is accepted (with JAX's ``class_cap``) and gives the
+    default keep's output."""
+    pred = torch.from_numpy(_preds(0, A=20))
+    got = non_max_suppression(pred, method=method, class_cap=4)
+    want = non_max_suppression(pred)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_unknown_keep_method_is_rejected():
     with pytest.raises(ValueError):
         non_max_suppression(torch.from_numpy(_preds(0, A=20)), method="argmax")
+
+
+# (id, predictions, kwargs of both sides): JAX's 'perclass' on its Jacobi
+# path (no class over class_cap), on its in-graph fall back to the tiled keep
+# (class_cap 4), and on its static fall backs (agnostic, one class)
+PERCLASS_CASES = [
+    ("no_overflow", lambda: _preds(11), dict(conf_thres=0.03, iou_thres=0.65, max_det=300,
+                                             max_nms=2048, multi_label=True)),
+    ("overflow_small_class_cap", lambda: _preds(12),
+     dict(conf_thres=0.03, iou_thres=0.65, max_det=300, max_nms=2048, multi_label=True,
+          class_cap=4)),
+    ("agnostic", lambda: _preds(13), dict(conf_thres=0.1, iou_thres=0.45, max_det=100,
+                                          agnostic=True)),
+    ("one_class", lambda: _preds(14, nc=1), dict(conf_thres=0.25, iou_thres=0.45, max_det=100)),
+    ("multi_label_topk", lambda: _preds(15), dict(conf_thres=0.03, iou_thres=0.65, max_det=300,
+                                                  max_nms=2048, multi_label=True,
+                                                  row_select="topk")),
+    ("inverted", lambda: _degenerate_preds("inverted"), dict(conf_thres=0.25, iou_thres=0.45,
+                                                             max_det=30)),
+    ("zero_area", lambda: _degenerate_preds("zero_area"), dict(conf_thres=0.25, iou_thres=0.45,
+                                                               max_det=30)),
+]
+
+
+@pytest.mark.parametrize("case", PERCLASS_CASES, ids=[c[0] for c in PERCLASS_CASES])
+def test_perclass_matches_jax_perclass(case):
+    """The port's ``'perclass'`` gives JAX's ``'perclass'`` detections and
+    valid mask exactly, and the port's default keep's output."""
+    _, make, kw = case
+    pred = make()
+    dets_j, valid_j = jax_nms(jnp.asarray(pred), exact_topk=True, method="perclass", **kw)
+    dets_t, valid_t = non_max_suppression(torch.from_numpy(pred), method="perclass", **kw)
+    valid_j, dets_j = np.asarray(valid_j), np.asarray(dets_j)
+    assert valid_j.sum() > 0
+    np.testing.assert_array_equal(valid_t.numpy(), valid_j)
+    np.testing.assert_array_equal(dets_t.numpy(), dets_j)
+    base = {k: v for k, v in kw.items() if k != "class_cap"}
+    dets_d, valid_d = non_max_suppression(torch.from_numpy(pred), **base)
+    assert torch.equal(valid_d, valid_t) and torch.equal(dets_d, dets_t)

@@ -142,11 +142,30 @@ def test_resume_continues_bit_for_bit(tiny_set, tmp_path):
 @pytest.mark.parametrize("flag,item", [("--ckpt-backend=orbax", "Do not port"),
                                        ("--write_trainbatch_tb", "The rest of the trainer")])
 def test_unported_options_raise(tiny_set, tmp_path, flag, item):
-    """Each refusal names its ROADMAP queue item by its title."""
+    """``--ckpt-backend orbax`` is refused, naming its ROADMAP queue item by
+    its title, before the run's directory exists. ``--write_trainbatch_tb``
+    (the ROADMAP item it named, now done) trains: the run's event file holds the annotated train batch at step 1
+    (a 2x2 grid of 64 px tiles) and the epoch's eight scalars at step 1."""
+    from yolov6_tpu_torch.utils.tb_writer import read_events
+
     args = _args(tiny_set, str(tmp_path), "--epochs", "1", flag)
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(args)
-    assert not os.path.exists(osp.join(str(tmp_path), "run"))
+    if flag != "--write_trainbatch_tb":
+        with pytest.raises(NotImplementedError, match=item):
+            train_cli.main(args)
+        assert not os.path.exists(osp.join(str(tmp_path), "run"))
+        return
+    trainer = train_cli.main(args)
+    files = [f for f in os.listdir(trainer.save_dir) if f.startswith("events.out.tfevents.")]
+    assert len(files) == 1
+    events = read_events(osp.join(trainer.save_dir, files[0]))
+    images = {(t, e["step"]): v for e in events for t, v in e.get("images", {}).items()}
+    assert (images["train_batch", 1]["height"], images["train_batch", 1]["width"]) == (128, 128)
+    scalars = {t: (e["step"], v) for e in events for t, v in e.get("scalars", {}).items()}
+    assert sorted(scalars) == sorted(["val/mAP@0.5", "val/mAP@0.50:0.95", "train/iou_loss",
+                                      "train/dist_focalloss", "train/cls_loss", "x/lr0",
+                                      "x/lr1", "x/lr2"])
+    assert all(step == 1 for step, _ in scalars.values())
+    assert scalars["train/cls_loss"][1] == pytest.approx(float(trainer.mean_loss[2]), rel=1e-6)
 
 
 @pytest.fixture(scope="module")

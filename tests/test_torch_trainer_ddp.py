@@ -155,7 +155,12 @@ def test_only_rank_zero_writes(run):
     assert r0["save_dir"] == r1["save_dir"] == osp.join(run["out"], "run")
     assert sorted(os.listdir(run["out"])) == ["copy", "run"]
     run_dir = r0["save_dir"]
-    assert sorted(os.listdir(run_dir)) == ["args.yaml", "predictions.json", "weights"]
+    # rank 0's TensorBoard event file is the one file beside these (rank 1
+    # wrote nothing, above)
+    files = sorted(os.listdir(run_dir))
+    events = [f for f in files if f.startswith("events.out.tfevents.")]
+    assert len(events) == 1
+    assert [f for f in files if f not in events] == ["args.yaml", "predictions.json", "weights"]
     assert sorted(os.listdir(osp.join(run_dir, "weights"))) == [
         "0_ckpt.pt", "1_ckpt.pt", "best_ckpt.pt", "best_stop_aug_ckpt.pt", "last_ckpt.pt"]
 

@@ -12,11 +12,21 @@ epoch's mean loss components within rtol 1e-4 / atol 1e-6; every parameter's
 change over the epoch within 1e-3 of the JAX change's largest magnitude plus
 1e-7; every EMA leaf and BN statistic within 1e-4 of the JAX leaf's largest
 magnitude plus 1e-6; the step counters equal.
+
+Both trainers log to TensorBoard (the JAX one through torch's
+``SummaryWriter``) with ``--write_trainbatch_tb``: their event files hold
+``train_batch`` at step 1, equal outside the text (tests/
+test_torch_train_plots.py), and the epoch-end scalars, computed from each
+trainer's own state as the JAX trainer computes them (engine.py:524-536):
+the losses within the loss tolerance above, the APs and LRs equal.
 """
 
+import glob
 import importlib.util
 import os.path as osp
+import sys
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -26,14 +36,18 @@ import conftest  # noqa: F401  (JAX on the CPU)
 
 from yolov6_tpu.core.engine import Trainer as JaxTrainer
 from yolov6_tpu.parallel.mesh import create_mesh
+from yolov6_tpu.solver.build import group_lrs_host as jax_group_lrs_host
+from yolov6_tpu.utils.events import write_tblog as jax_write_tblog
 from yolov6_tpu.utils.config import Config as JaxConfig
 
 from yolov6_tpu_torch.core.engine import Trainer
 from yolov6_tpu_torch.data.synth_detect import generate_synth_dataset
 from yolov6_tpu_torch.tools import train as train_cli
 from yolov6_tpu_torch.utils.config import Config
+from yolov6_tpu_torch.utils.tb_writer import read_events
 from yolov6_tpu_torch.utils.weights import state_dict_from_jax
 
+from test_torch_train_plots import TextCalls
 from torch_port_utils import REPO_ROOT, small_n_config
 
 IMG = 128
@@ -95,11 +109,18 @@ def trainers(tmp_path_factory):
     data = generate_synth_dataset(str(root / "set"), n_train=8, n_val=4, img_size=IMG, nc=3,
                                   seed=2)
     argv = ["--data-path", data, "--img-size", str(IMG), "--batch-size", "4", "--epochs", "3",
-            "--workers", "2", "--max-labels", "8", "--seed", "0", "--log-interval", "1"]
+            "--workers", "2", "--max-labels", "8", "--seed", "0", "--log-interval", "1",
+            "--write_trainbatch_tb"]
     jargs = _jax_train_cli().get_args_parser().parse_args(argv)
     jargs.save_dir = str(root / "jax")
-    jargs.no_tensorboard = True
     optimizations = jax.config.values["jax_disable_most_optimizations"]
+    # torch's SummaryWriter imports TensorFlow when it is installed (about 15
+    # s); without it, its own stubs
+    no_tf = "tensorflow" not in sys.modules
+    if no_tf:
+        sys.modules["tensorflow"] = None
+    patch = pytest.MonkeyPatch()
+    calls = TextCalls(patch)
     try:
         jax.config.update("jax_disable_most_optimizations", True)
         theirs = JaxTrainer(jargs, _cfg(JaxConfig), mesh=create_mesh(1))
@@ -116,9 +137,54 @@ def trainers(tmp_path_factory):
             trainer.epoch = 0
             trainer.before_epoch()
             trainer.train_one_epoch(0)
+        for trainer in (theirs, ours):
+            trainer.tblogger.flush()
     finally:
         jax.config.update("jax_disable_most_optimizations", optimizations)
+        patch.undo()
+        if no_tf:
+            del sys.modules["tensorflow"]
+    theirs.text_calls = calls
     return theirs, ours, params0
+
+
+def _events(save_dir):
+    (path,) = glob.glob(osp.join(save_dir, "events.out.tfevents.*"))
+    return read_events(path)
+
+
+def test_tensorboard_logs_match_jax_trainer(trainers):
+    theirs, ours, _ = trainers
+    batches = []
+    for trainer in (theirs, ours):
+        imgs = {(t, e["step"]): v for e in _events(trainer.save_dir)
+                for t, v in e.get("images", {}).items()}
+        assert list(imgs) == [("train_batch", 1)]
+        png = np.frombuffer(imgs["train_batch", 1]["png"], np.uint8)
+        batches.append(cv2.imdecode(png, cv2.IMREAD_COLOR))
+    got, want = batches[1], batches[0]
+    assert got.shape == want.shape == (2 * IMG, 2 * IMG, 3)
+    mask = theirs.text_calls.mask(got.shape[:2])
+    assert mask.mean() < 0.5
+    np.testing.assert_array_equal(got[~mask], want[~mask])
+
+    # the epoch-end scalars, as JAX's engine.py:524-536 computes them
+    lrs = jax_group_lrs_host(theirs.max_stepnum, 0.0, theirs.warmup_stepnum, theirs.solver_cfg,
+                             theirs.max_epoch)
+    jax_write_tblog(theirs.tblogger, 0, theirs.evaluate_results, list(lrs),
+                    list(theirs.mean_loss[:3]))
+    theirs.tblogger.flush()
+    ours.log_epoch_scalars()
+    scalars = [{t: (e["step"], v) for e in _events(trainer.save_dir)
+                for t, v in e.get("scalars", {}).items()} for trainer in (theirs, ours)]
+    assert sorted(scalars[0]) == sorted(scalars[1]) and len(scalars[0]) == 8
+    for tag, (step, want) in scalars[0].items():
+        step_p, got = scalars[1][tag]
+        assert step_p == step == 1, tag
+        if tag.startswith("train/"):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6, err_msg=tag)
+        else:
+            assert got == want, tag
 
 
 def test_one_epoch_matches_jax_trainer(trainers):

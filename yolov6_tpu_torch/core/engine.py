@@ -50,9 +50,19 @@ writes the checkpoints, the profile and ``predictions.json``. ``--cache
 ram|disk`` (``--cache-ram`` is ``ram``) keeps the train path's decoded,
 pre-resized images (``data/datasets.py``).
 
+TensorBoard (JAX: engine.py:270-277, :389-443, :524-536, :640-682): rank 0
+writes an event file into the run's directory (``utils/tb_writer.py``;
+``args.no_tensorboard`` turns it off) with, at the end of each epoch, the
+val APs, the three mean losses and the three group LRs at step ``epoch +
+1`` (``utils/events.py::write_tblog``); after each in-training eval up to 8
+val images with their best predictions drawn (``val_img_*``); and with
+``--write_trainbatch_tb`` at the first step of each epoch the annotated
+train batch (``train_batch``, ``plot_train_batch``). The boxes are cv2's
+``LINE_8`` rectangles pixel for pixel and the resize is cv2's INTER_LINEAR;
+the text is the port's 5x7 font, not Hershey.
+
 Not ported, and refused with ``NotImplementedError``: the orbax checkpoint
-backend (queue 1, "Do not port") and TensorBoard with its train-batch plot
-("The rest of the trainer").
+backend (queue 1, "Do not port").
 """
 
 from __future__ import annotations
@@ -62,11 +72,15 @@ import os.path as osp
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from yolov6_tpu_torch.core.evaler import Evaler, gather_coco_predictions
+from yolov6_tpu_torch.core.inferer import Inferer
 from yolov6_tpu_torch.core.train_step import make_train_step
+from yolov6_tpu_torch.data.data_augment import resize_linear
 from yolov6_tpu_torch.data.data_load import create_dataloader
+from yolov6_tpu_torch.data.image_io import imread
 from yolov6_tpu_torch.losses.loss import ComputeLoss
 from yolov6_tpu_torch.losses.loss_distill import ComputeLossDistill
 from yolov6_tpu_torch.losses.loss_distill_ns import ComputeLossDistillNS
@@ -78,7 +92,7 @@ from yolov6_tpu_torch.parallel.dist import (
 )
 from yolov6_tpu_torch.quant.ptq import calibrate, quantize_variables
 from yolov6_tpu_torch.quant.state import quant_mode
-from yolov6_tpu_torch.solver.build import scale_hyperparams_for_batch
+from yolov6_tpu_torch.solver.build import group_lrs_host, scale_hyperparams_for_batch
 from yolov6_tpu_torch.solver.repoptimizer import (
     extract_scales, generate_gradient_masks, reinitialize,
 )
@@ -86,8 +100,11 @@ from yolov6_tpu_torch.utils.checkpoint import (
     cpu_copy, load_checkpoint, load_state_dict_partial, read_state_dict, save_checkpoint,
     strip_optimizer,
 )
+from yolov6_tpu_torch.utils.coco_eval import coco80_to_coco91_class
 from yolov6_tpu_torch.utils.device import resolve_device
-from yolov6_tpu_torch.utils.events import LOGGER, load_yaml
+from yolov6_tpu_torch.utils.draw import put_text, rectangle_line8
+from yolov6_tpu_torch.utils.events import LOGGER, load_yaml, write_tbimg, write_tblog
+from yolov6_tpu_torch.utils.tb_writer import TBWriter
 
 
 def check_supported(args, cfg) -> None:
@@ -110,9 +127,6 @@ def check_supported(args, cfg) -> None:
         raise NotImplementedError(
             f"--ckpt-backend {args.ckpt_backend}: the port saves with torch.save only (orbax "
             "is on ROADMAP queue 1, \"Do not port\")")
-    if getattr(args, "write_trainbatch_tb", False):
-        raise NotImplementedError("TensorBoard and the train-batch plot are not ported "
-                                  "(ROADMAP queue 1, \"The rest of the trainer\")")
 
 
 def read_repopt_scales(cfg):
@@ -188,6 +202,10 @@ class Trainer:
         self.save_dir = args.save_dir
         self.data_dict = load_yaml(args.data_path)
         self.num_classes = self.data_dict["nc"]
+        if self.data_dict.get("is_coco"):
+            self.ids_to_contig = {c: i for i, c in enumerate(coco80_to_coco91_class())}
+        else:
+            self.ids_to_contig = {i: i for i in range(self.num_classes)}
         self.img_size = args.img_size
         self.batch_size = args.batch_size
 
@@ -264,6 +282,9 @@ class Trainer:
 
         self.epoch_stats, self.eval_stats = [], []
         self.profile_result: Optional[dict] = None
+        self.tblogger = None
+        if self.main_process and not getattr(args, "no_tensorboard", False):
+            self.tblogger = TBWriter(self.save_dir)
 
     def calibrate(self) -> str:
         """``--quant --calib`` (JAX: engine.py:684-708): the train graph's
@@ -380,6 +401,8 @@ class Trainer:
             self.train_one_epoch(self.epoch)
             self.after_epoch()
         self.strip_model()
+        if self.tblogger is not None:
+            self.tblogger.close()
 
     def before_epoch(self) -> None:
         """The strong-augmentation shut-off (reference: engine.py:324-330)."""
@@ -389,6 +412,38 @@ class Trainer:
                 self.args, self.cfg, self.data_dict)
         self.train_loader.set_epoch(self.epoch)
         self.mean_loss = None
+
+    def plot_train_batch(self, imgs, labels, paths, max_size=1920, max_subplots=16):
+        """The first ``max_subplots`` images of a host batch (uint8 NHWC RGB)
+        tiled column-major in a square grid, each with a white 2-px border,
+        its file name and its labels' boxes and class names, scaled down to
+        ``max_size`` (JAX: engine.py:389-425); returns HWC RGB."""
+        imgs = imgs.numpy() if torch.is_tensor(imgs) else np.asarray(imgs)
+        bs, h, w, _ = imgs.shape
+        bs = min(bs, max_subplots)
+        ns = int(np.ceil(bs ** 0.5))
+        mosaic = np.full((ns * h, ns * w, 3), 255, np.uint8)
+        for i in range(bs):
+            x0, y0 = w * (i // ns), h * (i % ns)
+            mosaic[y0:y0 + h, x0:x0 + w] = imgs[i][..., ::-1]  # drawn in BGR, as cv2 draws
+            rectangle_line8(mosaic, (x0, y0), (x0 + w, y0 + h), (255, 255, 255), 2)
+            put_text(mosaic, osp.basename(paths[i])[:40], (x0 + 5, y0 + 15), 0.5,
+                     (220, 220, 220), 1)
+            lb = labels[i]
+            lb = lb[lb[:, 0] >= 0]
+            for cls, cx, cy, bw, bh in lb:
+                x1 = int((cx - bw / 2) * w) + x0
+                y1 = int((cy - bh / 2) * h) + y0
+                x2 = int((cx + bw / 2) * w) + x0
+                y2 = int((cy + bh / 2) * h) + y0
+                color = tuple(int(c) for c in np.random.default_rng(int(cls)).integers(64, 255, 3))
+                rectangle_line8(mosaic, (x1, y1), (x2, y2), color, 1)
+                put_text(mosaic, str(self.data_dict["names"][int(cls)]), (x1, max(y1 - 5, 10)),
+                         0.5, color, 1)
+        scale = max_size / ns / max(h, w)
+        if scale < 1:
+            mosaic = resize_linear(mosaic, (int(ns * w * scale), int(ns * h * scale)))
+        return mosaic[..., ::-1]
 
     def _to_device(self, batch):
         """A host batch's images and labels, their copy to the device queued."""
@@ -411,10 +466,17 @@ class Trainer:
         t_epoch = time.perf_counter()
         batches = iter(self.train_loader)
         t0 = time.perf_counter()
-        cur = self._to_device(next(batches, None))
+        host = next(batches, None)
+        cur = self._to_device(host)
         wait_s += time.perf_counter() - t0
         step = 0
         while cur is not None:
+            if step == 0 and self.tblogger is not None and getattr(
+                    self.args, "write_trainbatch_tb", False):
+                mosaic = self.plot_train_batch(host[0], host[1], host[2])
+                write_tbimg(self.tblogger, mosaic, step + self.max_stepnum * epoch_num,
+                            type="train")
+                self.tblogger.flush()
             if step == profile_at.start and len(profile_at):
                 prof = self._start_profile()
             if cuda:
@@ -438,7 +500,8 @@ class Trainer:
             # the next batch: the host waits on the loader while the device
             # runs this step, then queues the copy
             t0 = time.perf_counter()
-            cur = self._to_device(next(batches, None))
+            host = next(batches, None)
+            cur = self._to_device(host)
             wait_s += time.perf_counter() - t0
             step += 1
         if prof is not None:
@@ -521,6 +584,17 @@ class Trainer:
             if self.best_stop_strong_aug_ap < self.ap:
                 self.best_stop_strong_aug_ap = max(self.ap, self.best_stop_strong_aug_ap)
                 save_checkpoint(ckpt, False, save_ckpt_dir, "best_stop_aug_ckpt")
+        if self.tblogger is not None and self.mean_loss is not None:
+            self.log_epoch_scalars()
+
+    def log_epoch_scalars(self) -> None:
+        """The epoch's TensorBoard scalars: the APs, the mean losses and the
+        group LRs at the epoch's last step (JAX: engine.py:524-536)."""
+        lrs = group_lrs_host((self.epoch + 1) * self.max_stepnum, float(self.epoch),
+                             self.warmup_stepnum, self.solver_cfg, self.max_epoch)
+        write_tblog(self.tblogger, self.epoch, self.evaluate_results, list(lrs),
+                    list(self.mean_loss[:3]))
+        self.tblogger.flush()
 
     def eval_model(self) -> None:
         """In-training eval of the EMA (reference: engine.py:222-269); the
@@ -558,10 +632,44 @@ class Trainer:
         self.predictions = preds
         LOGGER.info(f"Epoch: {self.epoch} | mAP@0.5: {results[0]} | mAP@0.50:0.95: {results[1]}")
         self.evaluate_results = tuple(float(v) for v in results[:2])
+        if self.tblogger is not None:
+            self._plot_val_pred(preds)
         n_img = int(evaler.speed_result[0])
         self.eval_stats.append(dict(epoch=self.epoch, images=n_img, batches=len(evaler.batch_split),
                                     predict_s=predict_s, imgs_per_s=n_img / predict_s,
                                     ap50=self.evaluate_results[0], ap=self.evaluate_results[1]))
+
+    def _plot_val_pred(self, pred_results, vis_conf=0.3, vis_max_box_num=5, max_imgs=8):
+        """The first ``max_imgs`` val images with a prediction, each with its
+        ``vis_max_box_num`` best rows of score ``vis_conf`` or more drawn, to
+        TensorBoard as ``val_img_*`` (JAX: engine.py:640-682)."""
+        by_image = {}
+        for d in pred_results:
+            by_image.setdefault(d["image_id"], []).append(d)
+        stem_to_path = {}
+        for p in self.val_loader.dataset.img_paths:
+            stem = osp.splitext(osp.basename(p))[0]
+            stem_to_path[int(stem) if stem.isnumeric() else stem] = p
+        vis = []
+        for image_id, dets in list(by_image.items())[:max_imgs]:
+            path = stem_to_path.get(image_id)
+            if path is None:
+                continue
+            img = imread(path)
+            dets = sorted(dets, key=lambda d: -d["score"])[:vis_max_box_num]
+            for d in dets:
+                if d["score"] < vis_conf:
+                    continue
+                x, y, w, h = d["bbox"]
+                cls_id = self.ids_to_contig.get(d["category_id"], 0)
+                color = Inferer.generate_colors(cls_id, True)
+                rectangle_line8(img, (int(x), int(y)), (int(x + w), int(y + h)), color, 1)
+                put_text(img, f"{self.data_dict['names'][cls_id]}: {d['score']:.2f}",
+                         (int(x), max(int(y) - 8, 10)), 0.5, color, 1)
+            vis.append(img[:, :, ::-1])
+        if vis:
+            write_tbimg(self.tblogger, vis, self.epoch, type="val")
+            self.tblogger.flush()
 
     def strip_model(self) -> None:
         LOGGER.info(f"\nTraining completed in {(time.time() - self.start_time) / 3600:.3f} hours.")

@@ -22,8 +22,14 @@ package's StableHLO artifact eval (its GSPMD form is not ported).
 Across ranks (``parallel/dist.py``) each rank's Evaler predicts its shard of
 the val set on its own device, and ``gather_coco_predictions`` gathers the
 rows for rank 0 to score (the trainer's in-training eval). Not ported: the
-TPU's bf16 candidate ranking, and the PR/confusion plots (matplotlib):
-``plot_curve`` and ``plot_confusion_matrix`` raise ``NotImplementedError``.
+TPU's bf16 candidate ranking.
+
+With ``do_pr_metric``, ``plot_curve`` writes ``PR_curve.png``,
+``F1_curve.png``, ``P_curve.png`` and ``R_curve.png`` and
+``plot_confusion_matrix`` ``confusion_matrix.png`` into ``save_dir``
+(utils/metrics.py, drawn by utils/plots.py), only when ``save_dir`` is set:
+the trainer's eval sets it on rank 0 alone. ``plot_s`` holds the host
+seconds of ``ap_per_class`` with its curves and of the matrix plot.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from yolov6_tpu_torch.parallel.dist import all_gather_rows, world_size
 from yolov6_tpu_torch.utils.coco_eval import COCOEvaluator, coco80_to_coco91_class
 from yolov6_tpu_torch.utils.data_config import load_data_config
 from yolov6_tpu_torch.utils.device import resolve_device
-from yolov6_tpu_torch.utils.metrics import ap_per_class, process_batch
+from yolov6_tpu_torch.utils.metrics import ConfusionMatrix, ap_per_class, process_batch
 
 LOGGER = logging.getLogger(__name__)
 
@@ -73,9 +79,6 @@ class Evaler:
         plot_confusion_matrix: bool = False,
         device="cuda",
     ):
-        if plot_curve or plot_confusion_matrix:
-            raise NotImplementedError(
-                "the PR/F1 and confusion-matrix plots need matplotlib and are not ported")
         self.device = resolve_device(device)
         self.data = data_dict
         self.batch_size = batch_size
@@ -101,7 +104,10 @@ class Evaler:
         self.speed_result = np.zeros(4)
         self.do_coco_metric = do_coco_metric
         self.do_pr_metric = do_pr_metric
+        self.plot_curve = plot_curve
+        self.plot_confusion_matrix = plot_confusion_matrix
         self.pr_results = None
+        self.plot_s = {}
         # per batch of the last predict_model: loader_s, launch_s (the host's
         # time to queue the batch function), convert_s, and on the card h2d_ms
         # (CUDA events around the copy)
@@ -227,6 +233,9 @@ class Evaler:
         pred_results = []
         stats = []
         iouv = np.linspace(0.5, 0.95, 10)
+        confusion = None
+        if self.do_pr_metric and self.plot_confusion_matrix:
+            confusion = ConfusionMatrix(nc=model.num_classes)
         cuda = self.device.type == "cuda"
         n_batches = len(dataloader)
 
@@ -242,7 +251,7 @@ class Evaler:
                 self.convert_to_coco_format(dets[:n_valid], valid[:n_valid], paths, shapes))
             rec["convert_s"] = time.perf_counter() - t0
             if self.do_pr_metric:
-                stats.extend(self._pr_stats(dets, valid, labels, hw, n_valid, iouv))
+                stats.extend(self._pr_stats(dets, valid, labels, hw, n_valid, iouv, confusion))
 
         # one-batch software pipeline: batch i+1's copy and launches are
         # queued before batch i's results are read, so the copy, the device
@@ -288,9 +297,14 @@ class Evaler:
 
         if self.do_pr_metric and stats:
             self._finish_pr_metric(stats)
+        if confusion is not None and self.save_dir:
+            t0 = time.perf_counter()
+            confusion.plot(save_dir=self.save_dir, names=self.class_names)
+            self.plot_s["confusion_matrix"] = time.perf_counter() - t0
+            LOGGER.info(f"Saved confusion matrix plot to {self.save_dir}")
         return pred_results
 
-    def _pr_stats(self, dets, valid, labels, hw, n_valid, iouv):
+    def _pr_stats(self, dets, valid, labels, hw, n_valid, iouv, confusion=None):
         """Per-image TP stats in letterbox coords (reference: evaler.py:137-227)."""
         h, w = hw
         out = []
@@ -305,6 +319,8 @@ class Evaler:
                 gt[:, 1], gt[:, 2] = cx - bw / 2, cy - bh / 2
                 gt[:, 3], gt[:, 4] = cx + bw / 2, cy + bh / 2
             correct = process_batch(pred, gt, iouv)
+            if confusion is not None:
+                confusion.process_batch(pred, gt)
             out.append((correct, pred[:, 4], pred[:, 5], gt[:, 0]))
         return out
 
@@ -316,7 +332,11 @@ class Evaler:
         if tp.size == 0:
             self.pr_results = None
             return
-        p, r, ap, f1, classes = ap_per_class(tp, conf, pred_cls, target_cls)
+        t0 = time.perf_counter()
+        p, r, ap, f1, classes = ap_per_class(
+            tp, conf, pred_cls, target_cls, plot=self.plot_curve and bool(self.save_dir),
+            save_dir=self.save_dir or ".", names=self.class_names)
+        self.plot_s["ap_per_class"] = time.perf_counter() - t0
         ap50, ap_all = ap[:, 0].mean(), ap.mean()
         LOGGER.info(
             f"PR metric: P={p.mean():.4f} R={r.mean():.4f} F1={f1.mean():.4f} "

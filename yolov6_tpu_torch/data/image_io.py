@@ -154,9 +154,9 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
 
 
-def imwrite_png(path: str, img: np.ndarray) -> None:
-    """Write ``img`` as ``cv2.imwrite`` takes it (HW grey, HWC BGR or BGRA,
-    uint8) to an 8-bit PNG, every row with filter type 0, deflated by zlib at
+def encode_png(img: np.ndarray) -> bytes:
+    """``img`` as ``cv2.imwrite`` takes it (HW grey, HWC BGR or BGRA, uint8)
+    encoded as an 8-bit PNG, every row with filter type 0, deflated by zlib at
     level 1 (fast; noisy pixels barely compress at any level)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
@@ -174,6 +174,12 @@ def imwrite_png(path: str, img: np.ndarray) -> None:
     rows = np.zeros((h, 1 + px[0].size), np.uint8)  # a 0 filter byte leads each row
     rows[:, 1:] = px.reshape(h, -1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
+
+
+def imwrite_png(path: str, img: np.ndarray) -> None:
+    """Write ``img`` (as ``encode_png`` takes it) to ``path`` as a PNG."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
+        f.write(data)

@@ -15,6 +15,7 @@ Every step keeps static shapes, as in the JAX package:
      | method            | rule                    | CUDA tensor | CPU tensor |
      | ----------------- | ----------------------- | ----------- | ---------- |
      | None, ``'tiled'`` | emit once (JAX default) | the kernel  | plain loop |
+     | ``'perclass'``    | emit once               | the kernel  | plain loop |
      | ``'pallas'``      | the Pallas rule         | the kernel  | plain loop |
      | ``'loop'``        | the Pallas rule         | plain loop  | plain loop |
 
@@ -22,8 +23,15 @@ Every step keeps static shapes, as in the JAX package:
      keep (``_tiled_keep`` + ``_emit_topk_kept``), every box is emitted at
      most once. Under the Pallas rule (``pallas_greedy_nms``, the JAX
      ``'loop'``), a kept box whose IoU with itself is not above the threshold
-     (zero area, or inverted) fills every remaining row. ``'perclass'`` is
-     not ported.
+     (zero area, or inverted) fills every remaining row. The JAX package's
+     ``'perclass'`` (a per-class Jacobi keep, its TPU parallelism lever)
+     gives the keep set of ``'tiled'`` (yolov6_tpu/ops/nms.py:448-453): it
+     falls back to ``_tiled_keep`` when a class holds more than
+     ``class_cap`` candidates, when ``agnostic`` and when ``nc <= 1``, and
+     otherwise resolves the same recurrence on the same class-offset boxes,
+     where boxes of two classes never overlap while their coordinates lie in
+     [0, MAX_WH). So here it is the default keep,
+     and ``class_cap`` changes nothing.
 
 Outputs are ``dets [b, max_det, 6]`` (xyxy, conf, cls) with invalid rows
 zeroed, and ``valid [b, max_det]``. The JAX package's TPU levers
@@ -46,6 +54,7 @@ MAX_WH = 4096  # reference: utils/nms.py:54
 _KEEPS = {
     None: (greedy_nms_op, True),
     "tiled": (greedy_nms_op, True),
+    "perclass": (greedy_nms_op, True),
     "pallas": (greedy_nms_op, False),
     "loop": (greedy_nms_plain, False),
 }
@@ -136,16 +145,17 @@ def non_max_suppression(
     method: Optional[str] = None,
     anchor_topc: int = 8,
     row_select: str = "grouped",
+    class_cap: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched NMS over ``[b, A, 5+nc]`` predictions (JAX: nms.py:422-563).
 
     Returns ``(dets [b, max_det, 6] as xyxy/conf/cls, valid [b, max_det])``.
     ``class_mask`` is an optional [nc] 0/1 vector (the reference's
     ``classes`` filter). ``method`` picks the keep and its rule (module doc):
-    None and ``'tiled'`` give the JAX package's default output, ``'pallas'``
-    and ``'loop'`` that of its ``'pallas'`` and ``'loop'`` keeps."""
-    if method == "perclass":
-        raise NotImplementedError(f"NMS method {method!r} is not ported yet")
+    None, ``'tiled'`` and ``'perclass'`` give the JAX package's default
+    output, ``'pallas'`` and ``'loop'`` that of its ``'pallas'`` and
+    ``'loop'`` keeps. ``class_cap`` (``'perclass'``'s bucket size in JAX)
+    is taken for the JAX signature and changes no output."""
     if method not in _KEEPS:
         raise ValueError(f"unknown NMS method {method!r}")
     keep, emit_once = _KEEPS[method]

@@ -70,6 +70,28 @@ def warmup_lr_momentum(curr_step: torch.Tensor, epoch, warmup_stepnum: int, lr0:
     return lr_main, lr_main, lr_bias, mom
 
 
+def group_lrs_host(curr_step: int, epoch: float, warmup_stepnum: int, solver_cfg: Dict,
+                   epochs: int) -> tuple:
+    """The three group LRs (bn, weight, bias) of ``warmup_lr_momentum`` as
+    Python floats at a global step, computed on the host for the trainer's
+    TensorBoard scalars (JAX: build.py:79-104)."""
+    lrf = solver_cfg["lrf"]
+    lr0 = solver_cfg["lr0"]
+    sched = solver_cfg.get("lr_scheduler", "Cosine")
+    if sched == "Cosine":
+        factor = ((1 - math.cos(epoch * math.pi / epochs)) / 2) * (lrf - 1) + 1
+    else:
+        factor = 1.0
+    base = lr0 * factor
+    frac = min(max(curr_step / max(warmup_stepnum, 1), 0.0), 1.0)
+    if curr_step <= warmup_stepnum:
+        lr_main = frac * base
+        lr_bias = solver_cfg["warmup_bias_lr"] + frac * (base - solver_cfg["warmup_bias_lr"])
+    else:
+        lr_main = lr_bias = base
+    return float(lr_main), float(lr_main), float(lr_bias)
+
+
 def warmup_accumulate(curr_step: torch.Tensor, warmup_stepnum: int, batch_size: int,
                       nominal_batch: int = 64) -> torch.Tensor:
     """Gradient-accumulation count, interpolated during warmup (JAX:

@@ -8,9 +8,12 @@
 and raises without it. ``--artifact <file>.pt2`` evaluates an end2end
 serving artifact (``tools/export.py --end2end``, without
 ``--with-preprocess``, at ``--batch-size``) in place of ``--weights``: the
-JAX CLI's StableHLO artifact eval. Not ported: the TPU's ``--bf16-select``,
-``--plot_curve`` and ``--plot_confusion_matrix`` (they need matplotlib), and
-the weight download (a missing file raises).
+JAX CLI's StableHLO artifact eval. With ``--do_pr_metric`` the run's
+directory gets ``PR_curve.png``, ``F1_curve.png``, ``P_curve.png`` and
+``R_curve.png`` (``--plot_curve``, on unless given ``false``, ``0`` or
+``no``) and with ``--plot_confusion_matrix`` ``confusion_matrix.png``. Not
+ported: the TPU's ``--bf16-select`` and the weight download (a missing file
+raises).
 """
 
 from __future__ import annotations
@@ -63,6 +66,11 @@ def get_args_parser(add_help=True):
     parser.add_argument("--row-select", choices=("grouped", "topk"), default="grouped",
                         help="per-anchor class pre-reduction of the NMS candidates")
     parser.add_argument("--do_pr_metric", action="store_true")
+    parser.add_argument("--plot_curve", default=True,
+                        type=lambda s: s.lower() not in ("false", "0", "no"),
+                        help="save PR/F1/P/R curve PNGs with --do_pr_metric "
+                             "(reference: tools/eval.py:42)")
+    parser.add_argument("--plot_confusion_matrix", action="store_true")
     parser.add_argument("--artifact", type=str, default=None,
                         help="evaluate an end2end .pt2 serving artifact (tools/export.py "
                              "--end2end, no --with-preprocess) in place of --weights")
@@ -89,6 +97,8 @@ def run(
     verbose=False,
     do_coco_metric=True,
     do_pr_metric=False,
+    plot_curve=False,
+    plot_confusion_matrix=False,
     specific_shape=False,
     height=640,
     width=640,
@@ -113,7 +123,8 @@ def run(
         data, batch_size, img_size, conf_thres, iou_thres, half, save_dir,
         shrink_size, infer_on_rect, verbose, specific_shape, height, width,
         max_nms=max_nms, row_select=row_select, do_coco_metric=do_coco_metric,
-        do_pr_metric=do_pr_metric, device=device,
+        do_pr_metric=do_pr_metric, plot_curve=plot_curve,
+        plot_confusion_matrix=plot_confusion_matrix, device=device,
     )
     if artifact:
         if task == "speed":
@@ -172,7 +183,8 @@ def main(args):
         args.conf_thres, args.iou_thres, args.task, args.half,
         save_dir=save_dir, shrink_size=args.shrink_size,
         infer_on_rect=args.infer_on_rect, verbose=args.verbose,
-        do_pr_metric=args.do_pr_metric, specific_shape=args.specific_shape,
+        do_pr_metric=args.do_pr_metric, plot_curve=args.plot_curve,
+        plot_confusion_matrix=args.plot_confusion_matrix, specific_shape=args.specific_shape,
         height=args.height, width=args.width, max_nms=args.max_nms,
         row_select=args.row_select, device=args.device, artifact=args.artifact,
     )

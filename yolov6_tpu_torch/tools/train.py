@@ -27,8 +27,12 @@ returns; ``--quant`` trains from ``qat.calib_pt`` with the frozen ranges
 cpu``): the group is joined before the trainer is built, rank 0 names and
 writes the run's directory, and N ranks take the step of one process at B
 (``core/engine.py``). ``--cache ram|disk`` (``--cache-ram``) keeps the
-decoded, pre-resized train images. ``--write_trainbatch_tb`` and
-``--ckpt-backend orbax`` raise ``NotImplementedError``
+decoded, pre-resized train images. Rank 0 writes a TensorBoard event file
+(``events.out.tfevents.*``) into the run's directory: each epoch's APs,
+losses and LRs, the val images with their predictions after each eval and,
+with ``--write_trainbatch_tb``, each epoch's first train batch annotated;
+view it with ``tensorboard --logdir runs/train`` where tensorboard is
+installed. ``--ckpt-backend orbax`` raises ``NotImplementedError``
 (``core/engine.py::check_supported``); the JAX
 CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,
 ``--check-images``/``--check-labels`` and the unused ``--dist_url``/

@@ -19,6 +19,11 @@
   ``cv2.getTextSize(c, 0, lw / 3, max(lw - 1, 1))`` (each width less 1).
   Other pairs scale the nearest table of the same weight (an estimate).
   Characters outside printable ASCII count as ``'?'``.
+- ``rectangle_line8`` is ``cv2.rectangle`` at its default ``LINE_8``, pixel
+  for pixel (an outline of thickness 1, or cv2's thick polyline: bands of
+  half-width ``(t + t % 2) // 2`` along the sides and a filled midpoint
+  circle of radius ``(t + 1) // 2`` at each corner), as the JAX trainer's
+  plots and ``vis_dataset`` call it.
 - ``put_text`` writes the text in a 5x7 bitmap font of the port's own,
   inside the box that ``get_text_size`` gives; cv2's glyphs live inside its
   binary.
@@ -153,6 +158,48 @@ def rectangle(img: np.ndarray, p1, p2, color, thickness: int) -> None:
         region = img[ya:yb + 1, xa:xb + 1].astype(np.float32)
         img[ya:yb + 1, xa:xb + 1] = np.rint(
             region + (np.asarray(color, np.float32) - region) * alpha).astype(np.uint8)
+
+
+def _circle_offsets(r: int):
+    """The pixels of cv2's filled ``Circle`` of radius ``r`` (its midpoint
+    walk), as ``(dy, dx)`` offsets."""
+    pts = set()
+    err, dx, dy, plus, minus = 0, r, 0, 1, (r << 1) - 1
+    while dx >= dy:
+        for y, half in ((-dy, dx), (dy, dx), (-dx, dy), (dx, dy)):
+            pts.update((y, x) for x in range(-half, half + 1))
+        dy += 1
+        err += plus
+        plus += 2
+        mask = -1 if err > 0 else 0
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return sorted(pts)
+
+
+def rectangle_line8(img: np.ndarray, p1, p2, color, thickness: int = 1) -> None:
+    """``cv2.rectangle(img, p1, p2, color, thickness)`` at ``LINE_8`` (module
+    doc), in place; pixels outside ``img`` are dropped."""
+    x1, x2 = sorted((int(p1[0]), int(p2[0])))
+    y1, y2 = sorted((int(p1[1]), int(p2[1])))
+    H, W = img.shape[:2]
+
+    def fill(ya, yb, xa, xb):
+        ya, yb, xa, xb = max(ya, 0), min(yb, H - 1), max(xa, 0), min(xb, W - 1)
+        if ya <= yb and xa <= xb:
+            img[ya:yb + 1, xa:xb + 1] = color
+
+    h = 0 if thickness <= 1 else (thickness + (thickness & 1)) // 2
+    fill(y1 - h, y1 + h, x1, x2)
+    fill(y2 - h, y2 + h, x1, x2)
+    fill(y1, y2, x1 - h, x1 + h)
+    fill(y1, y2, x2 - h, x2 + h)
+    if thickness > 1:
+        for dy, dx in _circle_offsets((thickness + 1) // 2):
+            for cy, cx in ((y1, x1), (y1, x2), (y2, x1), (y2, x2)):
+                if 0 <= cy + dy < H and 0 <= cx + dx < W:
+                    img[cy + dy, cx + dx] = color
 
 
 def put_text(img: np.ndarray, text: str, org, font_scale: float, color, thickness: int) -> None:

@@ -1,6 +1,7 @@
 """Logging and the run's ``args.yaml`` (the port's own copy of
 yolov6_tpu/utils/events.py, without the ``yaml`` package, which the machine
-with the card lacks, and without TensorBoard).
+with the card lacks), and the TensorBoard tags the trainer logs
+(``write_tblog``, ``write_tbimg``) through ``utils/tb_writer.py``.
 
 Every rank but the main one logs warnings only (JAX: events.py:18-60):
 ``RANK`` decides at import, the process group when ``set_logging`` runs again
@@ -89,3 +90,26 @@ def save_yaml(data: dict, save_path: str) -> None:
 def load_yaml(file_path: str) -> dict:
     """A flat ``.yaml``/``.yml`` or ``.json`` mapping as a dict."""
     return load_data_config(file_path)
+
+
+def write_tblog(tblogger, epoch, results, lrs, losses) -> None:
+    """The epoch's scalars at step ``epoch + 1`` (JAX: events.py:74-83)."""
+    tblogger.add_scalar("val/mAP@0.5", results[0], epoch + 1)
+    tblogger.add_scalar("val/mAP@0.50:0.95", results[1], epoch + 1)
+    tblogger.add_scalar("train/iou_loss", losses[0], epoch + 1)
+    tblogger.add_scalar("train/dist_focalloss", losses[1], epoch + 1)
+    tblogger.add_scalar("train/cls_loss", losses[2], epoch + 1)
+    tblogger.add_scalar("x/lr0", lrs[0], epoch + 1)
+    tblogger.add_scalar("x/lr1", lrs[1], epoch + 1)
+    tblogger.add_scalar("x/lr2", lrs[2], epoch + 1)
+
+
+def write_tbimg(tblogger, imgs, step, type="train") -> None:
+    """HWC RGB images at step ``step + 1``: the train batch as
+    ``train_batch``, val predictions as ``val_img_1``... (JAX:
+    events.py:86-92)."""
+    if type == "train":
+        tblogger.add_image("train_batch", imgs, step + 1, dataformats="HWC")
+    elif type == "val":
+        for idx, img in enumerate(imgs):
+            tblogger.add_image(f"val_img_{idx + 1}", img, step + 1, dataformats="HWC")
