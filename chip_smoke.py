@@ -150,7 +150,7 @@ Phases, each of which asserts:
      1000, max_nms 2000: K = 2000 candidates an image), in fp32 and with
      ``--half``, then with ``--classes 0 2`` and ``--agnostic-nms``: one
      kernel launch an image, each keep equal to the plain emit-once keep, a
-     PNG at the source's size and a label row a detection; a second run in
+     JPEG at the source's size and a label row a detection; a second run in
      each precision times the loop's steps (decode, letterbox, device, draw,
      write) and its imgs/s; the kernel is timed on the first image's
      candidates beside its plain version and bound; then the infer CLI with
@@ -241,7 +241,23 @@ Phases, each of which asserts:
      same APs, and rank 1 writes nothing under the run's directory, where
      rank 0 writes one TensorBoard event file; [34c]
      [6]'s bf16 step in an NCCL group of one equals the step without a group
-     bit for bit (as a second plain step does), beside [34a] and [34b].
+     bit for bit (as a second plain step does), beside [34a] and [34b];
+ 35. the image files cv2 reads and writes, and the CLIs that rest on them:
+     [35a] the committed fixtures of tests/data/torch_images/ (progressive
+     and truncated JPEG; 16-bit, palette, grey+alpha, sub-byte and Adam7 PNG;
+     1-32-bit BMP) decode to the SHA-256 of cv2.imread's pixels, and the demo
+     JPEGs' pixels encode to cv2.imencode's bytes, by the host libraries the
+     card machine's g++ builds; [35b] N through ``tools/train.py::main`` at
+     ``--specific-shape --height 384 --width 640 --check-images
+     --check-labels``, b16, 1 epoch over [31]'s 64 images plus four fixtures,
+     a file of garbage (dropped) and an out-of-range label file (its labels
+     dropped), the truncated JPEG restored in place, its in-training eval of
+     64 images square at 640 through the kernel; [35c]
+     ``tools/repro_gate.py::main`` on 16 of [11]'s images as a COCO-layout
+     JPEG set with an upstream-format N ``.pt``: the published protocol (K
+     8192) and the exact one (K 30,000), every keep equal to the plain keep,
+     exit code 1 and S ``SKIP (no weights)``; [35d] the infer CLI with that
+     file writes image1-3.jpg as JPEGs at the sources' sizes.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -2235,7 +2251,7 @@ class StepTimer:
     infer CLI runs them (host clock): decode (``LoadData``'s ``imread``),
     letterbox (``process_image``), device (the infer function, synchronised:
     the loop's copy of the detections to the host waits for it anyway),
-    draw (``plot_box_and_label``), write (``imwrite_png``) and the whole
+    draw (``plot_box_and_label``), write (``imwrite``) and the whole
     loop (``Inferer.infer``; the rest of it is the rescale and the label
     rows)."""
 
@@ -2265,14 +2281,14 @@ class StepTimer:
         mod, datasets = self.inferer_mod, self.datasets
         cls = mod.Inferer
         self.saved = [(datasets, "imread", datasets.imread),
-                      (mod, "imwrite_png", mod.imwrite_png),
+                      (mod, "imwrite", mod.imwrite),
                       (mod, "make_infer_fn", mod.make_infer_fn),
                       (cls, "process_image", cls.process_image),
                       (cls, "plot_box_and_label", cls.__dict__["plot_box_and_label"]),
                       (cls, "infer", cls.infer)]
         make = mod.make_infer_fn
         datasets.imread = self._timed("decode", datasets.imread)
-        mod.imwrite_png = self._timed("write", mod.imwrite_png)
+        mod.imwrite = self._timed("write", mod.imwrite)
         mod.make_infer_fn = lambda *a, **kw: self._timed("device", make(*a, **kw), sync=True)
         cls.process_image = self._timed("letterbox", cls.process_image)
         cls.plot_box_and_label = staticmethod(self._timed("draw", cls.plot_box_and_label))
@@ -2289,7 +2305,7 @@ def infer_phase(root: str, dev, card: str) -> dict:
     CLI (``tools/infer.py::run``, in-process) on full-width S with seeded
     weights over data/images at its defaults, in fp32 and bf16 (``--half``),
     then with ``--classes 0 2`` and with ``--agnostic-nms``: every image's
-    keep (B=1, K=2000 filled, max_det 1000) equal to the plain keep, a PNG at
+    keep (B=1, K=2000 filled, max_det 1000) equal to the plain keep, a JPEG at
     the source's size and a label row for each detection; the steps of the
     loop timed on a second run of each precision; then the learning gate's
     N on its val images, whose detections must find most GT boxes."""
@@ -2355,8 +2371,8 @@ def infer_phase(root: str, dev, card: str) -> dict:
                 INFER_CLI["max_det"] and f["emit_once"]
             n_pos, kept = int((f["scores"] > 0).sum()), int(f["valid"].sum())
             assert n_pos == INFER_CLI["max_nms"], f"[23] {name} {stem}: {n_pos} candidates"
-            drawn = imread(os.path.join(out, "images", f"{stem}.png"))
-            assert drawn.shape == shape, f"[23] {name} {stem}: PNG {drawn.shape}, source {shape}"
+            drawn = imread(os.path.join(out, "images", f"{stem}.jpg"))
+            assert drawn.shape == shape, f"[23] {name} {stem}: JPEG {drawn.shape}, source {shape}"
             with open(os.path.join(out, "images", "labels", f"{stem}.txt")) as fh:
                 rows = [list(map(float, line.split())) for line in fh]
             assert len(rows) == kept > 0 and all(len(r) == 6 for r in rows)
@@ -2376,7 +2392,7 @@ def infer_phase(root: str, dev, card: str) -> dict:
         log(f"[23] infer CLI {name} (YOLOv6-S, 640, conf {INFER_CLI['conf_thres']}, IoU "
             f"{INFER_CLI['iou_thres']}, max_det {INFER_CLI['max_det']}) over data/images: "
             f"{r['launches']} kernel launches (B=1 each), K {r['pos']} candidates an image "
-            f"(the cap), {r['kept']} kept, each keep equal to the plain emit-once keep; a PNG at "
+            f"(the cap), {r['kept']} kept, each keep equal to the plain emit-once keep; a JPEG at "
             f"the source size and a label row a detection for each image [{card}]")
     for name in ("fp32_timed", "half_timed"):
         r = runs[name]
@@ -2936,16 +2952,17 @@ def repopt_cli_phase(root: str, dev, card: str) -> dict:
                 max_abs_err=max(hs_walk["max_abs_err"], opt_walk["max_abs_err"]))
 
 
-def upstream_s_model(dev, seed: int = 44):
-    """S's train graph (configs/yolov6s.py, 80 classes) with weights that
-    serve as the serve phase's do: the convs He-normal, each RepVGG block's
-    1x1 and identity branches zero (the block is then its 3x3 conv and BN,
-    like a deploy conv), BNs as built, the head's predictions spread."""
+def upstream_s_model(dev, seed: int = 44, config: str = "yolov6s.py"):
+    """S's train graph (configs/yolov6s.py, or ``config``; 80 classes) with
+    weights that serve as the serve phase's do: the convs He-normal, each
+    RepVGG block's 1x1 and identity branches zero (the block is then its 3x3
+    conv and BN, like a deploy conv), BNs as built, the head's predictions
+    spread."""
     import torch
 
     from yolov6_tpu_torch.models.yolo import build_model
 
-    model = build_model(config_at("yolov6s.py"), num_classes=NUM_CLASSES, deploy=False,
+    model = build_model(config_at(config), num_classes=NUM_CLASSES, deploy=False,
                         device=dev)
     init_train_weights(model, torch.Generator(device=dev).manual_seed(seed))
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -4144,6 +4161,259 @@ def ddp_phases(root: str, dev, card: str) -> dict:
                 launches=step["launches"] + cli["launches_rank0"] + cli["launches_rank1"])
 
 
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_images")
+SHAPE_CLI = dict(height=384, width=640, batch=16, n_train=64, n_val=64, workers=8)
+# [35b]'s extra train files: the fixture, and what the scan must make of it
+SHAPE_CLI_FILES = {"trunc_420.jpg": "restored", "prog_420.jpg": "kept", "rgb16.png": "kept",
+                   "palette4.png": "kept"}
+REPRO_SET = dict(n_val=16, batch=16)
+
+
+def image_codec_phase(card: str) -> dict:
+    """Phase 35a: the committed fixtures (tests/data/torch_images/: progressive
+    and truncated JPEG, 16-bit, palette, grey+alpha, sub-byte and Adam7 PNG,
+    1/4/8/16/24/32-bit BMP) decode to the SHA-256 of cv2.imread's pixels,
+    written beside them by tests/torch_image_fixtures.py; the demo JPEGs'
+    pixels encode to the bytes cv2.imencode writes (their SHA-256) and decode
+    back to their shape within the codec's loss."""
+    import hashlib
+
+    import numpy as np
+
+    from yolov6_tpu_torch.data import jpeg
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    with open(os.path.join(IMAGE_FIXTURES, "hashes.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    jpeg.load()
+    jpeg.load_encoder()  # both built by the host g++ at their first use ([23]'s infer CLI)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, want in manifest["images"].items():
+        img = imread(os.path.join(IMAGE_FIXTURES, name))
+        assert list(img.shape) == want["shape"], f"[35] {name}: {img.shape}, cv2 {want['shape']}"
+        assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], \
+            f"[35] {name}: the decode differs from cv2.imread's"
+    decode_s = time.perf_counter() - t0
+    encoded = {}
+    for rel, want in manifest["encoded"].items():
+        img = imread(os.path.join(ROOT, rel))
+        t0 = time.perf_counter()
+        data = encode_jpeg(img)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert len(data) == want["bytes"] and hashlib.sha256(data).hexdigest() == want["sha256"], \
+            f"[35] {rel}: encode_jpeg's bytes differ from cv2.imencode's"
+        back = decode_jpeg(data)
+        diff = float(np.abs(back.astype(np.int16) - img.astype(np.int16)).mean())
+        assert back.shape == img.shape and diff < 3.0, (rel, back.shape, diff)
+        encoded[rel] = dict(bytes=len(data), encode_ms=ms, mean_abs_diff=diff)
+    log(f"[35] the JPEG decoder and encoder loaded in {build_s:.2f} s; "
+        f"{len(manifest['images'])} fixture files (JPEG progressive and cut short, PNG "
+        f"16-bit/palette/grey+alpha/sub-byte/Adam7, BMP 1-32-bit) decode to cv2.imread's pixels "
+        f"(sha256) in {decode_s * 1e3:.1f} ms; the demo JPEGs encode to cv2.imencode's bytes: "
+        + ", ".join(f"{os.path.basename(k)} {v['bytes']} B in {v['encode_ms']:.1f} ms (decoded "
+                    f"back within {v['mean_abs_diff']:.2f} levels)" for k, v in encoded.items())
+        + f" [{card}]")
+    return dict(fixtures=len(manifest["images"]), build_s=build_s, decode_s=decode_s,
+                encoded=encoded)
+
+
+def shape_cli_phase(root: str, card: str) -> dict:
+    """Phase 35b: YOLOv6-N (configs/yolov6n.py, its eval at conf 0) through
+    ``tools/train.py::main`` at ``--specific-shape --height 384 --width 640
+    --check-images --check-labels``, batch 16, 1 epoch in bf16, over [31]'s 64
+    train images plus four fixtures (a truncated JPEG, a progressive JPEG, a
+    16-bit PNG, a palette PNG), a file of garbage and an image whose labels
+    are out of range; the in-training eval of [31]'s 64 val images stays
+    square at 640. The garbage is dropped, the truncated JPEG restored in
+    place, the out-of-range labels dropped, every step takes 16x384x640, and
+    the eval's first keep with a candidate equals the plain keep."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.tools import train as train_cli
+    from yolov6_tpu_torch.utils.data_config import load_data_config
+
+    t = SHAPE_CLI
+    data = load_data_config(val_subset(root, t["n_val"], train_subset(root, t["n_train"])))
+    sub = "train_shape"
+    img_dir, lb_dir = (os.path.join(root, kind, sub) for kind in ("images", "labels"))
+    os.makedirs(img_dir)
+    os.makedirs(lb_dir)
+    for path in sorted(glob.glob(os.path.join(data["train"], "*.png"))):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        shutil.copy(path, img_dir)
+        shutil.copy(os.path.join(root, "labels", os.path.basename(data["train"]),
+                                 f"{stem}.txt"), lb_dir)
+    for name in SHAPE_CLI_FILES:
+        shutil.copy(os.path.join(IMAGE_FIXTURES, name), img_dir)
+    with open(os.path.join(img_dir, "garbage.jpg"), "wb") as f:
+        f.write(np.random.default_rng(35).integers(0, 256, 4096, np.uint8).tobytes())
+    for name in [*SHAPE_CLI_FILES, "garbage.jpg"]:
+        with open(os.path.join(lb_dir, os.path.splitext(name)[0] + ".txt"), "w") as f:
+            f.write("0 0.5 0.5 0.4 0.4\n1 0.3 0.3 0.2 0.2\n")
+    first_png = sorted(glob.glob(os.path.join(data["train"], "*.png")))[0]
+    bad_label = os.path.splitext(os.path.basename(first_png))[0] + ".txt"
+    with open(os.path.join(lb_dir, bad_label), "a") as f:
+        f.write("2 0.5 1.5 0.2 0.2\n")
+    data["train"] = img_dir
+    data_path = os.path.join(root, "data80_train_shape.json")
+    with open(data_path, "w") as f:
+        json.dump(data, f)
+    conf = cli_config(root, os.path.join(ROOT, "configs", "yolov6n.py"), "n_shape_cli.py")
+    args = train_cli.get_args_parser().parse_args([
+        "--data-path", data_path, "--conf-file", conf, "--img-size", str(IMG), "--batch-size",
+        str(t["batch"]), "--epochs", "1", "--workers", str(t["workers"]), "--output-dir",
+        os.path.join(root, "train"), "--name", "n_shape", "--bf16", "--log-interval", "1",
+        "--seed", "0", "--device", "cuda", "--specific-shape", "--height", str(t["height"]),
+        "--width", str(t["width"]), "--check-images", "--check-labels"])
+    with KeepRecorder() as rec:
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args)
+        wall = time.perf_counter() - t0
+    walk = rec.check("[35] N specific-shape in-training eval", t["n_val"])
+    ds = trainer.train_loader.dataset
+    names = {os.path.basename(p) for p in ds.img_paths}
+    assert "garbage.jpg" not in names and set(SHAPE_CLI_FILES) <= names, names
+    assert len(ds) == t["n_train"] + len(SHAPE_CLI_FILES)
+    restored = os.path.join(img_dir, "trunc_420.jpg")
+    with open(restored, "rb") as f:
+        assert f.read()[-2:] == b"\xff\xd9", "[35] the truncated JPEG was not restored"
+    with open(os.path.join(IMAGE_FIXTURES, "hashes.json")) as f:
+        want_shape = tuple(json.load(f)["images"]["trunc_420.jpg"]["shape"])
+    assert imread(restored).shape == want_shape
+    bad_stem = os.path.splitext(bad_label)[0]
+    bad = next(i for i, p in enumerate(ds.img_paths)
+               if os.path.splitext(os.path.basename(p))[0] == bad_stem)
+    assert len(ds.labels[bad]) == 0, "[35] check_labels kept an out-of-range label file"
+    assert trainer.train_step.img_size == (t["height"], t["width"])
+    e = trainer.epoch_stats[0]
+    assert e["steps"] == len(ds) // t["batch"] and all(math.isfinite(v) for v in e["mean_loss"])
+    ev = trainer.eval_stats[-1]
+    assert ev["images"] == t["n_val"]
+    log(f"[35] train CLI N at --specific-shape {t['height']}x{t['width']} with --check-images "
+        f"--check-labels: "
+        f"{len(ds)} images kept of {t['n_train'] + len(SHAPE_CLI_FILES) + 1} (garbage.jpg dropped, "
+        f"trunc_420.jpg restored, {bad_label}'s labels dropped), {e['steps']} steps of "
+        f"b{t['batch']}@{t['height']}x{t['width']} bf16 in {e['wall_s']:.3f} s = "
+        f"{e['imgs_per_s']:.1f} imgs/s with "
+        f"the loader, step {e['step_ms']:.3f} ms (CUDA events), mean loss "
+        f"{[round(v, 5) for v in e['mean_loss']]}; the eval of {ev['images']} images at {IMG}: "
+        f"{walk['launches']} keep launches, the first keep with a candidate (K "
+        f"{walk['first']['eval']['boxes'].shape[1]}, {walk['first']['eval']['kept']} kept) equal "
+        f"to the plain keep; the run {wall:.1f} s [{card}]")
+    return dict(launches=walk["launches"], max_abs_err=walk["max_abs_err"],
+                tiles_visited=walk["tiles_visited"], kept=len(ds), dropped=["garbage.jpg"],
+                restored=["trunc_420.jpg"], labels_dropped=[bad_label], epoch=e, eval=ev,
+                wall_s=wall)
+
+
+def repro_gate_phase(data: dict, root: str, dev, card: str) -> dict:
+    """Phase 35c: ``tools/repro_gate.py::main`` on a 16-image COCO-layout set
+    (the first 16 of [11]'s val images written as JPEG by ``imwrite``, their
+    labels as ``instances_val2017.json`` in COCO's category ids) with an
+    upstream-format N ``.pt`` (seeded weights as [31]'s S, through a stub
+    ``yolov6`` package): the published protocol (640, shrink 4, K 8192) and
+    the exact one (K 30,000, per-anchor top-k rows), every keep equal to the
+    plain keep, exit code 1 (random weights fail the 37.5 target) and S
+    reported ``SKIP (no weights)``. Returns the N file's path too."""
+    import glob
+
+    from yolov6_tpu_torch.data.image_io import imread, imwrite
+    from yolov6_tpu_torch.tools import repro_gate
+    from yolov6_tpu_torch.utils.coco_eval import coco80_to_coco91_class
+    from yolov6_tpu_torch.utils.upstream_ckpt import write_upstream_checkpoint
+
+    t = REPRO_SET
+    coco = os.path.join(root, "coco16")
+    for part in ("images/val2017", "annotations", "weights"):
+        os.makedirs(os.path.join(coco, part))
+    coco91 = coco80_to_coco91_class()
+    images, anns = [], []
+    for i, path in enumerate(sorted(glob.glob(os.path.join(data["val"], "*.png")))[:t["n_val"]]):
+        img = imread(path)
+        h, w = img.shape[:2]
+        name = f"{i + 1:012d}.jpg"
+        imwrite(os.path.join(coco, "images", "val2017", name), img)
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+        stem = os.path.splitext(os.path.basename(path))[0]
+        with open(os.path.join(root, "labels", "val", f"{stem}.txt")) as f:
+            for line in f:
+                c, cx, cy, bw, bh = map(float, line.split())
+                anns.append(dict(id=len(anns) + 1, image_id=i + 1, category_id=coco91[int(c)],
+                                 bbox=[(cx - bw / 2) * w, (cy - bh / 2) * h, bw * w, bh * h],
+                                 area=bw * w * bh * h, iscrowd=0, segmentation=[]))
+    with open(os.path.join(coco, "annotations", "instances_val2017.json"), "w") as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=c, name=str(c)) for c in coco91]), f)
+    model = upstream_s_model(dev, seed=35, config="yolov6n.py")
+    weights = write_upstream_checkpoint(os.path.join(coco, "weights", "yolov6n.pt"), model,
+                                        os.path.join(root, "stub_yolov6_n"))
+    del model
+    out_json = os.path.join(root, "repro_gate.json")
+    args = repro_gate.get_args_parser().parse_args([
+        "--coco-root", coco, "--weights-dir", os.path.join(coco, "weights"), "--models",
+        "yolov6n", "yolov6s", "--batch-size", str(t["batch"]), "--save-dir",
+        os.path.join(root, "repro_gate"), "--out-json", out_json, "--device", "cuda"])
+    with KeepRecorder(record_all=True) as rec:
+        t0 = time.perf_counter()
+        code = repro_gate.main(args)
+        wall = time.perf_counter() - t0
+    launches, err = rec.check_all("[35] repro gate")
+    ks = [f["boxes"].shape[1] for f in launches]
+    assert ks == [8192, 30000], f"[35] the gate's keeps ran at K {ks}, not 8192 then 30000"
+    assert all(bool((f["scores"] > 0).any(1).all()) for f in launches), \
+        "[35] an image of the gate had no candidate"
+    with open(out_json) as f:
+        rows = json.load(f)
+    assert code == 1, f"[35] the gate exited {code}, not 1"
+    assert rows[0]["model"] == "yolov6n" and rows[0]["status"].startswith("FAIL")
+    assert rows[1] == dict(model="yolov6s", map=None, target=45.0, status="SKIP (no weights)",
+                           nms_delta=None)
+    log(f"[35] repro_gate on {t['n_val']} COCO-layout JPEGs with an upstream-format N .pt: "
+        f"keeps at K {ks} (B={t['batch']}), each equal to the plain keep; N mAP50:95 "
+        f"{rows[0]['map']:.3f} ({rows[0]['status']}), S {rows[1]['status']}, exit code {code}; "
+        f"{wall:.1f} s [{card}]")
+    return dict(launches=len(launches), K=ks, code=code, rows=rows, max_abs_err=err,
+                wall_s=wall), weights
+
+
+def infer_jpeg_phase(root: str, weights: str, card: str) -> dict:
+    """Phase 35d: the infer CLI with [35c]'s N file over data/images writes
+    each drawn image under its source's name as a JPEG (SOI to EOI, the
+    source's size), one keep an image equal to the plain keep."""
+    from yolov6_tpu_torch.data.image_io import image_format, imread
+    from yolov6_tpu_torch.tools import infer as infer_cli
+
+    out = os.path.join(root, "infer_n_jpeg")
+    args = infer_cli.get_args_parser().parse_args([
+        "--weights", weights, "--config", os.path.join(ROOT, "configs", "yolov6n.py"),
+        "--source", os.path.join(ROOT, "data", "images"), "--save-txt", "--save-dir", out,
+        "--device", "cuda"])
+    with KeepRecorder(record_all=True) as rec:
+        t0 = time.perf_counter()
+        infer_cli.run(args)
+        wall = time.perf_counter() - t0
+    launches, err = rec.check_all("[35] infer CLI JPEG output")
+    assert len(launches) == len(DEMO_JPEGS)
+    for name, (shape, _) in DEMO_JPEGS.items():
+        drawn = os.path.join(out, "images", os.path.basename(name))
+        assert image_format(drawn) == "jpeg", f"[35] {drawn} is not a JPEG"
+        with open(drawn, "rb") as f:
+            data = f.read()
+        assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+        assert imread(drawn).shape == shape
+    log(f"[35] infer CLI (N, the gate's .pt) over data/images: image1.jpg, image2.jpg, "
+        f"image3.jpg written as JPEG at the sources' sizes, {len(launches)} keeps (B=1, K "
+        f"{launches[0]['boxes'].shape[1]}) equal to the plain keep; {wall:.1f} s [{card}]")
+    return dict(launches=len(launches), max_abs_err=err, wall_s=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -4393,6 +4663,19 @@ def main() -> int:
         # train CLI across them, the step in an NCCL group of one
         phase_mark("[34]")
         ddp = ddp_phases(root, dev, card)
+        # ---- 35. the image codecs; the train CLI at a specific shape with the
+        # checks; the COCO repro gate through both protocols; JPEG infer output
+        phase_mark("[35]")
+        codecs = image_codec_phase(card)
+        greedy_nms.launches = 0
+        shape_cli = shape_cli_phase(root, card)
+        shape_cli_launches = greedy_nms.launches
+        greedy_nms.launches = 0
+        gate_repro, gate_n_pt = repro_gate_phase(data, root, dev, card)
+        repro_launches = greedy_nms.launches
+        greedy_nms.launches = 0
+        infer_jpeg = infer_jpeg_phase(root, gate_n_pt, card)
+        infer_jpeg_launches = greedy_nms.launches
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
@@ -4404,6 +4687,9 @@ def main() -> int:
     assert ddp["step"]["launches"] == ddp["nccl"]["launches"] == 0
     assert pan["train_t"]["launches"] == repopt["launches"] == qat_step["launches"] == 0
     assert qat_cli_launches == qat_cli["launches"]
+    assert shape_cli_launches == shape_cli["launches"] > 0
+    assert repro_launches == gate_repro["launches"] == 2
+    assert infer_jpeg_launches == infer_jpeg["launches"] == len(DEMO_JPEGS)
     log("phase wall times (s): " + ", ".join(
         f"{a} {tb - ta:.1f}" for (a, ta), (_, tb) in zip(PHASE_MARKS, PHASE_MARKS[1:])))
 
@@ -4482,7 +4768,10 @@ def main() -> int:
                              "train_cli_ddp_eval_rank0": ddp["cli"]["launches_rank0"],
                              "train_cli_ddp_eval_rank1": ddp["cli"]["launches_rank1"],
                              "eval_ddp_one_process": ddp["cli"]["evaler_launches"],
-                             "train_nccl_step": ddp["nccl"]["launches"]},
+                             "train_nccl_step": ddp["nccl"]["launches"],
+                             "train_cli_specific_shape_eval": shape_cli_launches,
+                             "repro_gate_k8192_and_k30000": repro_launches,
+                             "infer_jpeg_out": infer_jpeg_launches},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -4509,7 +4798,9 @@ def main() -> int:
                            upstream["max_abs_err"], ptq_serve["max_abs_err"],
                            qat_cli["max_abs_err"], ptq_cli["max_abs_err"],
                            *(v["max_abs_err"] for v in export["artifact"].values()),
-                           export["eval"]["max_abs_err"], ddp["cli"]["max_abs_err"]),
+                           export["eval"]["max_abs_err"], ddp["cli"]["max_abs_err"],
+                           shape_cli["max_abs_err"], gate_repro["max_abs_err"],
+                           infer_jpeg["max_abs_err"]),
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
         "call_ms": main["call_ms"],
@@ -4557,6 +4848,10 @@ def main() -> int:
         "quant": dict(ptq_serve=ptq_serve, qat_step=qat_step, qat_cli=qat_cli, ptq_cli=ptq_cli),
         "export": export,
         "data_parallel": ddp,
+        "image_codecs": codecs,
+        "train_cli_specific_shape": shape_cli,
+        "repro_gate": gate_repro,
+        "infer_jpeg": infer_jpeg,
         "eval_plots": eval_plots,
         "model_info": model_info,
         "vis_dataset": vis,

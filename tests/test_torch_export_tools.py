@@ -91,7 +91,7 @@ def test_infer_torchscript_matches_jax_runner(setup, tmp_path):
     order_g, order_w = np.lexsort(got.T[::-1]), np.lexsort(want.T[::-1])
     np.testing.assert_allclose(got[order_g, :4], want[order_w, :4], atol=1)
     np.testing.assert_allclose(got[order_g, 4:], want[order_w, 4:], atol=1e-5)
-    drawn = imread(str(tmp_path / "image1.png"))
+    drawn = imread(str(tmp_path / "image1.jpg"))
     assert drawn.shape == imread(jpeg).shape
     with pytest.raises(NotImplementedError):
         infer_torchscript.run("clip.mp4", setup["ts"], device="cpu", **kw)

@@ -114,30 +114,26 @@ def test_imwrite_png_round_trips_through_cv2(tmp_path, shape):
 
 
 def test_unreadable_formats_raise_value_error(tmp_path):
+    """TIFF, WebP and GIF raise, naming the format; the kinds the port once
+    refused (progressive JPEG, BMP, 16-bit, Adam7 and palette PNG) now
+    decode to cv2's pixels (tests/test_torch_image_formats.py has them all)."""
     img = _image((16, 16, 3), seed=4)
-    jpg, bmp = str(tmp_path / "a.jpg"), str(tmp_path / "a.bmp")
-    # baseline JPEG is read (tests/test_torch_jpeg.py); progressive is not
-    assert cv2.imwrite(jpg, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]) and cv2.imwrite(bmp, img)
-    with pytest.raises(ValueError, match=r"a\.jpg: progressive JPEG"):
-        imread(jpg)
-    with pytest.raises(ValueError, match="progressive JPEG"):
-        image_size(jpg)
-    with pytest.raises(ValueError, match="BMP"):
-        imread(bmp)
+    for ext, name in ((".tif", "TIFF"), (".webp", "WebP"), (".gif", "GIF")):
+        path = str(tmp_path / f"a{ext}")
+        Image.fromarray(img).save(path)
+        with pytest.raises(ValueError, match=rf"a\{ext}: .*{name}"):
+            imread(path)
+        with pytest.raises(ValueError, match=name):
+            image_size(path)
 
+    jpg, bmp = str(tmp_path / "a.jpg"), str(tmp_path / "a.bmp")
+    assert cv2.imwrite(jpg, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]) and cv2.imwrite(bmp, img)
     deep = str(tmp_path / "deep.png")
     assert cv2.imwrite(deep, img.astype(np.uint16) * 257)
     assert cv2.imread(deep, cv2.IMREAD_UNCHANGED).dtype == np.uint16
-    with pytest.raises(ValueError, match="16-bit"):
-        imread(deep)
-
     interlaced = str(tmp_path / "adam7.png")
     _write_png(interlaced, _image((13, 10, 3), seed=5), 2, [0], interlace=1)
-    assert cv2.imread(interlaced) is not None  # a valid file, that the port does not read
-    with pytest.raises(ValueError, match="interlaced"):
-        imread(interlaced)
-
     palette = str(tmp_path / "palette.png")
     Image.fromarray(img[:, :, 0]).convert("P").save(palette)
-    with pytest.raises(ValueError, match="colour type 3"):
-        imread(palette)
+    for path in (jpg, bmp, deep, interlaced, palette):
+        np.testing.assert_array_equal(imread(path), cv2.imread(path))

@@ -34,7 +34,7 @@ from yolov6_tpu.utils.config import Config as JaxConfig
 from yolov6_tpu_torch import hub
 from yolov6_tpu_torch.core.inferer import Inferer
 from yolov6_tpu_torch.data.datasets import LoadData
-from yolov6_tpu_torch.data.image_io import imread, imwrite_png
+from yolov6_tpu_torch.data.image_io import image_format, imread, imwrite_png
 from yolov6_tpu_torch.tools import infer as infer_cli
 from yolov6_tpu_torch.utils import draw
 from yolov6_tpu_torch.utils.data_config import load_data_config
@@ -118,7 +118,8 @@ def _assert_rows_equal(rows, rows_j):
 
 def _assert_outputs_equal(ours_dir, theirs_dir, with_images=True):
     """The same labels/*.txt rows in each output tree; the port's drawn
-    images are PNG, at the source's size."""
+    images have the JAX inferer's names and formats (the source's own), at
+    the source's size."""
     rel = "src"  # the rel_path rule puts a directory source's outputs under its name
     names = sorted(os.listdir(os.path.join(theirs_dir, rel, "labels")))
     assert names == ["image1.txt", "image2.txt", "image3.txt", "image4.txt"]
@@ -132,7 +133,9 @@ def _assert_outputs_equal(ours_dir, theirs_dir, with_images=True):
             stem = os.path.splitext(name)[0]
             ext = ".png" if stem == "image4" else ".jpg"
             src = imread(os.path.join(theirs_dir, rel, stem + ext))
-            assert imread(os.path.join(ours_dir, rel, stem + ".png")).shape == src.shape
+            assert image_format(os.path.join(ours_dir, rel, stem + ext)) == (
+                "png" if ext == ".png" else "jpeg")
+            assert imread(os.path.join(ours_dir, rel, stem + ext)).shape == src.shape
     assert n_rows > 0
     return n_rows
 
@@ -162,7 +165,8 @@ def test_inferer_matches_jax(setup, tmp_path, variant):
 
 def test_cli_writes_the_same_files(setup, tmp_path):
     """``tools/infer.py``'s ``run`` over the same source writes the JAX
-    inferer's label rows, and a PNG for each image."""
+    inferer's label rows, and each drawn image under its source's name and
+    format."""
     out_j = str(tmp_path / "theirs")
     setup["theirs"].infer(save_dir=out_j, classes=None, agnostic_nms=False, save_txt=True,
                           save_img=False, hide_labels=False, hide_conf=False, **INFER)
@@ -174,11 +178,11 @@ def test_cli_writes_the_same_files(setup, tmp_path):
     assert args.max_det == INFER["max_det"] and args.iou_thres == INFER["iou_thres"]
     infer_cli.run(args)
     assert sorted(os.listdir(os.path.join(out, "src"))) == [
-        "image1.png", "image2.png", "image3.png", "image4.png", "labels"]
+        "image1.jpg", "image2.jpg", "image3.jpg", "image4.png", "labels"]
     _assert_outputs_equal(out, out_j, with_images=False)
     for i in (1, 2, 3, 4):
         ext = "png" if i == 4 else "jpg"
-        drawn = imread(os.path.join(out, "src", f"image{i}.png"))
+        drawn = imread(os.path.join(out, "src", f"image{i}.{ext}"))
         assert drawn.shape == imread(os.path.join(setup["src"], f"image{i}.{ext}")).shape
 
 
@@ -330,7 +334,8 @@ def _load_hubconf():
 def test_hub_predict_matches_hubconf(setup, tmp_path):
     """``hub.yolov6n`` loads YOLOv6-N's weights from a state dict;
     ``hub.predict`` at its defaults but the size gives hubconf.predict's
-    detections; the lite loaders build; visualize_detections writes PNG."""
+    detections; the lite loaders build; visualize_detections writes the
+    JPEG that cv2.imwrite writes."""
     hubconf = _load_hubconf()
     jmodel = jax_build_model(JaxConfig.fromfile(N_CONFIG), num_classes=NC, deploy=True)
     shapes = jax.eval_shape(lambda: jmodel.init(
@@ -351,7 +356,8 @@ def test_hub_predict_matches_hubconf(setup, tmp_path):
 
     out = hub.visualize_detections(path, dets, NAMES, str(tmp_path / "viz.jpg"))
     assert out.shape == img.shape and (out != img).any()
-    np.testing.assert_array_equal(imread(str(tmp_path / "viz.png")), out)
+    with open(tmp_path / "viz.jpg", "rb") as f:
+        assert f.read() == cv2.imencode(".jpg", out)[1].tobytes()
     for loader in (hub.yolov6lite_s, hub.yolov6lite_m, hub.yolov6lite_l):
         lite = loader(device="cpu")
         assert type(lite.detect).__name__ == "DetectLite" and lite.strides[-1] == 64

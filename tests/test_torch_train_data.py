@@ -140,8 +140,8 @@ def test_create_dataloader_augment_shuffles_and_drops_last(data):
     assert not eval_loader.shuffle and not eval_loader.drop_last and len(eval_loader) == 3
 
 
-@pytest.mark.parametrize("kw", [dict(rect=True), dict(specific_shape=True, height=64, width=96),
-                                dict(hyp=dict(_hyp(1.0), shrink_size=4))], ids=str)
+@pytest.mark.parametrize("kw", [dict(rect=True), dict(hyp=dict(_hyp(1.0), shrink_size=4))],
+                         ids=str)
 def test_augment_refuses_what_the_train_path_lacks(data, kw):
     kw = dict(dict(hyp=_hyp(1.0)), **kw)
     with pytest.raises(ValueError, match="augment=True takes no"):

@@ -100,4 +100,4 @@ def test_eval_and_infer_cli_on_the_lite_checkpoint(lite_run, tmp_path):
     for name in labels:
         rows = (out / "images" / "labels" / name).read_text().splitlines()
         assert len(rows) == 20 and all(len(r.split()) == 6 for r in rows)
-    assert sorted(os.listdir(out / "images"))[:3] == ["image1.png", "image2.png", "image3.png"]
+    assert sorted(os.listdir(out / "images"))[:3] == ["image1.jpg", "image2.jpg", "image3.jpg"]

@@ -207,6 +207,11 @@ class Trainer:
         else:
             self.ids_to_contig = {i: i for i in range(self.num_classes)}
         self.img_size = args.img_size
+        # the train batches' (h, w): --specific-shape trains at --height x
+        # --width (the JAX trainer builds its step at (img_size, img_size)
+        # whatever the shape, which does not fit a non-square batch)
+        self.train_hw = ((args.height, args.width) if getattr(args, "specific_shape", False)
+                         else (args.img_size, args.img_size))
         self.batch_size = args.batch_size
 
         self.fuse_ab = bool(getattr(args, "fuse_ab", False))
@@ -257,7 +262,7 @@ class Trainer:
         self.compute_loss, self.compute_loss_ab, self.distill_loss = self._build_losses(cfg)
         self.train_step = make_train_step(
             self.model, self.compute_loss, self.solver_cfg, self.max_stepnum, self.max_epoch,
-            self.batch_size, self.warmup_stepnum, (self.img_size, self.img_size),
+            self.batch_size, self.warmup_stepnum, self.train_hw,
             half=bool(args.bf16), device=self.device, compute_loss_ab=self.compute_loss_ab,
             teacher=None if self.teacher is None else (self.teacher, self.distill_loss),
             grad_masks=grad_masks, quant=self.quant)
@@ -363,9 +368,10 @@ class Trainer:
     def get_data_loader(self, args, cfg, data_dict):
         """The augmenting, shuffled train loader and the val loader of this
         rank's shard, each at ``batch_size // world`` (JAX: engine.py:334-352).
-        The train shards are padded by wrap-around to one length, so every
-        rank takes the same steps; the val shards are not, so that no
-        detection is counted twice."""
+        The train loader takes the shape and check flags; the val loader
+        stays square at ``img_size``, as in JAX. The train shards are padded
+        by wrap-around to one length, so every rank takes the same steps;
+        the val shards are not, so that no detection is counted twice."""
         pin = self.device.type == "cuda"
         shard_id, num_shards = process_shard_info()
         cache = getattr(args, "cache", None) or ("ram" if getattr(args, "cache_ram", False)
@@ -378,7 +384,11 @@ class Trainer:
             data_dict["train"], args.img_size, self.batch_size // num_shards,
             hyp=dict(cfg.data_aug), augment=True, data_dict=data_dict, task="train",
             num_workers=args.workers, max_labels=args.max_labels, pin_memory=pin,
-            seed=args.seed, shard_id=shard_id, num_shards=num_shards, cache=cache)
+            seed=args.seed, shard_id=shard_id, num_shards=num_shards, cache=cache,
+            check_images=getattr(args, "check_images", False),
+            check_labels=getattr(args, "check_labels", False),
+            specific_shape=getattr(args, "specific_shape", False),
+            height=getattr(args, "height", None), width=getattr(args, "width", None))
         val_loader, _ = create_dataloader(
             data_dict["val"], args.img_size, self.batch_size // num_shards, hyp={},
             data_dict=data_dict, task="val", num_workers=args.workers, pin_memory=pin,

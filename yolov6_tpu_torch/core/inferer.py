@@ -5,11 +5,13 @@ The device function (x / 255 in the model's dtype, forward, decode, NMS with
 ``max_nms=2000``) is one function, kept across frames; on a CUDA tensor its
 keep is the NMS kernel. Letterboxing, drawing and writing stay on the host.
 
+The drawn image is written under the source's own name by
+``image_io.imwrite``, in the format its suffix names, as ``cv2.imwrite``
+writes it (a JPEG source's drawn image is the JPEG cv2 would write).
 Departures from the JAX inferer, for what the machine with the card lacks
-(no cv2): the drawn image is written as PNG (``imwrite_png``), with the
-suffix changed to ``.png`` when the source is not a PNG; boxes and labels are
-drawn by ``utils/draw.py`` (cv2's geometry and text sizes, the port's own
-font); video, webcam and ``view_img`` raise ``NotImplementedError``.
+(no cv2): boxes and labels are drawn by ``utils/draw.py`` (cv2's geometry
+and text sizes, the port's own font); video, webcam and ``view_img`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,14 +20,13 @@ import os
 import os.path as osp
 import time
 from collections import deque
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from yolov6_tpu_torch.data.data_augment import letterbox
 from yolov6_tpu_torch.data.datasets import LoadData
-from yolov6_tpu_torch.data.image_io import imwrite_png
+from yolov6_tpu_torch.data.image_io import imwrite
 from yolov6_tpu_torch.ops.nms import non_max_suppression
 from yolov6_tpu_torch.utils import draw
 from yolov6_tpu_torch.utils.checkpoint import load_state_dict_file
@@ -162,7 +163,7 @@ class Inferer:
                             xyxy, label, color=self.generate_colors(class_num, True),
                         )
             if save_img:
-                imwrite_png(str(Path(save_path).with_suffix(".png")), img_ori)
+                imwrite(save_path, img_ori)
 
     @staticmethod
     def box_convert(x):

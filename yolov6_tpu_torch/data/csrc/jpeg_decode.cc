@@ -1,15 +1,26 @@
-// Baseline JPEG decoder that returns exactly what cv2.imread returns for the
-// files it accepts: libjpeg-turbo's default decompression (jdhuff.c's
+// JPEG decoder that returns exactly what cv2.imread returns for the files it
+// accepts: libjpeg-turbo's default decompression (jdhuff.c's and jdphuff.c's
 // Huffman decoding, jidctint.c's accurate integer IDCT, jdsample.c's
 // "fancy" upsampling, jdcolor.c's fixed-point YCbCr->RGB), written out as
 // BGR, with the Exif orientation read as OpenCV reads it (the first APP1
 // segment). Written from ITU-T T.81 and the integer pipeline of those files.
 //
-// Accepted: SOF0/SOF1 (sequential, Huffman) at 8-bit precision with 1 or 3
-// components, interleaved and non-interleaved scans, DRI with RST0-7. The
-// rest (progressive, lossless, hierarchical, arithmetic coding, 12-bit,
-// 4 components) and any truncated or corrupt stream give an error: no entry
-// point returns a partial image.
+// Accepted: SOF0/SOF1 (sequential) and SOF2 (progressive: spectral
+// selection and successive approximation), Huffman-coded, at 8-bit precision
+// with 1 or 3 components, interleaved and non-interleaved scans, DRI with
+// RST0-7. Every scan decodes into a whole-image coefficient buffer, which the
+// IDCT reads once at the end.
+//
+// A stream that ends early decodes as libjpeg-turbo decodes it behind
+// OpenCV's file source, which inserts a fake EOI at the end of the data: the
+// MCU that runs out finishes on zero bits, every later MCU of the scan keeps
+// zero coefficients (128 grey through the IDCT), and the image is returned
+// with the `truncated` flag set. A file that ends before its first scan, or
+// inside a table or SOS segment after it, gives an error, as does a
+// truncated progressive file whose missing low-frequency bits libjpeg would
+// fill by block smoothing (jdcoefct.c), which is not reproduced. The rest
+// (lossless, hierarchical, arithmetic coding, 12-bit, 4 components) and
+// corrupt streams give an error.
 //
 // C interface, safe to call from several threads at once: every function
 // takes a byte buffer and fills caller-owned memory, returns 0 on success
@@ -38,12 +49,14 @@ struct Fail {
   throw f;
 }
 
-// zigzag index -> natural (row-major) index
-const int kNatural[64] = {
+// zigzag index -> natural (row-major) index; the 16 trailing entries catch a
+// run past coefficient 63 in a corrupt stream, as jpeg_natural_order's do
+const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 // ------------------------------------------------------------ Huffman
 
@@ -102,8 +115,9 @@ void build_huff(Huff& t, const uint8_t* bits, const uint8_t* vals, int nvals, bo
 
 // The entropy-coded bytes of a scan, unstuffed on the fly. At a marker (or
 // the end of the buffer) it supplies zero bits, as libjpeg does, and counts
-// them: consuming one of them is an error, so a short scan never yields an
-// image.
+// them: consuming one of them sets `exhausted` (jdhuff.c's
+// insufficient_data), after which the scan decodes no further MCU until a
+// restart marker.
 struct Bits {
   const uint8_t* d;
   size_t n;
@@ -112,6 +126,7 @@ struct Bits {
   int cnt = 0;
   int fake = 0;  // zero bits appended past the data
   bool at_marker = false;
+  bool exhausted = false;
 
   void fill() {
     while (cnt <= 56) {
@@ -145,7 +160,7 @@ struct Bits {
   void skip(int k) {
     buf <<= k;
     cnt -= k;
-    if (cnt < fake) fail(TRUNCATED, "truncated or corrupt JPEG data: the scan ends early");
+    if (cnt < fake) exhausted = true;
   }
   int get(int k) {
     if (k == 0) return 0;
@@ -171,7 +186,8 @@ struct Bits {
     return t.vals[code + t.valoffset[l]];
   }
   // drop what is buffered and move `pos` to the next marker, skipping any
-  // extraneous bytes before it (libjpeg skips them with a warning)
+  // extraneous bytes before it (libjpeg skips them with a warning); `pos`
+  // is `n` when the data ends first
   void to_marker() {
     buf = 0;
     cnt = 0;
@@ -367,9 +383,13 @@ struct Comp {
   int td = 0, ta = 0;
   int w = 0, hgt = 0;  // samples of the component (downsampled size)
   int stride = 0, rows = 0;  // plane size, whole MCUs
+  int bw = 0, bh = 0;  // blocks across and down in the coefficient buffer (whole MCUs)
   bool scanned = false;
   uint16_t q[64];  // quantisation table, latched at the component's first scan
+  int coef_bits[64];  // progressive: the last Al of each coefficient, -1 before any scan
+  std::vector<int16_t> coef;  // bw x bh blocks of 64 coefficients, natural order
   std::vector<uint8_t> plane;
+  int16_t* block(int bx, int by) { return coef.data() + (size_t(by) * bw + bx) * 64; }
 };
 
 struct Decoder {
@@ -384,31 +404,49 @@ struct Decoder {
   int adobe_transform = -1;
   bool saw_app1 = false;
   int orientation = 1;
-  bool frame = false;
+  bool frame = false, progressive = false;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Comp comp[3];
+  bool in_scans = false;  // past the first SOS: the end of the data reads as EOI
+  bool truncated = false;  // the data ended before EOI
 
   Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
 
+  // the next header byte; past the first scan the end of the data reads as
+  // the source manager's fake EOI bytes, FF D9 over and over, so that a
+  // table cut short fails or not as libjpeg's marker reader does
   int u8() {
-    if (pos >= n) fail(TRUNCATED, "truncated JPEG file: it ends inside a header");
-    return d[pos++];
+    if (pos < n) return d[pos++];
+    if (!in_scans) fail(TRUNCATED, "truncated JPEG file: it ends inside a header");
+    truncated = true;
+    return (pos++ - n) % 2 ? 0xD9 : 0xFF;
   }
   int u16() {
     int hi = u8();
     return (hi << 8) | u8();
   }
-  // the code of the next marker; fill bytes are skipped, other bytes raise
+  // the code of the next marker; fill bytes are skipped, other bytes raise.
+  // Past the first scan the end of the data is the fake EOI of OpenCV's
+  // source manager (jdatasrc.c fill_input_buffer).
   int next_marker() {
+    if (in_scans && pos >= n) return eof();
     if (u8() != 0xFF) fail(CORRUPT, "corrupt JPEG file: a marker was expected");
     int m;
-    do m = u8(); while (m == 0xFF);
+    do {
+      if (in_scans && pos >= n) return eof();
+      m = u8();
+    } while (m == 0xFF);
     return m;
+  }
+  int eof() {
+    truncated = true;
+    pos = n;
+    return 0xD9;
   }
   // the payload of a segment: [pos, end)
   size_t segment() {
     int len = u16();
-    if (len < 2 || pos + len - 2 > n)
+    if (len < 2 || (!in_scans && pos + len - 2 > n))
       fail(TRUNCATED, "truncated JPEG file: a segment of %d bytes runs past the end", len);
     return pos + len - 2;
   }
@@ -443,8 +481,9 @@ struct Decoder {
     if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad DHT length");
   }
 
-  void sof(size_t end) {
+  void sof(size_t end, bool prog) {
     if (frame) fail(CORRUPT, "corrupt JPEG file: a second SOF");
+    progressive = prog;
     int precision = u8();
     height = u16();
     width = u16();
@@ -481,8 +520,11 @@ struct Decoder {
       Comp& c = comp[i];
       c.w = static_cast<int>((int64_t(width) * c.h + hmax - 1) / hmax);
       c.hgt = static_cast<int>((int64_t(height) * c.v + vmax - 1) / vmax);
-      c.stride = mcux * c.h * 8;
-      c.rows = mcuy * c.v * 8;
+      c.bw = mcux * c.h;
+      c.bh = mcuy * c.v;
+      c.stride = c.bw * 8;
+      c.rows = c.bh * 8;
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
     frame = true;
   }
@@ -529,6 +571,23 @@ struct Decoder {
     return 1;
   }
 
+  // an APPn or COM segment: past the first scan one that runs past the end
+  // is skipped into the fake EOI (libjpeg skips it through the fake bytes)
+  size_t skippable_segment() {
+    if (in_scans && pos + 2 <= n) {
+      size_t len = (size_t(d[pos]) << 8) | d[pos + 1];
+      if (len >= 2 && pos + len > n) {
+        eof();
+        return n;
+      }
+    }
+    if (in_scans && pos + 2 > n) {
+      eof();
+      return n;
+    }
+    return segment();
+  }
+
   // the markers up to the first SOS (or EOI); returns the marker that ended it
   int headers() {
     if (n < 3 || d[0] != 0xFF || d[1] != 0xD8) fail(CORRUPT, "not a JPEG file (no SOI)");
@@ -542,9 +601,11 @@ struct Decoder {
 
   void segment_marker(int m) {
     switch (m) {
-      case 0xC0: case 0xC1: { size_t e = segment(); sof(e); return; }
-      case 0xC2: fail(UNSUPPORTED, "progressive JPEG (SOF2); the port decodes baseline and "
-                                   "extended sequential JPEG only");
+      case 0xC0: case 0xC1: case 0xC2: {
+        size_t e = segment();
+        sof(e, m == 0xC2);
+        return;
+      }
       case 0xC3: fail(UNSUPPORTED, "lossless JPEG (SOF3) is not supported");
       case 0xC5: case 0xC6: case 0xC7:
         fail(UNSUPPORTED, "hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
@@ -558,11 +619,11 @@ struct Decoder {
         if (pos != e) fail(CORRUPT, "corrupt JPEG file: bad DRI length");
         return;
       }
-      case 0xFE: { size_t e = segment(); pos = e; return; }
+      case 0xFE: { size_t e = skippable_segment(); pos = e; return; }
       case 0xDC: fail(UNSUPPORTED, "JPEG with a DNL marker is not supported");
       default:
         if (m >= 0xE0 && m <= 0xEF) {
-          size_t e = segment();
+          size_t e = skippable_segment();
           app(m, e);
           return;
         }
@@ -570,7 +631,10 @@ struct Decoder {
     }
   }
 
-  // one scan, from its SOS header; leaves pos on the marker after it
+  // One scan, from its SOS header; leaves pos on the marker after it. The
+  // MCUs decode into the components' coefficient buffers: sequential scans
+  // as jdhuff.c, progressive ones as jdphuff.c (DC first and refine, AC
+  // first with EOBRUN and AC refine).
   void scan() {
     if (!frame) fail(CORRUPT, "corrupt JPEG file: SOS before SOF");
     size_t end = segment();
@@ -585,14 +649,30 @@ struct Decoder {
       if (!c) fail(CORRUPT, "corrupt JPEG file: SOS names an unknown component");
       c->td = tdta >> 4;
       c->ta = tdta & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        fail(CORRUPT, "corrupt JPEG file: a scan uses an undefined Huffman table");
+      if (c->td > 3 || c->ta > 3) fail(CORRUPT, "corrupt JPEG file: bad SOS table");
       sc[i] = c;
     }
-    u8();  // Ss, Se, Ah/Al: libjpeg decodes a sequential scan whatever they say
-    u8();
-    u8();
+    const int ss = u8(), se = u8(), ahal = u8();
+    const int ah = ahal >> 4, al = ahal & 15;
     if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad SOS length");
+    in_scans = true;
+    if (progressive) {  // jdphuff.c start_pass_phuff_decoder
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad) fail(CORRUPT, "corrupt JPEG file: bad progression parameters Ss=%d Se=%d", ss, se);
+      for (int i = 0; i < ns; i++)
+        for (int k = ss; k <= se; k++) sc[i]->coef_bits[k] = al;
+    }
+    const bool dc_first = progressive && ss == 0 && ah == 0;
+    const bool dc_refine = progressive && ss == 0 && ah != 0;
+    const bool ac_scan = progressive && ss != 0;
+    for (int i = 0; i < ns; i++) {
+      const Comp& c = *sc[i];
+      bool need_dc = !progressive || dc_first, need_ac = !progressive || ac_scan;
+      if ((need_dc && !dc[c.td].defined) || (need_ac && !ac[c.ta].defined))
+        fail(CORRUPT, "corrupt JPEG file: a scan uses an undefined Huffman table");
+    }
     int blocks_in_mcu = 0;
     for (int i = 0; i < ns; i++) {
       Comp& c = *sc[i];
@@ -601,7 +681,7 @@ struct Decoder {
         std::memcpy(c.q, qt[c.tq], sizeof(c.q));
         c.scanned = true;
       }
-      if (c.plane.empty()) c.plane.assign(size_t(c.stride) * c.rows, 0);
+      if (c.coef.empty()) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
       blocks_in_mcu += ns == 1 ? 1 : c.h * c.v;
     }
     if (blocks_in_mcu > 10) fail(CORRUPT, "corrupt JPEG file: more than 10 blocks an MCU");
@@ -612,46 +692,40 @@ struct Decoder {
     }
     Bits bits{d, n, pos};
     int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     int next_rst = 0;
-    int16_t blk[64];
     const int64_t total = int64_t(bw) * bh;
     for (int64_t m = 0; m < total; m++) {
       if (restart_interval && m > 0 && m % restart_interval == 0) {
+        // jdhuff.c process_restart: the predictions and EOBRUN reset; the
+        // expected RSTn clears `exhausted`, the end of the data keeps it
         bits.to_marker();
-        if (bits.pos + 1 >= n || d[bits.pos + 1] != 0xD0 + next_rst)
-          fail(CORRUPT, "corrupt JPEG data: restart marker RST%d missing", next_rst);
-        bits.pos += 2;
-        next_rst = (next_rst + 1) & 7;
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun = 0;
+        if (bits.pos < n) {
+          if (bits.pos + 1 >= n || d[bits.pos + 1] != 0xD0 + next_rst)
+            fail(CORRUPT, "corrupt JPEG data: restart marker RST%d missing", next_rst);
+          bits.pos += 2;
+          bits.exhausted = false;
+        } else {
+          bits.at_marker = true;
+        }
+        next_rst = (next_rst + 1) & 7;
       }
+      // jdhuff.c decode_mcu: once the data ran out, the MCU keeps its zeros
+      if (bits.exhausted) continue;
       int mx = static_cast<int>(m % bw), my = static_cast<int>(m / bw);
       for (int i = 0; i < ns; i++) {
         Comp& c = *sc[i];
         int bh_c = ns == 1 ? 1 : c.v, bw_c = ns == 1 ? 1 : c.h;
         for (int y = 0; y < bh_c; y++)
           for (int x = 0; x < bw_c; x++) {
-            std::memset(blk, 0, sizeof(blk));
-            int s = bits.decode(dc[c.td]);
-            int diff = s ? extend(bits.get(s), s) : 0;
-            pred[i] = static_cast<int>(static_cast<uint32_t>(pred[i]) + static_cast<uint32_t>(diff));
-            blk[0] = static_cast<int16_t>(pred[i]);
-            const Huff& a = ac[c.ta];
-            for (int k = 1; k < 64; k++) {
-              int rs = bits.decode(a);
-              int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                k += r;
-                if (k > 63) fail(CORRUPT, "corrupt JPEG data: coefficient index past 63");
-                blk[kNatural[k]] = static_cast<int16_t>(extend(bits.get(s), s));
-              } else {
-                if (r != 15) break;
-                k += 15;
-              }
-            }
-            int bx = mx * bw_c + x, by = my * bh_c + y;
-            idct_islow(blk, c.q, c.plane.data() + size_t(by) * 8 * c.stride + size_t(bx) * 8,
-                       c.stride);
+            int16_t* blk = c.block(mx * bw_c + x, my * bh_c + y);
+            if (!progressive) decode_sequential(bits, c, pred[i], blk);
+            else if (dc_first) decode_dc_first(bits, c, pred[i], al, blk);
+            else if (dc_refine) blk[0] |= static_cast<int16_t>(bits.get(1) << al);
+            else if (ah == 0) decode_ac_first(bits, c, ss, se, al, eobrun, blk);
+            else decode_ac_refine(bits, c, ss, se, al, eobrun, blk);
           }
       }
     }
@@ -659,7 +733,97 @@ struct Decoder {
     pos = bits.pos;
   }
 
-  // headers, then every scan, up to EOI
+  void decode_sequential(Bits& bits, const Comp& c, int& pred, int16_t* blk) {
+    std::memset(blk, 0, 64 * sizeof(int16_t));  // jdcoefct.c zeroes the MCU first
+    int s = bits.decode(dc[c.td]);
+    int diff = s ? extend(bits.get(s), s) : 0;
+    pred = static_cast<int>(static_cast<uint32_t>(pred) + static_cast<uint32_t>(diff));
+    blk[0] = static_cast<int16_t>(pred);
+    const Huff& a = ac[c.ta];
+    for (int k = 1; k < 64; k++) {
+      int rs = bits.decode(a);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail(CORRUPT, "corrupt JPEG data: coefficient index past 63");
+        blk[kNatural[k]] = static_cast<int16_t>(extend(bits.get(s), s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  void decode_dc_first(Bits& bits, const Comp& c, int& pred, int al, int16_t* blk) {
+    int s = bits.decode(dc[c.td]);
+    int diff = s ? extend(bits.get(s), s) : 0;
+    pred = static_cast<int>(static_cast<uint32_t>(pred) + static_cast<uint32_t>(diff));
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred) << al);
+  }
+
+  void decode_ac_first(Bits& bits, const Comp& c, int ss, int se, int al, int& eobrun,
+                       int16_t* blk) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    const Huff& a = ac[c.ta];
+    for (int k = ss; k <= se; k++) {
+      int rs = bits.decode(a);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(bits.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits.get(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  void decode_ac_refine(Bits& bits, const Comp& c, int ss, int se, int al, int& eobrun,
+                        int16_t* blk) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    const Huff& a = ac[c.ta];
+    auto refine = [&](int16_t& coef) {
+      if (bits.get(1) && (coef & p1) == 0) coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = bits.decode(a);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits.get(1) ? p1 : m1;  // a size other than 1 is corrupt; libjpeg warns only
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits.get(r);
+          break;
+        }
+        do {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) refine(coef);
+          else if (--r < 0) break;
+          k++;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) refine(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  // headers, then every scan, up to EOI or the end of the data
   void decode() {
     int m = headers();
     if (m == 0xD9 || !frame) fail(CORRUPT, "corrupt JPEG file: no image before EOI");
@@ -667,11 +831,46 @@ struct Decoder {
       if (m == 0xDA) scan();
       else if (m == 0xD9) break;
       else segment_marker(m);
-      if (pos >= n) fail(TRUNCATED, "truncated JPEG file: no EOI after the scan data");
       m = next_marker();
     }
-    for (int i = 0; i < ncomp; i++)
-      if (!comp[i].scanned) fail(CORRUPT, "corrupt JPEG file: a component was never scanned");
+    if (progressive && smoothing_applies())
+      fail(UNSUPPORTED, "progressive JPEG whose low-frequency AC bits are incomplete (a "
+                        "truncated file): libjpeg's block smoothing of them is not reproduced");
+  }
+
+  // jdcoefct.c smoothing_ok (libjpeg-turbo 3): every component latched with
+  // nonzero DC and first nine AC quantisers and some DC bits known, and some
+  // of AC coefficients 1-9 of some component not final
+  bool smoothing_applies() const {
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const Comp& c = comp[i];
+      if (!c.scanned) return false;
+      for (int k = 0; k < 10; k++)
+        if (c.q[kPos[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; k++)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // the IDCT of every block into the component's plane; a component with
+  // no scan is all zero coefficients, 128 everywhere
+  void reconstruct() {
+    for (int i = 0; i < ncomp; i++) {
+      Comp& c = comp[i];
+      if (c.coef.empty()) {
+        c.plane.assign(size_t(c.stride) * c.rows, 128);
+        continue;
+      }
+      c.plane.assign(size_t(c.stride) * c.rows, 0);
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++)
+          idct_islow(c.block(bx, by), c.q,
+                     c.plane.data() + size_t(by) * 8 * c.stride + size_t(bx) * 8, c.stride);
+    }
   }
 
   // the component upsampled to the image size (jdsample.c's choice of method)
@@ -774,6 +973,7 @@ struct InfoArgs {
   int* w;
   int* h;
   int* orientation;
+  int* components;
 };
 
 struct DecodeArgs {
@@ -781,17 +981,19 @@ struct DecodeArgs {
   size_t n;
   uint8_t* out;
   int w, h;
+  int* truncated;
 };
 
 }  // namespace
 
 extern "C" {
 
-// Width, height (as stored, before any orientation) and the Exif orientation
-// (1-8; 1 when there is none) from the headers before the first scan.
+// Width, height (as stored, before any orientation), the Exif orientation
+// (1-8; 1 when there is none) and the number of components from the headers
+// before the first scan.
 int yolov6_jpeg_info(const uint8_t* data, size_t size, int* width, int* height, int* orientation,
-                     char* err, int errlen) {
-  InfoArgs a{data, size, width, height, orientation};
+                     int* components, char* err, int errlen) {
+  InfoArgs a{data, size, width, height, orientation, components};
   return run(err, errlen, [](void* p) {
     InfoArgs& a = *static_cast<InfoArgs*>(p);
     Decoder dec(a.d, a.n);
@@ -800,21 +1002,26 @@ int yolov6_jpeg_info(const uint8_t* data, size_t size, int* width, int* height, 
     *a.w = dec.width;
     *a.h = dec.height;
     *a.orientation = dec.orientation;
+    *a.components = dec.ncomp;
   }, &a);
 }
 
 // Decode into `out`, height x width x 3 BGR bytes as stored (the caller
 // applies the orientation); `width` and `height` must be yolov6_jpeg_info's.
+// `truncated` is set to 1 when the data ended before EOI (the image is
+// libjpeg's all the same), else 0.
 int yolov6_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int height,
-                       char* err, int errlen) {
-  DecodeArgs a{data, size, out, width, height};
+                       int* truncated, char* err, int errlen) {
+  DecodeArgs a{data, size, out, width, height, truncated};
   return run(err, errlen, [](void* p) {
     DecodeArgs& a = *static_cast<DecodeArgs*>(p);
     Decoder dec(a.d, a.n);
     dec.decode();
     if (dec.width != a.w || dec.height != a.h)
       fail(INTERNAL, "output buffer is %dx%d pixels, not the image's size", a.w, a.h);
+    dec.reconstruct();
     dec.output(a.out);
+    *a.truncated = dec.truncated;
   }, &a);
 }
 

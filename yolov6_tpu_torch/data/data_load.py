@@ -179,18 +179,23 @@ def create_dataloader(
     pin_memory: bool = False,
     seed: int = 0,
     cache: Optional[str] = None,
+    check_images: bool = False,
+    check_labels: bool = False,
 ):
     """The loader over ``path`` (reference: data_load.py:206-266). With
     ``augment`` the dataset augments and the loader shuffles and drops the
     last partial batch, as the JAX package's does; ``seed`` seeds the
     permutation and the dataset's draws. ``shard_id``/``num_shards`` give a
     rank its contiguous shard of the (shuffled) indices; ``cache`` (``"ram"``
-    or ``"disk"``) keeps the train path's decoded images
+    or ``"disk"``) keeps the train path's decoded images;
+    ``specific_shape`` with ``height``/``width`` sets the samples' shape, and
+    ``check_images``/``check_labels`` the scan's checks
     (``TrainValDataset``). Returns ``(loader, dataset)``."""
     dataset = TrainValDataset(
         path, img_size=img_size, batch_size=batch_size, augment=augment, hyp=hyp, rect=rect,
         stride=stride, pad=pad, data_dict=data_dict, task=task, specific_shape=specific_shape,
-        height=height, width=width, seed=seed, cache=cache,
+        height=height, width=width, seed=seed, cache=cache, check_images=check_images,
+        check_labels=check_labels,
     )
     loader = DataLoader(
         dataset, batch_size=batch_size, shuffle=augment, num_workers=num_workers,

@@ -1,14 +1,18 @@
 """YOLO-format dataset and the inference source (port of
-yolov6_tpu/data/datasets.py:93-758).
+yolov6_tpu/data/datasets.py:41-758).
 
-The scan, the label cache, rect batching, the ratio-keeping pre-resize with
-``shrink_size``, the letterbox and the COCO ground-truth JSON, on numpy and
-the standard library: images are PNG or JPEG, read by ``data/image_io.py``.
+``check_image``, the scan with its image and label checks, the label cache,
+rect batching, the ratio-keeping pre-resize with ``shrink_size``, the
+letterbox and the COCO ground-truth JSON, on numpy and the standard library:
+images are PNG, JPEG or BMP, read by ``data/image_io.py``. A file the scan
+cannot read is kept at shape (0, 0) and resolved at its first decode, or
+dropped under ``check_images``, as in JAX.
 ``LoadData`` streams image files to the inferer; video and webcam sources
 need ``cv2.VideoCapture`` and raise ``NotImplementedError``.
 
 With ``augment=True`` a sample takes the JAX package's native train path
-(datasets.py:396-640): with probability ``mosaic``, four images in a mosaic
+(datasets.py:396-640), at ``img_size`` or, with ``specific_shape``, at
+``height`` x ``width``: with probability ``mosaic``, four images in a mosaic
 under a random affine (optionally mixed up with a second mosaic), else the
 letterbox and a random affine; then the HSV jitter and the flips. The pixel
 passes are ``data/native_aug.py``'s C++ library; every random value is drawn
@@ -19,7 +23,8 @@ depend on which loader thread made it. The JAX package's C++ batch loader
 The train path's image caches (JAX: datasets.py:143-182, 374-460) keep its
 decoded, pre-resized RGB image: ``cache="ram"`` in the dataset's memory, at
 first use; ``cache="disk"`` as one ``.npy`` an image in
-``.torch_img_cache_{dir}_{img_size}`` beside the images, written through a
+``.torch_img_cache_{dir}_{size}`` beside the images (``size`` is
+``img_size``, or ``max(height, width)`` at a specific shape), written through a
 temporary name and ``os.replace`` so that ranks sharing the directory never
 read a torn file. A cached sample is the uncached one bit for bit: the
 draws, the mosaic and the HSV pass read the same bytes. Neither tier checks
@@ -56,13 +61,63 @@ from yolov6_tpu_torch.data.data_augment import (
     resize_linear,
     sample_seed,
 )
-from yolov6_tpu_torch.data.image_io import image_size, imread
+from yolov6_tpu_torch.data.image_io import image_format, image_size, imread
+from yolov6_tpu_torch.data.jpeg import encode_jpeg, jpeg_info
 
 LOGGER = logging.getLogger(__name__)
 
 IMG_FORMATS = ["bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo"]
 VID_FORMATS = ["mp4", "mov", "avi", "mkv"]
-CACHE_VERSION = 2
+# 3: the entry records the scan's checks, so that an unchecked scan is not
+# read back as a checked one
+CACHE_VERSION = 3
+
+
+def restore_jpeg(im_file: str, img: np.ndarray) -> None:
+    """Rewrite the JPEG ``im_file`` whose decode (orientation applied) is
+    ``img`` as JAX's ``check_image`` has PIL rewrite it: the Exif
+    orientation applied and dropped, quality 100, 4:4:4, grey kept grey."""
+    with open(im_file, "rb") as f:
+        grey = jpeg_info(f.read(), im_file)[3] == 1
+    data = encode_jpeg(img[:, :, 0] if grey else img, quality=100, subsampling="444")
+    tmp = f"{im_file}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, im_file)
+
+
+def check_image(im_file: str, full_check: bool = False):
+    """``(shape (w, h) or None, message)`` of one image (JAX:
+    datasets.py:41-91, with the port's readers in place of PIL): the header
+    shape, w and h swapped under Exif orientation 6 or 8. With
+    ``full_check`` the file also decodes whole, each side must exceed 9
+    pixels, the format must be in ``IMG_FORMATS``, and a JPEG that does not
+    end in EOI is restored in place (``restore_jpeg``) with a warning
+    message. On any failure a plain decode decides, as JAX's cv2 fallback
+    does: its shape when it decodes (so a small image is kept, as in JAX),
+    else None with the reason."""
+    msg = ""
+    try:
+        shape = image_size(im_file)
+        if full_check:
+            img = imread(im_file)
+            assert shape[0] > 9 and shape[1] > 9, f"image size {shape} <10 pixels"
+            fmt = image_format(im_file)
+            assert fmt in IMG_FORMATS, f"invalid image format {fmt}"
+            if fmt == "jpeg":
+                with open(im_file, "rb") as f:
+                    f.seek(-2, 2)
+                    if f.read() != b"\xff\xd9":  # corrupt JPEG: missing EOI
+                        restore_jpeg(im_file, img)
+                        msg = f"WARNING: {im_file}: corrupt JPEG restored and saved"
+        return shape, msg
+    except Exception as e:
+        try:
+            im = imread(im_file)
+            return (im.shape[1], im.shape[0]), msg
+        except Exception:
+            pass
+        return None, f"WARNING: {im_file}: ignoring corrupt image: {e}"
 
 
 def img2label_paths(img_paths: List[str]) -> List[str]:
@@ -99,10 +154,14 @@ class TrainValDataset:
         width: Optional[int] = None,
         seed: int = 0,
         cache: Optional[str] = None,
+        check_images: bool = False,
+        check_labels: bool = False,
     ):
-        if augment and (rect or specific_shape or (hyp or {}).get("shrink_size")):
-            raise ValueError("augment=True takes no rect batches, specific_shape or "
-                             "shrink_size (the port's train path has none of them)")
+        if augment and (rect or (hyp or {}).get("shrink_size")):
+            raise ValueError("augment=True takes no rect batches or shrink_size (the JAX "
+                             "trainer passes neither to its train loader)")
+        if specific_shape and not (height and width):
+            raise ValueError("specific_shape needs height and width")
         if cache not in (None, "ram", "disk"):
             raise ValueError(f"cache={cache!r}: None, 'ram' or 'disk'")
         if cache and not augment:
@@ -123,14 +182,16 @@ class TrainValDataset:
         self.seed = seed
         self.epoch = 0
 
-        self.img_paths, self.labels, self.shapes = self._load_annotations(img_dir)
+        self.img_paths, self.labels, self.shapes = self._load_annotations(
+            img_dir, check_images, check_labels)
         self.n = len(self.img_paths)
         self.cache = cache
         self._ram = [None] * self.n if cache == "ram" else None
         if cache == "disk":
+            size = max(height, width) if specific_shape else img_size
             self.disk_cache_dir = osp.join(
                 osp.dirname(osp.dirname(self.img_paths[0])) or ".",
-                f".torch_img_cache_{osp.basename(str(img_dir))}_{img_size}")
+                f".torch_img_cache_{osp.basename(str(img_dir))}_{size}")
             os.makedirs(self.disk_cache_dir, exist_ok=True)
         if self.rect:
             self._setup_rect_batches()
@@ -159,45 +220,66 @@ class TrainValDataset:
             raise FileNotFoundError(f"no images found in {img_dir}")
         return img_paths
 
-    def _load_annotations(self, img_dir):
+    def _load_annotations(self, img_dir, check_images=False, check_labels=False):
+        """The scan (JAX: datasets.py:210-269): each image's header shape and
+        label rows, through the label cache. An image ``check_image`` cannot
+        read is dropped under ``check_images`` and otherwise kept at (0, 0);
+        under ``check_labels`` a label file with a value out of range (any
+        below 0, a coordinate above 1) gives its image no labels, as a file
+        that does not parse does."""
         img_paths = self._scan_images(img_dir)
         label_paths = img2label_paths(img_paths)
         cache_path = osp.join(osp.dirname(osp.dirname(img_paths[0])) or ".",
                               f".{osp.basename(img_dir)}.torch_cache.json")
         cache_key = get_hash(img_paths + label_paths)
+        checks = [bool(check_images), bool(check_labels)]
         cached = None
         if osp.exists(cache_path):
             try:
                 with open(cache_path) as f:
                     data = json.load(f)
-                if data.get("hash") == cache_key and data.get("version") == CACHE_VERSION:
+                if (data.get("hash") == cache_key and data.get("version") == CACHE_VERSION
+                        and data.get("checks") == checks):
                     cached = data["labels"]
             except (OSError, ValueError, KeyError) as e:
                 LOGGER.warning(f"ignoring the label cache {cache_path}: {e}")
 
         if cached is None:
             def parse(args):
-                """-> (img_path, label rows, shape (w, h)); the shape comes
-                from the header, so rect batching and the GT JSON decode
-                nothing."""
+                """-> (img_path, label rows, shape (w, h)), or None to drop
+                the image; the shape comes from the header, so rect batching
+                and the GT JSON decode nothing."""
                 img_path, lb_path = args
-                shape = image_size(img_path)
+                shape, msg = check_image(img_path, full_check=check_images)
+                if msg:
+                    LOGGER.warning(msg)
+                if shape is None:
+                    if check_images:
+                        return None
+                    shape = (0, 0)  # resolved at its first decode
                 if not osp.exists(lb_path):
                     return img_path, [], shape
-                rows = []
-                with open(lb_path) as f:
-                    for line in f:
-                        vals = line.split()
-                        if len(vals) == 5:
-                            rows.append([float(v) for v in vals])
-                return img_path, rows, shape
+                try:
+                    rows = []
+                    with open(lb_path) as f:
+                        for line in f:
+                            vals = line.split()
+                            if len(vals) == 5:
+                                rows.append([float(v) for v in vals])
+                    if check_labels and rows:
+                        arr = np.array(rows)
+                        assert (arr >= 0).all() and (arr[:, 1:] <= 1).all(), "label out of range"
+                    return img_path, rows, shape
+                except (OSError, ValueError, AssertionError) as e:
+                    LOGGER.warning(f"skipping {lb_path}: {e}")
+                    return img_path, [], shape
 
             with ThreadPool(8) as pool:
-                results = pool.map(parse, zip(img_paths, label_paths))
+                results = [r for r in pool.map(parse, zip(img_paths, label_paths)) if r]
             cached = {p: {"labels": rows, "shape": list(shape)} for p, rows, shape in results}
             try:
-                _write_json({"hash": cache_key, "version": CACHE_VERSION, "labels": cached},
-                            cache_path)
+                _write_json({"hash": cache_key, "version": CACHE_VERSION, "checks": checks,
+                             "labels": cached}, cache_path)
             except OSError as e:
                 LOGGER.warning(f"could not write the label cache {cache_path}: {e}")
 
@@ -207,11 +289,10 @@ class TrainValDataset:
         return paths, labels, shapes
 
     def _resolve_shapes(self) -> np.ndarray:
-        """Cached (w, h) per image; an unknown (0, 0) entry is read from the
-        header now."""
+        """Cached (w, h) per image; an unknown (0, 0) entry is read now."""
         shapes = np.asarray(self.shapes, np.float64)
         for i in np.flatnonzero((shapes <= 0).any(axis=1)):
-            shapes[i] = image_size(self.img_paths[int(i)])
+            shapes[i] = self._resolve_shape(int(i))
         self.shapes = shapes
         return shapes
 
@@ -275,8 +356,9 @@ class TrainValDataset:
 
     def load_image_rgb(self, index):
         """The train path's decode and pre-resize (JAX: datasets.py:396-459
-        ``_load_image_rgb``): RGB, INTER_LINEAR to ``img_size / max(h0, w0)``
-        whatever the size, served from the cache tier when there is one.
+        ``_load_image_rgb``): RGB, INTER_LINEAR to ``img_size / max(h0, w0)``,
+        or at a specific shape ``min(width / w0, height / h0)``, whatever the
+        size, served from the cache tier when there is one.
         Returns ``(RGB image, (h0, w0), (h, w))``; the image is shared with
         the cache and is not to be written."""
         if self._ram is not None and self._ram[index] is not None:
@@ -291,7 +373,10 @@ class TrainValDataset:
                 LOGGER.warning(f"re-decoding {self.img_paths[index]}: cache file {e}")
         im = np.ascontiguousarray(imread(self.img_paths[index])[:, :, ::-1])
         h0, w0 = im.shape[:2]
-        ratio = self.img_size / max(h0, w0)
+        if self.specific_shape:
+            ratio = min(self.target_width / w0, self.target_height / h0)
+        else:
+            ratio = self.img_size / max(h0, w0)
         dst_h, dst_w = int(h0 * ratio), int(w0 * ratio)
         if (dst_h, dst_w) != (h0, w0):
             im = resize_linear(im, (dst_w, dst_h))
@@ -308,10 +393,15 @@ class TrainValDataset:
         return out
 
     def _resolve_shape(self, index):
-        """The cached (w, h) of one image, read from its header if unknown."""
+        """The cached (w, h) of one image, read now if unknown (JAX:
+        datasets.py:384-394); an image that does not read raises
+        ``FileNotFoundError``."""
         w0, h0 = self.shapes[index]
         if w0 <= 0 or h0 <= 0:
-            w0, h0 = image_size(self.img_paths[index])
+            shape, _ = check_image(self.img_paths[index])
+            if shape is None:
+                raise FileNotFoundError(f"unreadable image {self.img_paths[index]}")
+            w0, h0 = shape
         return int(w0), int(h0)
 
     def _one_mosaic(self, index, target_hw, rng: Draws, flip_lr, flip_ud):

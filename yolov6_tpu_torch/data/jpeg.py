@@ -1,24 +1,32 @@
-"""JPEG decoding on the host, bit-equal to ``cv2.imread`` (the port's stand-in
-for the libjpeg-turbo that cv2 carries; the machine with the card has no cv2).
+"""JPEG decoding and encoding on the host, bit-equal to ``cv2.imread`` and
+``cv2.imencode('.jpg')`` (the port's stand-in for the libjpeg-turbo that cv2
+carries; the machine with the card has no cv2).
 
-``csrc/jpeg_decode.cc`` is compiled on first use with the host ``g++`` into
-``build/host/`` (``native_aug.build_library``: the name carries a hash of
-the source and the flags) and loaded with ctypes; a failed build raises, and
-nothing falls back to another decoder. A ctypes call releases the GIL, so
-loader threads decode in parallel.
+``csrc/jpeg_decode.cc`` and ``csrc/jpeg_encode.cc`` are compiled on first
+use with the host ``g++`` into ``build/host/`` (``native_aug.build_library``:
+the name carries a hash of the source and the flags) and loaded with ctypes;
+a failed build raises, and nothing falls back to another codec. A ctypes
+call releases the GIL, so loader threads decode in parallel.
 
-It decodes baseline and extended sequential Huffman JPEG, 8-bit, grey or
+The decoder takes sequential and progressive Huffman JPEG, 8-bit, grey or
 three components (YCbCr, or RGB as libjpeg guesses it), through
 libjpeg-turbo's default pipeline (accurate integer IDCT, fancy upsampling),
-and applies the Exif orientation as ``cv2.imread`` does. Progressive,
-lossless, hierarchical, arithmetic-coded, 12-bit and 4-component (CMYK/YCCK)
-files, and truncated or corrupt ones, raise ``ValueError`` naming the file
-and the kind.
+and applies the Exif orientation as ``cv2.imread`` does. A file that ends
+early decodes as cv2 decodes it (the blocks past the end grey), with a
+warning logged. Lossless, hierarchical, arithmetic-coded, 12-bit and
+4-component (CMYK/YCCK) files, corrupt ones, a file that ends before its
+first scan, and a truncated progressive file that libjpeg would smooth
+raise ``ValueError`` naming the file and the kind.
+
+``encode_jpeg`` writes baseline JPEG as libjpeg-turbo's defaults write it:
+at ``quality=95, subsampling="420"`` the bytes of ``cv2.imencode('.jpg',
+img)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import threading
 from typing import Optional, Tuple
@@ -28,10 +36,21 @@ import numpy as np
 from yolov6_tpu_torch.data.native_aug import build_library, library_path
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "jpeg_decode.cc")
+ENCODER_SOURCE = os.path.join(os.path.dirname(SOURCE), "jpeg_encode.cc")
 _ERRLEN = 256
+LOGGER = logging.getLogger(__name__)
 
 _lib: Optional[ctypes.CDLL] = None
+_enc: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+SUBSAMPLINGS = {"444": 0, "420": 1}
+
+
+def _open(source: str) -> ctypes.CDLL:
+    so = library_path(source)
+    if not os.path.exists(so):
+        build_library(source, so)
+    return ctypes.CDLL(so)
 
 
 def load() -> ctypes.CDLL:
@@ -39,18 +58,15 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path(SOURCE)
-            if not os.path.exists(so):
-                build_library(SOURCE, so)
-            lib = ctypes.CDLL(so)
+            lib = _open(SOURCE)
             c_int_p = ctypes.POINTER(ctypes.c_int)
             lib.yolov6_jpeg_info.restype = ctypes.c_int
             lib.yolov6_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, c_int_p, c_int_p,
-                                             c_int_p, ctypes.c_char_p, ctypes.c_int]
+                                             c_int_p, c_int_p, ctypes.c_char_p, ctypes.c_int]
             lib.yolov6_jpeg_decode.restype = ctypes.c_int
             lib.yolov6_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
-                                               ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-                                               ctypes.c_int]
+                                               ctypes.c_int, ctypes.c_int, c_int_p,
+                                               ctypes.c_char_p, ctypes.c_int]
             _lib = lib
         return _lib
 
@@ -59,16 +75,22 @@ def _error(path, err) -> ValueError:
     return ValueError(f"{path}: {err.value.decode(errors='replace')}")
 
 
-def jpeg_size(data: bytes, path="<bytes>") -> Tuple[int, int, int]:
-    """``(w, h, orientation)`` from the headers of the JPEG ``data``: the size
-    as stored and the Exif orientation (1-8, 1 without one), as OpenCV reads
-    it from the first APP1 segment."""
-    w, h, orientation = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+def jpeg_info(data: bytes, path="<bytes>") -> Tuple[int, int, int, int]:
+    """``(w, h, orientation, components)`` from the headers of the JPEG
+    ``data``: the size as stored, the Exif orientation (1-8, 1 without one),
+    as OpenCV reads it from the first APP1 segment, and the frame's number
+    of components (1 for grey)."""
+    w, h, orientation, nc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERRLEN)
     if load().yolov6_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
-                               ctypes.byref(orientation), err, _ERRLEN):
+                               ctypes.byref(orientation), ctypes.byref(nc), err, _ERRLEN):
         raise _error(path, err)
-    return w.value, h.value, orientation.value
+    return w.value, h.value, orientation.value, nc.value
+
+
+def jpeg_size(data: bytes, path="<bytes>") -> Tuple[int, int, int]:
+    """``(w, h, orientation)`` of ``jpeg_info``."""
+    return jpeg_info(data, path)[:3]
 
 
 def orient(img: np.ndarray, orientation: int) -> np.ndarray:
@@ -90,7 +112,56 @@ def decode_jpeg(data: bytes, path="<bytes>") -> np.ndarray:
     ``path`` for a file it does not decode."""
     w, h, orientation = jpeg_size(data, path)
     out = np.empty((h, w, 3), np.uint8)
+    truncated = ctypes.c_int()
     err = ctypes.create_string_buffer(_ERRLEN)
-    if load().yolov6_jpeg_decode(data, len(data), out.ctypes.data, w, h, err, _ERRLEN):
+    if load().yolov6_jpeg_decode(data, len(data), out.ctypes.data, w, h,
+                                 ctypes.byref(truncated), err, _ERRLEN):
         raise _error(path, err)
+    if truncated.value:
+        LOGGER.warning(f"{path}: premature end of JPEG file; the missing blocks are grey "
+                       "(128), as cv2.imread returns them")
     return orient(out, orientation)
+
+
+def load_encoder() -> ctypes.CDLL:
+    """The library built from ``csrc/jpeg_encode.cc``, compiled if needed."""
+    global _enc
+    with _lock:
+        if _enc is None:
+            lib = _open(ENCODER_SOURCE)
+            lib.yolov6_jpeg_encode_bound.restype = ctypes.c_size_t
+            lib.yolov6_jpeg_encode_bound.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.yolov6_jpeg_encode.restype = ctypes.c_int
+            lib.yolov6_jpeg_encode.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int]
+            _enc = lib
+        return _enc
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420") -> bytes:
+    """``img`` (HW or HWx1 grey, or HWx3 BGR, uint8, as ``cv2.imencode``
+    takes it) as a baseline JPEG: libjpeg-turbo's default compression at
+    ``quality`` (0-100) with ``subsampling`` ``"420"`` or ``"444"`` chroma.
+    The defaults give the bytes of ``cv2.imencode('.jpg', img)``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"encode_jpeg needs uint8, got {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg needs HW grey or HWx3 BGR, got {img.shape}")
+    if subsampling not in SUBSAMPLINGS:
+        raise ValueError(f"subsampling={subsampling!r}: one of {sorted(SUBSAMPLINGS)}")
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    lib = load_encoder()
+    out = np.empty(lib.yolov6_jpeg_encode_bound(w, h), np.uint8)
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lib.yolov6_jpeg_encode(img.ctypes.data, w, h, 1 if img.ndim == 2 else 3, int(quality),
+                              SUBSAMPLINGS[subsampling], out.ctypes.data, out.size,
+                              ctypes.byref(n), err, _ERRLEN):
+        raise ValueError(f"encode_jpeg: {err.value.decode(errors='replace')}")
+    return out[:n.value].tobytes()

@@ -5,13 +5,12 @@ yolov6_tpu/data/vis_dataset.py:13-52; reference: yolov6/data/vis_dataset.py).
         --label_dir <labels> [--out_dir vis_out]
 
 Each of the first ``max_images`` images (by name) is read by
-``data/image_io.py::imread`` (PNG and JPEG; another format raises
+``data/image_io.py::imread`` (PNG, JPEG and BMP; another format raises
 ``ValueError``, as in the loaders), each label's box is drawn 2 px wide as
 ``cv2.rectangle`` draws it (``utils/draw.py::rectangle_line8``) in the
 colour of its class from ``default_rng(0)``, its class name or id above it
-in the port's 5x7 font, and the result is written as ``<stem>.png`` (the
-JAX tool writes the source's format through ``cv2.imwrite``; the port
-writes PNG only, as its inferer does).
+in the port's 5x7 font, and the result is written under the image's name
+in its format (``image_io.imwrite``, as the JAX tool's ``cv2.imwrite``).
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import os.path as osp
 
 import numpy as np
 
-from yolov6_tpu_torch.data.image_io import imread, imwrite_png
+from yolov6_tpu_torch.data.image_io import imread, imwrite
 from yolov6_tpu_torch.utils.draw import put_text, rectangle_line8
 
 
@@ -53,8 +52,8 @@ def visualize(img_dir: str, label_dir: str, out_dir: str, class_names=None, max_
                     rectangle_line8(img, (x1, y1), (x2, y2), color, 2)
                     label = class_names[int(cls)] if class_names else str(int(cls))
                     put_text(img, label, (x1, max(y1 - 4, 10)), 0.5, color, 1)
-        out = osp.join(out_dir, name.rsplit(".", 1)[0] + ".png")
-        imwrite_png(out, img)
+        out = osp.join(out_dir, name)
+        imwrite(out, img)
         written.append(out)
     return written
 

@@ -15,20 +15,20 @@ under bf16 autocast. ``img_size`` is accepted as the JAX loaders take it;
 the port's graphs take any input size, so it changes nothing here. The lite
 loaders (``yolov6lite_s/m/l``) build the lite family's deploy graphs, which
 are trained at 320: call ``predict(model, source, img_size=320)``.
-``visualize_detections`` writes PNG (``<stem>.png``).
+``visualize_detections`` writes ``save_path`` in the format its suffix names
+(``data/image_io.py::imwrite``, as ``cv2.imwrite``).
 """
 
 from __future__ import annotations
 
 import os.path as osp
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from yolov6_tpu_torch.core.inferer import Inferer, make_infer_fn
 from yolov6_tpu_torch.data.data_augment import letterbox
-from yolov6_tpu_torch.data.image_io import imread, imwrite_png
+from yolov6_tpu_torch.data.image_io import imread, imwrite
 from yolov6_tpu_torch.models.yolo import build_model
 from yolov6_tpu_torch.utils import draw
 from yolov6_tpu_torch.utils.checkpoint import load_state_dict_file
@@ -117,7 +117,8 @@ def predict(model, source, img_size: int = 640, conf_thres: float = 0.25,
 
 def visualize_detections(source, dets, class_names, save_path: str | None = None):
     """Draw ``dets`` on the source image (hubconf.visualize_detections);
-    with ``save_path``, write it as PNG with that stem."""
+    with ``save_path``, write it there (``imwrite``: JPEG, PNG or BMP by the
+    suffix)."""
     img = imread(source) if isinstance(source, str) else source.copy()
     for *xyxy, conf, cls in dets:
         draw.plot_box_and_label(
@@ -126,5 +127,5 @@ def visualize_detections(source, dets, class_names, save_path: str | None = None
             color=Inferer.generate_colors(int(cls), True),
         )
     if save_path:
-        imwrite_png(str(Path(save_path).with_suffix(".png")), img)
+        imwrite(save_path, img)
     return img

@@ -16,7 +16,7 @@ class-aware greedy NMS (the port's keep, ``ops/cuda/nms_kernel.py::greedy_nms``,
 over class-offset boxes: the CUDA kernel on the card) in place of cv2's
 ``NMSBoxesBatched``; the reference's floor/ceil clamping on
 rescale (:240-246); the boxes drawn with ``utils/draw.py`` and written as
-``<out-dir>/<stem>.png``. The TorchScript export already holds the decode
+``<out-dir>/<source name>`` in the source's format (``image_io.imwrite``). The TorchScript export already holds the decode
 (model+decode -> ``[b, A, 5+nc]``), so the host starts at the confidence
 filter. Video sources raise ``NotImplementedError``, as in the inferer.
 """
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from yolov6_tpu_torch.data.data_augment import resize_linear
-from yolov6_tpu_torch.data.image_io import imread, imwrite_png
+from yolov6_tpu_torch.data.image_io import imread, imwrite
 from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
 from yolov6_tpu_torch.utils.device import resolve_device
 from yolov6_tpu_torch.utils.draw import put_text, rectangle
@@ -132,8 +132,7 @@ def run(img_path: str, model_path: str, img_size, conf_thres=CONF_THRES, iou_thr
         put_text(draw, f"{label}: {score:.2f}", (x0, max(y0 - 5, 1)), 0.5, (0, 255, 255), 2)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        stem = osp.splitext(osp.basename(img_path))[0]
-        imwrite_png(osp.join(out_dir, stem + ".png"), draw)
+        imwrite(osp.join(out_dir, osp.basename(img_path)), draw)
     return np.asarray(dets, np.float32).reshape(-1, 6)
 
 

@@ -10,7 +10,8 @@ run as torch ops by ``export/torch_export.py::OnnxTorchModule`` on
         --source img.jpg --save out.png [--device cpu]
 
 Images are read by ``data/image_io.py`` and letterboxed by the port (cv2's
-pixels, bit for bit), boxes drawn by ``utils/draw.py`` and saved as PNG. A
+pixels, bit for bit), boxes drawn by ``utils/draw.py`` and saved by
+``image_io.imwrite`` in the format ``--save``'s suffix names (JPEG, PNG, BMP). A
 plain file's predictions go through the port's ``non_max_suppression``
 (multi-label, class-offset greedy over every candidate above
 ``--conf-thres``, the reference's utils/nms.py:31-105), an end2end file's
@@ -29,7 +30,7 @@ import torch
 
 from yolov6_tpu_torch.core.inferer import Inferer
 from yolov6_tpu_torch.data.data_augment import letterbox
-from yolov6_tpu_torch.data.image_io import imread, imwrite_png
+from yolov6_tpu_torch.data.image_io import imread, imwrite
 from yolov6_tpu_torch.export.torch_export import OnnxTorchModule
 from yolov6_tpu_torch.ops.nms import non_max_suppression
 from yolov6_tpu_torch.utils.device import resolve_device
@@ -78,7 +79,7 @@ def get_args_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", required=True, help="ONNX file from tools/export.py")
     ap.add_argument("--source", required=True, help="input image")
-    ap.add_argument("--save", default=None, help="output image path (PNG)")
+    ap.add_argument("--save", default=None, help="output image path (.jpg, .png or .bmp)")
     ap.add_argument("--conf-thres", type=float, default=0.4)
     ap.add_argument("--iou-thres", type=float, default=0.45)
     ap.add_argument("--class-names", nargs="*", default=None)
@@ -102,7 +103,7 @@ def main(args):
     draw_dets(img_src, dets, args.class_names)
     print(f"{len(dets)} detections")
     if args.save:
-        imwrite_png(args.save, img_src)
+        imwrite(args.save, img_src)
         print(f"saved to {args.save}")
     return dets
 

@@ -32,11 +32,15 @@ decoded, pre-resized train images. Rank 0 writes a TensorBoard event file
 losses and LRs, the val images with their predictions after each eval and,
 with ``--write_trainbatch_tb``, each epoch's first train batch annotated;
 view it with ``tensorboard --logdir runs/train`` where tensorboard is
-installed. ``--ckpt-backend orbax`` raises ``NotImplementedError``
-(``core/engine.py::check_supported``); the JAX
-CLI's ``--specific-shape``/``--height``/``--width``, ``--rect``,
-``--check-images``/``--check-labels`` and the unused ``--dist_url``/
-``--gpu_count`` are not in this parser.
+installed. ``--specific-shape --height H --width W`` trains at H x W (each
+a multiple of 32, at least ``--img-floor``; the in-training eval stays
+square at ``--img-size``); ``--check-images`` decodes each image in the
+scan, drops the ones that do not read and restores a JPEG without EOI in
+place; ``--check-labels`` gives an image whose labels are out of range no
+labels. ``--rect``, ``--dist_url`` and ``--gpu_count`` are parsed and
+ignored, as the JAX CLI does. ``--ckpt-backend orbax`` raises
+``NotImplementedError`` (``core/engine.py::check_supported``). Every flag of
+the JAX CLI parses.
 """
 
 from __future__ import annotations
@@ -64,14 +68,26 @@ def get_args_parser(add_help=True):
                         help="dataset description, .json or flat .yaml")
     parser.add_argument("--conf-file", default="./configs/yolov6n.py", type=str)
     parser.add_argument("--img-size", default=640, type=int)
+    parser.add_argument("--rect", action="store_true",
+                        help="parsed and ignored, as the JAX trainer does")
     parser.add_argument("--batch-size", default=32, type=int)
     parser.add_argument("--epochs", default=400, type=int)
     parser.add_argument("--workers", default=8, type=int, help="loader threads")
     parser.add_argument("--eval-interval", default=20, type=int)
     parser.add_argument("--eval-final-only", action="store_true")
     parser.add_argument("--heavy-eval-range", default=50, type=int)
+    parser.add_argument("--check-images", action="store_true",
+                        help="decode every image in the scan; drop the unreadable, restore a "
+                             "JPEG without EOI")
+    parser.add_argument("--check-labels", action="store_true",
+                        help="give an image whose labels are out of range no labels")
     parser.add_argument("--output-dir", default="./runs/train", type=str)
     parser.add_argument("--name", default="exp", type=str)
+    parser.add_argument("--dist_url", default="env://", type=str,
+                        help="parsed and ignored, as the JAX trainer does (torchrun sets the "
+                             "group's address)")
+    parser.add_argument("--gpu_count", type=int, default=0,
+                        help="parsed and ignored, as the JAX trainer does")
     parser.add_argument("--resume", nargs="?", const=True, default=False)
     parser.add_argument("--write_trainbatch_tb", action="store_true")
     parser.add_argument("--stop_aug_last_n_epoch", default=15, type=int)
@@ -89,6 +105,10 @@ def get_args_parser(add_help=True):
     parser.add_argument("--fuse_ab", action="store_true")
     parser.add_argument("--bs_per_device", default=None, type=int,
                         help="per-device batch used to rescale lr0 (reference --bs_per_gpu)")
+    parser.add_argument("--specific-shape", action="store_true",
+                        help="train at --height x --width instead of --img-size square")
+    parser.add_argument("--height", type=int, default=None)
+    parser.add_argument("--width", type=int, default=None)
     parser.add_argument("--cache-ram", action="store_true")
     parser.add_argument("--cache", default=None, choices=["ram", "disk"])
     parser.add_argument("--max-labels", type=int, default=120,
@@ -139,7 +159,13 @@ def check_and_init(args):
     if "training_mode" not in cfg:
         cfg.training_mode = "repvgg"
     check_supported(args, cfg)
-    args.img_size = check_img_size(args.img_size, 32, floor=args.img_floor)
+    if args.specific_shape:  # JAX tools/train.py:110-112
+        if not (args.height and args.width):
+            raise ValueError("--specific-shape needs --height and --width")
+        args.height = check_img_size(args.height, 32, floor=args.img_floor)
+        args.width = check_img_size(args.width, 32, floor=args.img_floor)
+    else:
+        args.img_size = check_img_size(args.img_size, 32, floor=args.img_floor)
 
     random.seed(args.seed)
     np.random.seed(args.seed)
