@@ -257,7 +257,19 @@ Phases, each of which asserts:
      JPEG set with an upstream-format N ``.pt``: the published protocol (K
      8192) and the exact one (K 30,000), every keep equal to the plain keep,
      exit code 1 and S ``SKIP (no weights)``; [35d] the infer CLI with that
-     file writes image1-3.jpg as JPEGs at the sources' sizes.
+     file writes image1-3.jpg as JPEGs at the sources' sizes;
+ 36. TIFF, WebP and the other formats the JAX package reads: [36a] the
+     TIFF, DNG, WebP, MPO, RLE BMP, CMYK/YCCK JPEG and PNG ``eXIf`` fixtures
+     decode to the SHA-256 of the JAX package's pixels and its refusals
+     raise, the demo JPEGs encode to cv2.imencode('.tif')'s bytes and to
+     lossless WebP read back exactly, and each decoder is timed on a
+     640x640 file; [36b] S through ``tools/eval.py::run`` at b32@640 bf16
+     over [11]'s 64 images rewritten as 32 TIFF and 32 WebP gives the PNG
+     set's COCO rows row for row, 2 keep launches, the first with a
+     candidate equal to the plain keep; [36c] the infer CLI with [35c]'s N
+     file over a TIFF and a lossy WebP source (and their PNG twins) writes
+     cv2's TIFF bytes and a lossless WebP of the drawn pixels, every keep
+     equal to the plain keep.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -4414,6 +4426,226 @@ def infer_jpeg_phase(root: str, weights: str, card: str) -> dict:
     return dict(launches=len(launches), max_abs_err=err, wall_s=wall)
 
 
+# [36b]: [11]'s 64 val images, every other one rewritten as TIFF and the rest as WebP
+FORMAT_EVAL = dict(n_val=64, batch=32)
+# [36a]: the square image whose TIFF and WebP files time each decoder
+CODEC_TIMING = dict(size=640, repeats=5)
+
+
+def format_codec_phase(card: str) -> dict:
+    """Phase 36a: the TIFF, DNG, WebP, MPO, RLE BMP, CMYK/YCCK JPEG and PNG
+    ``eXIf`` fixtures (tests/data/torch_images/) decode to the SHA-256 of the
+    JAX package's pixels (cv2.imread, or its PIL branch) that
+    tests/torch_image_fixtures.py wrote beside them, and the files it
+    refuses raise ``ValueError``; the demo JPEGs' pixels encode to the bytes
+    of ``cv2.imencode('.tif')`` (their SHA-256) and, through ``encode_webp``,
+    to a lossless WebP the port decodes back to them; each decoder's time
+    an image on a 640x640 file (host clock, the median of 5)."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    from yolov6_tpu_torch.data import tiff, webp
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.data.tiff import decode_tiff, encode_tiff
+    from yolov6_tpu_torch.data.webp import decode_webp, encode_webp
+
+    with open(os.path.join(IMAGE_FIXTURES, "hashes.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    tiff.load()
+    webp.load()  # both built by the host g++ here, at their first use
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, want in manifest["images"].items():
+        img = imread(os.path.join(IMAGE_FIXTURES, name))
+        assert list(img.shape) == want["shape"], f"[36] {name}: {img.shape}, {want['shape']}"
+        assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], \
+            f"[36] {name}: the decode differs from the JAX package's"
+    decode_s = time.perf_counter() - t0
+    for name in manifest["refused"]:
+        try:
+            imread(os.path.join(IMAGE_FIXTURES, name))
+        except ValueError:
+            continue
+        raise AssertionError(f"[36] {name} decoded; the JAX package refuses it")
+    encoded = {}
+    for rel, want in manifest["encoded_tiff"].items():
+        img = imread(os.path.join(ROOT, rel))
+        t0 = time.perf_counter()
+        data = encode_tiff(img)
+        tiff_ms = (time.perf_counter() - t0) * 1e3
+        assert len(data) == want["bytes"] and hashlib.sha256(data).hexdigest() == want["sha256"], \
+            f"[36] {rel}: encode_tiff's bytes differ from cv2.imencode('.tif')'s"
+        t0 = time.perf_counter()
+        lossless = encode_webp(img)
+        webp_ms = (time.perf_counter() - t0) * 1e3
+        assert np.array_equal(decode_webp(lossless), img), f"[36] {rel}: encode_webp is lossy"
+        encoded[rel] = dict(tiff_bytes=len(data), tiff_encode_ms=tiff_ms,
+                            webp_bytes=len(lossless), webp_encode_ms=webp_ms)
+    # a 640x640 image: the second demo JPEG mirrored out to square, as the
+    # lossy fixture infer_source.webp holds it
+    n = CODEC_TIMING["size"]
+    demo = imread(os.path.join(ROOT, "data", "images", "image2.jpg"))
+    square = np.ascontiguousarray(np.concatenate([demo, demo[:, ::-1][:, :n - demo.shape[1]]],
+                                                 axis=1))
+    with open(os.path.join(IMAGE_FIXTURES, "infer_source.webp"), "rb") as f:
+        lossy = f.read()
+    files = {"tiff_lzw": (decode_tiff, encode_tiff(square)),
+             "webp_lossless": (decode_webp, encode_webp(square)),
+             "webp_lossy": (decode_webp, lossy)}
+    decode_ms = {}
+    for kind, (fn, data) in files.items():
+        out = fn(data)
+        assert out.shape == (n, n, 3), (kind, out.shape)
+        if kind != "webp_lossy":
+            assert np.array_equal(out, square), kind
+        times = []
+        for _ in range(CODEC_TIMING["repeats"]):
+            t0 = time.perf_counter()
+            fn(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[kind] = dict(ms=statistics.median(times), bytes=len(data))
+    log(f"[36] the TIFF and WebP codecs loaded in {build_s:.2f} s; "
+        f"{len(manifest['images'])} fixture files decode to the JAX package's pixels (sha256) in "
+        f"{decode_s * 1e3:.1f} ms, {len(manifest['refused'])} refused "
+        f"({', '.join(manifest['refused'])}); the demo JPEGs encode to cv2.imencode('.tif')'s "
+        "bytes and to lossless WebP read back exactly: "
+        + ", ".join(f"{os.path.basename(k)} TIFF {v['tiff_bytes']} B in "
+                    f"{v['tiff_encode_ms']:.1f} ms, WebP {v['webp_bytes']} B in "
+                    f"{v['webp_encode_ms']:.1f} ms" for k, v in encoded.items())
+        + f"; decode of a {n}x{n} image (median of {CODEC_TIMING['repeats']}, host clock): "
+        + ", ".join(f"{k} {v['ms']:.2f} ms ({v['bytes']} B)" for k, v in decode_ms.items())
+        + f" [{card}]")
+    return dict(fixtures=len(manifest["images"]), refused=manifest["refused"], build_s=build_s,
+                decode_s=decode_s, encoded=encoded, decode_ms=decode_ms)
+
+
+def format_eval_phase(data: dict, cfg, root: str, dev, card: str) -> dict:
+    """Phase 36b: S (configs/yolov6s.py, seeded weights) through
+    ``tools/eval.py::run`` at b32@640 in bf16 over [11]'s 64 PNG images, then
+    over the same images rewritten by ``encode_tiff`` (every other one) and
+    ``encode_webp`` (the rest), both lossless: the COCO rows equal row for
+    row, two keep launches on the rewritten set, the first with a candidate
+    equal to the plain keep. cuDNN runs deterministic for the two passes."""
+    import glob
+    import shutil
+
+    import torch
+
+    from yolov6_tpu_torch.data.image_io import image_format, imread, imwrite
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+    from yolov6_tpu_torch.tools import eval as eval_cli
+
+    t = FORMAT_EVAL
+    pngs = sorted(glob.glob(os.path.join(data["val"], "*.png")))
+    assert len(pngs) == t["n_val"]
+    img_dir, lb_dir = (os.path.join(root, kind, "val_formats") for kind in ("images", "labels"))
+    os.makedirs(img_dir)
+    os.makedirs(lb_dir)
+    t0 = time.perf_counter()
+    kinds = {}
+    for i, path in enumerate(pngs):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        ext = ".tif" if i % 2 == 0 else ".webp"
+        out = os.path.join(img_dir, stem + ext)
+        img = imread(path)
+        imwrite(out, img)
+        assert (imread(out) == img).all(), f"[36] {out} does not read back to its PNG's pixels"
+        kinds[image_format(out)] = kinds.get(image_format(out), 0) + 1
+        shutil.copy(os.path.join(root, "labels", "val", stem + ".txt"), lb_dir)
+    write_s = time.perf_counter() - t0
+    assert kinds == {"tiff": t["n_val"] // 2, "webp": t["n_val"] // 2}, kinds
+    paths = {}
+    for name, val in (("png", data["val"]), ("formats", img_dir)):
+        paths[name] = os.path.join(root, f"data80_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(dict(data, val=val), f)
+    model = deploy_model(cfg, 0, dev)
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        kw = dict(model=model, batch_size=t["batch"], img_size=IMG, task="val", half=True,
+                  device="cuda")
+        t0 = time.perf_counter()
+        (ap50_png, ap_png), rows_png = eval_cli.run(
+            data=paths["png"], save_dir=os.path.join(root, "eval_png"), **kw)
+        png_s = time.perf_counter() - t0
+        greedy_nms.launches = 0  # the PNG pass above is the reference, not the path
+        with KeepRecorder() as rec:
+            t0 = time.perf_counter()
+            (ap50, ap), rows = eval_cli.run(
+                data=paths["formats"], save_dir=os.path.join(root, "eval_formats"), **kw)
+            wall = time.perf_counter() - t0
+        launches = greedy_nms.launches
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    walk = rec.check("[36] eval CLI over TIFF and WebP", t["n_val"])
+    assert launches == walk["launches"] == t["n_val"] // t["batch"], launches
+    assert len(rows) == len(rows_png) > 0, (len(rows), len(rows_png))
+    assert rows == rows_png, "[36] the TIFF/WebP set's COCO rows differ from the PNG set's"
+    assert (ap50, ap) == (ap50_png, ap_png)
+    del model
+    log(f"[36] eval CLI (tools/eval.py::run), S at b{t['batch']}@{IMG} bf16 over [11]'s "
+        f"{t['n_val']} images as {kinds['tiff']} TIFF (encode_tiff) + {kinds['webp']} lossless "
+        f"WebP (encode_webp), written in {write_s:.1f} s: {len(rows)} COCO rows equal to the PNG "
+        f"set's row for row (AP50 {ap50:.5f}, AP {ap:.5f}); {launches} keep launches, the first "
+        f"with a candidate (K {walk['first']['eval']['boxes'].shape[1]}, "
+        f"{walk['first']['eval']['kept']} kept) equal to the plain keep; the PNG pass "
+        f"{png_s:.1f} s, the TIFF/WebP pass {wall:.1f} s [{card}]")
+    return dict(launches=launches, rows=len(rows), ap50=ap50, ap=ap, write_s=write_s,
+                png_s=png_s, wall_s=wall, max_abs_err=walk["max_abs_err"],
+                tiles_visited=walk["tiles_visited"])
+
+
+def format_infer_phase(root: str, weights: str, card: str) -> dict:
+    """Phase 36c: the infer CLI with [35c]'s N file over a TIFF source (LZW,
+    ``encode_tiff`` of the first demo JPEG's pixels) and a lossy WebP source
+    (tests/data/torch_images/infer_source.webp), each also under a ``.png``
+    name: one keep an image, each equal to the plain keep; the drawn TIFF is
+    written as ``cv2.imwrite`` writes it (the bytes of ``encode_tiff`` of the
+    drawn pixels, which the PNG twin holds) and the drawn WebP reads back to
+    the twin's pixels."""
+    import shutil
+
+    from yolov6_tpu_torch.data.image_io import image_format, imread
+    from yolov6_tpu_torch.data.tiff import encode_tiff
+    from yolov6_tpu_torch.tools import infer as infer_cli
+
+    src = os.path.join(root, "formats_src")
+    os.makedirs(src)
+    with open(os.path.join(src, "scene.tif"), "wb") as f:
+        f.write(encode_tiff(imread(os.path.join(ROOT, "data", "images", "image1.jpg"))))
+    shutil.copy(os.path.join(IMAGE_FIXTURES, "infer_source.webp"), os.path.join(src, "scene.webp"))
+    for name in ("scene.tif", "scene.webp"):  # the same bytes under a PNG's name
+        shutil.copy(os.path.join(src, name), os.path.join(src, name.replace(".", "_") + ".png"))
+    out = os.path.join(root, "infer_formats")
+    args = infer_cli.get_args_parser().parse_args([
+        "--weights", weights, "--config", os.path.join(ROOT, "configs", "yolov6n.py"),
+        "--source", src, "--save-txt", "--save-dir", out, "--device", "cuda"])
+    with KeepRecorder(record_all=True) as rec:
+        t0 = time.perf_counter()
+        infer_cli.run(args)
+        wall = time.perf_counter() - t0
+    launches, err = rec.check_all("[36] infer CLI TIFF/WebP output")
+    assert len(launches) == 4, len(launches)
+    drawn_dir = os.path.join(out, os.path.basename(src))
+    for name, fmt in (("scene.tif", "tiff"), ("scene.webp", "webp")):
+        mine = os.path.join(drawn_dir, name)
+        twin = imread(os.path.join(drawn_dir, name.replace(".", "_") + ".png"))
+        assert image_format(mine) == fmt, f"[36] {mine} is not a {fmt} file"
+        assert (imread(mine) == twin).all(), f"[36] {mine} differs from the drawn pixels"
+        if fmt == "tiff":
+            with open(mine, "rb") as f:
+                assert f.read() == encode_tiff(twin), f"[36] {mine} is not cv2's TIFF bytes"
+    log(f"[36] infer CLI (N, the gate's .pt) over scene.tif (LZW) and scene.webp (lossy) and "
+        f"their PNG twins: the drawn images written as TIFF (encode_tiff's bytes of the drawn "
+        f"pixels) and lossless WebP (read back exactly), {len(launches)} keeps (B=1, K "
+        f"{launches[0]['boxes'].shape[1]}) equal to the plain keep; {wall:.1f} s [{card}]")
+    return dict(launches=len(launches), max_abs_err=err, wall_s=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -4676,6 +4908,16 @@ def main() -> int:
         greedy_nms.launches = 0
         infer_jpeg = infer_jpeg_phase(root, gate_n_pt, card)
         infer_jpeg_launches = greedy_nms.launches
+        # ---- 36. TIFF, WebP and the other formats: the fixtures and codecs;
+        # the eval CLI over TIFF and WebP; the infer CLI writing TIFF and WebP
+        phase_mark("[36]")
+        formats = dict(codecs=format_codec_phase(card))
+        greedy_nms.launches = 0
+        formats["eval"] = format_eval_phase(data, cfgs["s"], root, dev, card)
+        format_eval_launches = greedy_nms.launches
+        greedy_nms.launches = 0
+        formats["infer"] = format_infer_phase(root, gate_n_pt, card)
+        format_infer_launches = greedy_nms.launches
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
@@ -4690,6 +4932,8 @@ def main() -> int:
     assert shape_cli_launches == shape_cli["launches"] > 0
     assert repro_launches == gate_repro["launches"] == 2
     assert infer_jpeg_launches == infer_jpeg["launches"] == len(DEMO_JPEGS)
+    assert format_eval_launches == formats["eval"]["launches"] == 2
+    assert format_infer_launches == formats["infer"]["launches"] == 4
     log("phase wall times (s): " + ", ".join(
         f"{a} {tb - ta:.1f}" for (a, ta), (_, tb) in zip(PHASE_MARKS, PHASE_MARKS[1:])))
 
@@ -4771,7 +5015,9 @@ def main() -> int:
                              "train_nccl_step": ddp["nccl"]["launches"],
                              "train_cli_specific_shape_eval": shape_cli_launches,
                              "repro_gate_k8192_and_k30000": repro_launches,
-                             "infer_jpeg_out": infer_jpeg_launches},
+                             "infer_jpeg_out": infer_jpeg_launches,
+                             "eval_cli_tiff_webp": format_eval_launches,
+                             "infer_cli_tiff_webp_out": format_infer_launches},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -4800,7 +5046,8 @@ def main() -> int:
                            *(v["max_abs_err"] for v in export["artifact"].values()),
                            export["eval"]["max_abs_err"], ddp["cli"]["max_abs_err"],
                            shape_cli["max_abs_err"], gate_repro["max_abs_err"],
-                           infer_jpeg["max_abs_err"]),
+                           infer_jpeg["max_abs_err"], formats["eval"]["max_abs_err"],
+                           formats["infer"]["max_abs_err"]),
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
         "call_ms": main["call_ms"],
@@ -4852,6 +5099,7 @@ def main() -> int:
         "train_cli_specific_shape": shape_cli,
         "repro_gate": gate_repro,
         "infer_jpeg": infer_jpeg,
+        "image_formats": formats,
         "eval_plots": eval_plots,
         "model_info": model_info,
         "vis_dataset": vis,

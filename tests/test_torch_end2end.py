@@ -117,7 +117,8 @@ for m in pkgutil.walk_packages(yolov6_tpu_torch.__path__, "yolov6_tpu_torch."):
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "yolov6_tpu",
-                                    "matplotlib", "tensorboard", "tensorboardX"))
+                                    "matplotlib", "tensorboard", "tensorboardX", "tifffile",
+                                    "imageio", "webp"))
 print("BAD", bad)
 print("EXPORT", sorted(n for n in sys.modules if n.startswith(("yolov6_tpu_torch.export.",
       "yolov6_tpu_torch.tools.", "yolov6_tpu_torch.quant."))))
@@ -137,9 +138,9 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     training recipes' heads and losses, and the export package with its
     tools included) and chip_smoke
     loads none of jax, jaxlib, flax, cv2, PIL, yaml, matplotlib, tensorboard,
-    tensorboardX or the JAX package; the host augmentation library's source includes only the C++ standard
-    library and its build links nothing else, and so does the JPEG
-    decoder's."""
+    tensorboardX, tifffile, imageio, a libwebp binding or the JAX package; the host
+    augmentation library's source includes only the C++ standard library and its build
+    links nothing else, and so do the JPEG decoder's and the TIFF and WebP codecs'."""
     res = subprocess.run([sys.executable, "-c", PORT_IMPORT_CHECK], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
@@ -158,5 +159,12 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
         includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
     assert includes and set(includes) <= {"cstdint", "cstdio", "cstring", "exception", "new",
                                           "vector"}, includes
+    from yolov6_tpu_torch.data import tiff, webp
+
+    for source in (tiff.SOURCE, webp.SOURCE):  # the C++ standard library only
+        with open(source) as f:
+            includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
+        assert includes and set(includes) <= {"algorithm", "cstdint", "cstdio", "cstdlib",
+                                              "cstring", "new", "vector"}, (source, includes)
     assert not any(flag.startswith(("-l", "-L", "-I")) for flag in native_aug.CXX_FLAGS)
     assert os.path.dirname(native_aug.lib_path()) == os.path.join(REPO_ROOT, "build", "host")

@@ -38,6 +38,7 @@ def _seeded(model):
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     root = tmp_path_factory.mktemp("export_cli")
+    torch.manual_seed(0)  # build_model's default init: not whatever ran before in the process
     conf = str(root / "yolov6s_small.py")
     with open(S_CONFIG) as f, open(conf, "w") as g:
         g.write(f.read() + "\nmodel['depth_multiple'] = 0.1\nmodel['width_multiple'] = 0.125\n")

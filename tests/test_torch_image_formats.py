@@ -11,6 +11,7 @@ fixtures of ``tests/data/torch_images/`` (``torch_image_fixtures.py``),
 whose cv2 hashes ``chip_smoke.py`` [35] checks on the card."""
 
 import hashlib
+import io
 import json
 import os
 
@@ -23,7 +24,7 @@ from yolov6_tpu_torch.data import jpeg
 from yolov6_tpu_torch.data.image_io import image_size, imread
 
 from torch_image_fixtures import (
-    FIXTURES, adam7_png, bmp, hand_png, last_scan_cut, smooth_image,
+    FIXTURES, adam7_png, bmp, hand_png, jax_read, last_scan_cut, smooth_image,
 )
 
 PROGRESSIVE = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
@@ -184,42 +185,112 @@ def test_hand_written_bmps(tmp_path, top_down):
 
 
 def test_tiff_webp_and_rle_bmp_raise(tmp_path):
+    """TIFF and WebP, which the port once refused, decode to cv2's pixels;
+    RLE BMP decodes too (tests/test_torch_bmp_rle_cmyk.py), and what still
+    raises is an RLE stream cv2 gives None for: here uncompressed rows
+    relabelled RLE, whose first code is a run past its row (the JAX
+    package's PIL branch then raises on the palette image)."""
     img = smooth_image(16, 16, 9)[:, :, ::-1]
-    for ext, name in ((".tif", "TIFF"), (".webp", "WebP")):
+    for ext in (".tif", ".webp"):
         path = str(tmp_path / f"a{ext}")
         Image.fromarray(img).save(path)
-        assert cv2.imread(path) is not None  # cv2 reads it; the port does not
-        with pytest.raises(ValueError, match=name):
-            imread(path)
-        with pytest.raises(ValueError, match=name):
-            image_size(path)
+        _same_as_cv2(path)
     for comp, name in ((1, "RLE8"), (2, "RLE4")):
         path = str(tmp_path / f"{name}.bmp")
-        data = bytearray(bmp([bytes(4)] * 4, 4, 4, 8 if comp == 1 else 4,
+        data = bytearray(bmp([bytes([200, 1, 2, 3])] * 4, 4, 4, 8 if comp == 1 else 4,
                              palette=bytes(16 * 4)))
         data[30:34] = comp.to_bytes(4, "little")  # biCompression
         with open(path, "wb") as f:
             f.write(bytes(data))
-        with pytest.raises(ValueError, match=f"{name} BMP"):
+        assert cv2.imread(path) is None
+        with pytest.raises(ValueError, match=f"{name} BMP run past the end of its row"):
             imread(path)
-        with pytest.raises(ValueError, match=f"{name} BMP"):
-            image_size(path)
+        assert image_size(path) == (4, 4)
 
 
 def test_committed_fixtures_equal_cv2_and_their_hashes():
-    """The files ``chip_smoke.py`` [35] decodes on the card: the port's
-    pixels are cv2's, and cv2's are the ones hashed in ``hashes.json``."""
+    """The files ``chip_smoke.py`` [35] and [36] decode on the card: the
+    port's pixels are the JAX package's (cv2's, or its PIL branch's where
+    cv2 gives None), and those are the ones hashed in ``hashes.json``; the
+    files listed as refused raise."""
     with open(os.path.join(FIXTURES, "hashes.json")) as f:
         manifest = json.load(f)
     names = sorted(n for n in os.listdir(FIXTURES) if n != "hashes.json")
-    assert names == sorted(manifest["images"])
+    assert names == sorted([*manifest["images"], *manifest["refused"]])
     total = 0
     for name in names:
         path = os.path.join(FIXTURES, name)
         total += os.path.getsize(path)
-        _same_as_cv2(path)
+        if name in manifest["refused"]:
+            assert jax_read(path) is None
+            with pytest.raises(ValueError, match=name):
+                imread(path)
+            continue
         want = manifest["images"][name]
         img = imread(path)
+        assert np.array_equal(img, jax_read(path)), name
         assert list(img.shape) == want["shape"]
         assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], name
     assert total < 200 * 1024
+
+
+def _png_with_exif(path, img, orientation, after_idat):
+    from torch_image_fixtures import exif_after_idat
+
+    buf = io.BytesIO()
+    ex = Image.Exif()
+    ex[274] = orientation
+    Image.fromarray(np.ascontiguousarray(img[:, :, ::-1])).save(buf, format="PNG",
+                                                                exif=ex.tobytes())
+    data = buf.getvalue()
+    with open(path, "wb") as f:
+        f.write(exif_after_idat(data) if after_idat else data)
+
+
+@pytest.mark.parametrize("after_idat", [False, True], ids=["before_idat", "after_idat"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_png_exif_orientation_as_cv2_and_check_image(tmp_path, orientation, after_idat):
+    """A PNG's ``eXIf`` chunk, before or after the image data: the pixels
+    cv2 returns (oriented), and the shape the JAX package's ``check_image``
+    records (swapped under 6 and 8 by PIL's ``_getexif``; 5 and 7 stay as
+    stored, the JAX package's quirk), with and without the full check."""
+    from yolov6_tpu.data.datasets import check_image as jax_check_image
+    from yolov6_tpu_torch.data.datasets import check_image
+
+    path = str(tmp_path / "e.png")
+    _png_with_exif(path, smooth_image(11, 19, orientation), orientation, after_idat)
+    got = imread(path)
+    want = cv2.imread(path)
+    assert got.shape == want.shape == ((19, 11, 3) if orientation >= 5 else (11, 19, 3))
+    assert np.array_equal(got, want)
+    for full in (False, True):
+        shape, msg = check_image(path, full_check=full)
+        shape_j, msg_j = jax_check_image(path, full_check=full)
+        assert shape == tuple(shape_j) == ((11, 19) if orientation in (6, 8) else (19, 11))
+        assert msg == msg_j == ""
+
+
+def test_mpo_reads_its_first_image(tmp_path):
+    """An MPO (PIL's ``save_all``: an APP2 MPF segment listing two images):
+    cv2's pixels of the first image, PIL's format name ``mpo`` (which keeps
+    ``check_image``'s JPEG restore away), and a plain JPEG stays ``jpeg``."""
+    from yolov6_tpu.data.datasets import check_image as jax_check_image
+    from yolov6_tpu_torch.data.datasets import check_image
+    from yolov6_tpu_torch.data.image_io import image_format, mpo_images
+
+    a, b = smooth_image(30, 41, 1), smooth_image(30, 41, 2)
+    path = str(tmp_path / "two.mpo")
+    Image.fromarray(a[:, :, ::-1].copy()).save(path, format="MPO", save_all=True,
+                                               append_images=[Image.fromarray(b)])
+    with open(path, "rb") as f:
+        data = f.read()
+    assert mpo_images(data) == 2 and data.count(b"\xff\xd8\xff") >= 2
+    _same_as_cv2(path)
+    assert image_format(path) == "mpo"
+    with Image.open(path) as im:
+        assert im.format == "MPO"
+    for full in (False, True):
+        assert check_image(path, full) == (tuple(jax_check_image(path, full)[0]), "")
+    jpg = str(tmp_path / "one.jpg")
+    Image.fromarray(a).save(jpg, format="MPO")  # a single image: PIL writes plain JPEG
+    assert image_format(jpg) == "jpeg"

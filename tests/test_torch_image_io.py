@@ -114,17 +114,23 @@ def test_imwrite_png_round_trips_through_cv2(tmp_path, shape):
 
 
 def test_unreadable_formats_raise_value_error(tmp_path):
-    """TIFF, WebP and GIF raise, naming the format; the kinds the port once
-    refused (progressive JPEG, BMP, 16-bit, Adam7 and palette PNG) now
-    decode to cv2's pixels (tests/test_torch_image_formats.py has them all)."""
+    """GIF raises, naming the format and what the port reads; the kinds the
+    port once refused (TIFF, WebP, progressive JPEG, BMP, 16-bit, Adam7 and
+    palette PNG) decode to cv2's pixels (tests/test_torch_image_formats.py,
+    test_torch_tiff.py and test_torch_webp.py have them all)."""
     img = _image((16, 16, 3), seed=4)
-    for ext, name in ((".tif", "TIFF"), (".webp", "WebP"), (".gif", "GIF")):
+    path = str(tmp_path / "a.gif")
+    Image.fromarray(img).save(path)
+    with pytest.raises(ValueError, match=r"a\.gif: GIF file; the port reads PNG, JPEG \(MPO\), "
+                                         r"BMP, TIFF \(DNG\) and WebP"):
+        imread(path)
+    with pytest.raises(ValueError, match="GIF"):
+        image_size(path)
+    for ext in (".tif", ".webp"):
         path = str(tmp_path / f"a{ext}")
         Image.fromarray(img).save(path)
-        with pytest.raises(ValueError, match=rf"a\{ext}: .*{name}"):
-            imread(path)
-        with pytest.raises(ValueError, match=name):
-            image_size(path)
+        np.testing.assert_array_equal(imread(path), cv2.imread(path))
+        assert image_size(path) == (16, 16)
 
     jpg, bmp = str(tmp_path / "a.jpg"), str(tmp_path / "a.bmp")
     assert cv2.imwrite(jpg, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]) and cv2.imwrite(bmp, img)

@@ -83,15 +83,16 @@ def test_imwrite_dispatches_on_the_suffix(tmp_path):
                 assert f.read() == cv2.imencode(".jpg", img)[1].tobytes()
         else:  # lossless
             np.testing.assert_array_equal(want, img)
-    with pytest.raises(ValueError, match="writes .jpg, .jpeg, .png and .bmp only"):
-        imwrite(str(tmp_path / "out.tif"), img)
+    with pytest.raises(ValueError, match="could not find a writer for .gif; the port writes .jpg, "
+                                         ".jpeg, .png, .bmp, .tif, .tiff and .webp"):
+        imwrite(str(tmp_path / "out.gif"), img)
 
 
 def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="uint8"):
         encode_jpeg(np.zeros((4, 4, 3), np.float32))
-    with pytest.raises(ValueError, match="HW grey or HWx3"):
-        encode_jpeg(np.zeros((4, 4, 4), np.uint8))
+    with pytest.raises(ValueError, match="HW grey, HWx3 BGR or HWx4 CMYK"):
+        encode_jpeg(np.zeros((4, 4, 2), np.uint8))  # four channels are CMYK samples
     with pytest.raises(ValueError, match="subsampling"):
         encode_jpeg(np.zeros((4, 4, 3), np.uint8), subsampling="422")
     with pytest.raises(ValueError, match="65535"):

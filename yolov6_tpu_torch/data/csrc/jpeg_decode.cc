@@ -7,7 +7,7 @@
 //
 // Accepted: SOF0/SOF1 (sequential) and SOF2 (progressive: spectral
 // selection and successive approximation), Huffman-coded, at 8-bit precision
-// with 1 or 3 components, interleaved and non-interleaved scans, DRI with
+// with 1, 3 or 4 components, interleaved and non-interleaved scans, DRI with
 // RST0-7. Every scan decodes into a whole-image coefficient buffer, which the
 // IDCT reads once at the end.
 //
@@ -19,8 +19,12 @@
 // inside a table or SOS segment after it, gives an error, as does a
 // truncated progressive file whose missing low-frequency bits libjpeg would
 // fill by block smoothing (jdcoefct.c), which is not reproduced. The rest
-// (lossless, hierarchical, arithmetic coding, 12-bit, 4 components) and
-// corrupt streams give an error.
+// (lossless, hierarchical, arithmetic coding, 12-bit) and corrupt streams
+// give an error. Four components are CMYK, or YCCK under Adobe transform 2
+// (jdcolor.c ycck_cmyk_convert), turned into BGR as OpenCV turns libjpeg's
+// CMYK (Adobe's inverted CMYK, icvCvt_CMYK2BGR_8u_C4C3R). The caller may
+// force the colour space as libtiff does for a JPEG-compressed TIFF
+// (yolov6_jpeg_decode_as): YCbCr (YCCK) or none (RGB/CMYK as stored).
 //
 // C interface, safe to call from several threads at once: every function
 // takes a byte buffer and fills caller-owned memory, returns 0 on success
@@ -406,7 +410,8 @@ struct Decoder {
   int orientation = 1;
   bool frame = false, progressive = false;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Comp comp[3];
+  Comp comp[4];
+  int force_color = -1;  // -1: libjpeg's guess; 0: as stored; 1: YCbCr/YCCK
   bool in_scans = false;  // past the first SOS: the end of the data reads as EOI
   bool truncated = false;  // the data ended before EOI
 
@@ -490,10 +495,8 @@ struct Decoder {
     ncomp = u8();
     if (precision != 8)
       fail(UNSUPPORTED, "%d-bit JPEG; the port decodes 8-bit JPEG only", precision);
-    if (ncomp == 4)
-      fail(UNSUPPORTED, "4-component (CMYK/YCCK) JPEG; the port decodes grey and colour only");
-    if (ncomp != 1 && ncomp != 3)
-      fail(UNSUPPORTED, "%d-component JPEG; the port decodes 1 and 3 components", ncomp);
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      fail(UNSUPPORTED, "%d-component JPEG; the port decodes 1, 3 and 4 components", ncomp);
     if (width == 0 || height == 0)
       fail(UNSUPPORTED, "JPEG of size %dx%d (a DNL-defined height is not supported)", width,
            height);
@@ -915,6 +918,30 @@ struct Decoder {
     return out;
   }
 
+  // the four components as libjpeg's CMYK output gives them (YCCK
+  // converted), HxWx4, into `out`
+  void output_cmyk(uint8_t* out) const {
+    if (ncomp != 4) fail(UNSUPPORTED, "%d-component JPEG read as CMYK", ncomp);
+    std::vector<uint8_t> p[4] = {upsample(comp[0]), upsample(comp[1]), upsample(comp[2]),
+                                 upsample(comp[3])};
+    const bool ycck = force_color >= 0 ? force_color == 1 : (adobe && adobe_transform != 0);
+    const size_t npx = size_t(width) * height;
+    for (size_t i = 0; i < npx; i++) {
+      uint8_t* o = out + 4 * i;
+      if (ycck) {
+        int yy = p[0][i], cb = p[1][i], cr = p[2][i];
+        o[0] = clamp255(255 - (yy + kYcc.cr_r[cr]));
+        o[1] = clamp255(255 - (yy + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+        o[2] = clamp255(255 - (yy + kYcc.cb_b[cb]));
+      } else {
+        o[0] = p[0][i];
+        o[1] = p[1][i];
+        o[2] = p[2][i];
+      }
+      o[3] = p[3][i];
+    }
+  }
+
   // BGR, HxWx3, into `out`
   void output(uint8_t* out) const {
     const size_t npx = size_t(width) * height;
@@ -928,10 +955,25 @@ struct Decoder {
         }
       return;
     }
+    if (ncomp == 4) {  // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+      std::vector<uint8_t> cmyk(npx * 4);
+      output_cmyk(cmyk.data());
+      for (size_t i = 0; i < npx; i++) {
+        const uint8_t* q = cmyk.data() + 4 * i;
+        const int k = q[3];
+        uint8_t* o = out + 3 * i;
+        o[2] = static_cast<uint8_t>(k - (((255 - q[0]) * k) >> 8));
+        o[1] = static_cast<uint8_t>(k - (((255 - q[1]) * k) >> 8));
+        o[0] = static_cast<uint8_t>(k - (((255 - q[2]) * k) >> 8));
+      }
+      return;
+    }
     std::vector<uint8_t> p0 = upsample(comp[0]), p1 = upsample(comp[1]), p2 = upsample(comp[2]);
     // jdapimin.c default_decompress_parms: JFIF first, then Adobe, then the ids
     bool rgb = false;
-    if (!jfif) {
+    if (force_color >= 0) {
+      rgb = force_color == 0;
+    } else if (!jfif) {
       if (adobe) rgb = adobe_transform == 0;
       else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
     }
@@ -982,7 +1024,22 @@ struct DecodeArgs {
   uint8_t* out;
   int w, h;
   int* truncated;
+  int force_color;
+  bool cmyk = false;
 };
+
+void decode_body(void* p) {
+  DecodeArgs& a = *static_cast<DecodeArgs*>(p);
+  Decoder dec(a.d, a.n);
+  dec.force_color = a.force_color;
+  dec.decode();
+  if (dec.width != a.w || dec.height != a.h)
+    fail(INTERNAL, "output buffer is %dx%d pixels, not the image's size", a.w, a.h);
+  dec.reconstruct();
+  if (a.cmyk) dec.output_cmyk(a.out);
+  else dec.output(a.out);
+  *a.truncated = dec.truncated;
+}
 
 }  // namespace
 
@@ -1009,20 +1066,22 @@ int yolov6_jpeg_info(const uint8_t* data, size_t size, int* width, int* height, 
 // Decode into `out`, height x width x 3 BGR bytes as stored (the caller
 // applies the orientation); `width` and `height` must be yolov6_jpeg_info's.
 // `truncated` is set to 1 when the data ended before EOI (the image is
-// libjpeg's all the same), else 0.
-int yolov6_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, int width, int height,
-                       int* truncated, char* err, int errlen) {
-  DecodeArgs a{data, size, out, width, height, truncated};
-  return run(err, errlen, [](void* p) {
-    DecodeArgs& a = *static_cast<DecodeArgs*>(p);
-    Decoder dec(a.d, a.n);
-    dec.decode();
-    if (dec.width != a.w || dec.height != a.h)
-      fail(INTERNAL, "output buffer is %dx%d pixels, not the image's size", a.w, a.h);
-    dec.reconstruct();
-    dec.output(a.out);
-    *a.truncated = dec.truncated;
-  }, &a);
+// libjpeg's all the same), else 0. `force_color` -1 takes libjpeg's guess of
+// the colour space, 0 takes the components as stored (RGB or CMYK) and 1
+// as YCbCr (YCCK), as libtiff sets them for a JPEG-compressed TIFF.
+int yolov6_jpeg_decode_as(const uint8_t* data, size_t size, uint8_t* out, int width, int height,
+                          int force_color, int* truncated, char* err, int errlen) {
+  DecodeArgs a{data, size, out, width, height, truncated, force_color};
+  return run(err, errlen, decode_body, &a);
+}
+
+// Decode a 4-component JPEG into `out`, height x width x 4 bytes: the CMYK
+// samples libjpeg's JCS_CMYK output gives (YCCK converted), which PIL holds
+// (inverted) for a CMYK JPEG.
+int yolov6_jpeg_decode_cmyk(const uint8_t* data, size_t size, uint8_t* out, int width,
+                            int height, int* truncated, char* err, int errlen) {
+  DecodeArgs a{data, size, out, width, height, truncated, -1, true};
+  return run(err, errlen, decode_body, &a);
 }
 
 }  // extern "C"

@@ -10,6 +10,9 @@
 // ITU-T T.81 and those files.
 //
 // Grey (one channel) or BGR (three) input, 8-bit; 4:4:4 or 4:2:0 chroma.
+// Four channels are CMYK samples written as libjpeg writes a JCS_CMYK
+// image (PIL's CMYK JPEG): no colour conversion, every component on table
+// 0, an Adobe APP14 marker (transform 0) in place of JFIF, 4:4:4.
 //
 // C interface, safe to call from several threads at once: it fills
 // caller-owned memory, returns 0 on success and otherwise an error code
@@ -264,7 +267,7 @@ struct Encoder {
   const uint8_t* img;
   int width, height, channels;
   int ncomp = 1, hmax = 1, vmax = 1;
-  Comp comp[3];
+  Comp comp[4];
   uint16_t quant[2][64];
 
   Encoder(const uint8_t* pixels, int w, int h, int c)
@@ -277,6 +280,7 @@ struct Encoder {
     if (y >= height) y = height - 1;
     const uint8_t* px = img + (size_t(y) * width + x) * channels;
     if (channels == 1) return px[0];
+    if (channels == 4) return px[c];  // jccolor.c null_convert
     const int b = px[0], g = px[1], r = px[2];
     const auto& t = kYcc.t;
     int64_t v;
@@ -370,14 +374,15 @@ struct Encoder {
   }
 
   std::vector<uint8_t> run(int quality, bool subsample) {
-    ncomp = channels == 1 ? 1 : 3;
+    ncomp = channels;
+    const bool cmyk = ncomp == 4;
     const int ysamp = (ncomp == 3 && subsample) ? 2 : 1;
     hmax = vmax = ysamp;
     for (int i = 0; i < ncomp; i++) {
       Comp& c = comp[i];
-      c.id = i + 1;
+      c.id = cmyk ? "CMYK"[i] : i + 1;  // jcparam.c jpeg_set_colorspace
       c.h = c.v = i == 0 ? ysamp : 1;
-      c.tq = i == 0 ? 0 : 1;
+      c.tq = i == 0 || cmyk ? 0 : 1;
       c.w = static_cast<int>((int64_t(width) * c.h + hmax - 1) / hmax);
       c.hgt = static_cast<int>((int64_t(height) * c.v + vmax - 1) / vmax);
       c.wib = (c.w + 7) / 8;
@@ -393,10 +398,14 @@ struct Encoder {
       out.push_back(static_cast<uint8_t>(v));
     };
     out.insert(out.end(), {0xFF, 0xD8});
-    // jcmarker.c emit_jfif_app0: version 1.01, no units, density 1:1
-    out.insert(out.end(), {0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00, 0x01, 0x01, 0x00,
-                           0x00, 0x01, 0x00, 0x01, 0x00, 0x00});
-    const int ntables = ncomp == 1 ? 1 : 2;
+    if (cmyk) {  // jcmarker.c emit_adobe_app14: version 100, no flags, transform 0
+      out.insert(out.end(), {0xFF, 0xEE, 0x00, 0x0E, 'A', 'd', 'o', 'b', 'e', 0x00, 0x64, 0x00,
+                             0x00, 0x00, 0x00, 0x00});
+    } else {  // jcmarker.c emit_jfif_app0: version 1.01, no units, density 1:1
+      out.insert(out.end(), {0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00, 0x01, 0x01, 0x00,
+                             0x00, 0x01, 0x00, 0x01, 0x00, 0x00});
+    }
+    const int ntables = ncomp == 3 ? 2 : 1;
     for (int t = 0; t < ntables; t++) {
       out.insert(out.end(), {0xFF, 0xDB});
       b2(67);
@@ -440,7 +449,7 @@ struct Encoder {
       for (int i = 0; i < 64; i++) div[t][i] = reciprocal(uint32_t(quant[t][i]) << 3);
 
     BitWriter bw(out);
-    int last_dc[3] = {0, 0, 0};
+    int last_dc[4] = {0, 0, 0, 0};
     const int mcux = ncomp == 1 ? comp[0].wib : (width + 8 * hmax - 1) / (8 * hmax);
     const int mcuy = ncomp == 1 ? comp[0].hib : (height + 8 * vmax - 1) / (8 * vmax);
     int coef[4][64];  // one block row of a component's MCU, for the dummy DCs
@@ -481,12 +490,12 @@ extern "C" {
 size_t yolov6_jpeg_encode_bound(int width, int height) {
   // 4:4:4 worst case: 3 components, every block 27 + 63 * 26 bits, doubled
   // by FF stuffing, plus the headers
-  size_t blocks = size_t((width + 15) / 8 + 1) * ((height + 15) / 8 + 1) * 3;
+  size_t blocks = size_t((width + 15) / 8 + 1) * ((height + 15) / 8 + 1) * 4;
   return blocks * 420 + 1024;
 }
 
-// Encode `img` (height x width x channels bytes, channels 1 (grey) or 3
-// (BGR)) as a baseline JPEG at `quality` (0-100, as cv2's
+// Encode `img` (height x width x channels bytes, channels 1 (grey), 3
+// (BGR) or 4 (CMYK samples, 4:4:4)) as a baseline JPEG at `quality` (0-100, as cv2's
 // IMWRITE_JPEG_QUALITY), with 4:2:0 chroma when `subsample` is nonzero and
 // 4:4:4 otherwise, into `out` (`cap` bytes); `*len` is set to the size.
 int yolov6_jpeg_encode(const uint8_t* img, int width, int height, int channels, int quality,
@@ -495,7 +504,8 @@ int yolov6_jpeg_encode(const uint8_t* img, int width, int height, int channels, 
   try {
     if (width < 1 || height < 1 || width > 65535 || height > 65535)
       fail("a JPEG holds 1 to 65535 pixels a side, not %ldx%ld", width, height);
-    if (channels != 1 && channels != 3) fail("%ld channels; the encoder takes 1 or 3", channels);
+    if (channels != 1 && channels != 3 && channels != 4)
+      fail("%ld channels; the encoder takes 1, 3 or 4", channels);
     Encoder enc(img, width, height, channels);
     std::vector<uint8_t> bytes = enc.run(quality, subsample != 0);
     if (bytes.size() > cap) fail("the output needs %ld bytes, the buffer has %ld",

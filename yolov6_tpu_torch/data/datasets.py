@@ -62,7 +62,9 @@ from yolov6_tpu_torch.data.data_augment import (
     sample_seed,
 )
 from yolov6_tpu_torch.data.image_io import image_format, image_size, imread
-from yolov6_tpu_torch.data.jpeg import encode_jpeg, jpeg_info
+from yolov6_tpu_torch.data.jpeg import (
+    decode_jpeg_cmyk, encode_jpeg, jpeg_info, orient,
+)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -76,10 +78,17 @@ CACHE_VERSION = 3
 def restore_jpeg(im_file: str, img: np.ndarray) -> None:
     """Rewrite the JPEG ``im_file`` whose decode (orientation applied) is
     ``img`` as JAX's ``check_image`` has PIL rewrite it: the Exif
-    orientation applied and dropped, quality 100, 4:4:4, grey kept grey."""
+    orientation applied and dropped, quality 100, 4:4:4, grey kept grey,
+    CMYK kept CMYK (libjpeg's samples, which PIL inverts on the way in and
+    back on the way out)."""
     with open(im_file, "rb") as f:
-        grey = jpeg_info(f.read(), im_file)[3] == 1
-    data = encode_jpeg(img[:, :, 0] if grey else img, quality=100, subsampling="444")
+        src = f.read()
+    _, _, orientation, components = jpeg_info(src, im_file)
+    if components == 4:
+        img = orient(decode_jpeg_cmyk(src, im_file), orientation)
+    elif components == 1:
+        img = img[:, :, 0]
+    data = encode_jpeg(img, quality=100, subsampling="444")
     tmp = f"{im_file}.{os.getpid()}.{threading.get_ident()}.tmp"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -90,19 +99,21 @@ def check_image(im_file: str, full_check: bool = False):
     """``(shape (w, h) or None, message)`` of one image (JAX:
     datasets.py:41-91, with the port's readers in place of PIL): the header
     shape, w and h swapped under Exif orientation 6 or 8. With
-    ``full_check`` the file also decodes whole, each side must exceed 9
-    pixels, the format must be in ``IMG_FORMATS``, and a JPEG that does not
-    end in EOI is restored in place (``restore_jpeg``) with a warning
-    message. On any failure a plain decode decides, as JAX's cv2 fallback
+    ``full_check`` a PNG, JPEG, MPO or BMP also decodes whole (a TIFF or
+    WebP is left to the loader: PIL's ``verify`` reads none of their
+    pixels), each side must exceed 9 pixels, the format must be in
+    ``IMG_FORMATS``, and a JPEG that does not end in EOI is restored in
+    place (``restore_jpeg``) with a warning message. On any failure a plain decode decides, as JAX's cv2 fallback
     does: its shape when it decodes (so a small image is kept, as in JAX),
     else None with the reason."""
     msg = ""
     try:
         shape = image_size(im_file)
         if full_check:
-            img = imread(im_file)
-            assert shape[0] > 9 and shape[1] > 9, f"image size {shape} <10 pixels"
             fmt = image_format(im_file)
+            # PIL's verify reads no TIFF or WebP pixels: those are left to the loader
+            img = imread(im_file) if fmt not in ("tiff", "webp") else None
+            assert shape[0] > 9 and shape[1] > 9, f"image size {shape} <10 pixels"
             assert fmt in IMG_FORMATS, f"invalid image format {fmt}"
             if fmt == "jpeg":
                 with open(im_file, "rb") as f:

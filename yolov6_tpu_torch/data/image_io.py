@@ -11,31 +11,44 @@ images here. ``imread`` dispatches on the leading bytes and returns what
   (Adam7) or not. As OpenCV asks libpng: 16-bit samples keep their high
   byte, 1/2/4-bit grey scales to 8 bits, a palette expands to its colours,
   and alpha and ``tRNS`` are dropped. The CRC of each critical chunk is
-  checked.
+  checked. The Exif orientation of an ``eXIf`` chunk, before or after the
+  image data, is applied.
 - JPEG, decoded by ``data/jpeg.py`` (C++), bit-equal to ``cv2.imread``:
-  sequential and progressive Huffman, 8-bit, grey or colour, the Exif
-  orientation applied, a file that ends early grey past its end.
+  sequential and progressive Huffman, 8-bit, grey, colour or CMYK/YCCK, the
+  Exif orientation applied, a file that ends early grey past its end. An
+  MPO (a JPEG whose MPF segment lists more than one image) gives its first
+  image.
 - BMP, as OpenCV's own reader (grfmt_bmp.cpp) decodes it: uncompressed 1, 4
   and 8-bit palette, 16-bit (5-5-5, and 5-6-5 under ``BI_BITFIELDS``, each
   sample shifted up without rounding), 24 and 32-bit (the fourth byte
-  dropped), bottom-up or top-down.
+  dropped), bottom-up or top-down; RLE8 and RLE4 with encoded and absolute
+  runs and the end-of-line, end-of-bitmap and delta escapes, the pixels an
+  escape skips filled with palette entry 0.
+- TIFF (and DNG, a TIFF) through ``data/tiff.py`` and WebP through
+  ``data/webp.py``, as those modules set out.
 
-Any other format (TIFF, WebP, GIF, ...) and the kinds not decoded (RLE BMP,
-the JPEG kinds ``data/jpeg.py`` names) raise ``ValueError`` naming the file
-and the format. ``imwrite`` writes JPEG (``data/jpeg.py::encode_jpeg``, the
-bytes ``cv2.imwrite`` writes) or PNG by the suffix, as ``cv2.imwrite``
-chooses.
+GIF and any other format, and the kinds not decoded (arithmetic-coded and
+12-bit JPEG, the TIFF kinds ``data/tiff.py`` names, an RLE run past its
+row) raise ``ValueError`` naming the file and the kind. ``imwrite`` writes
+JPEG (``data/jpeg.py::encode_jpeg``, the bytes ``cv2.imwrite`` writes), PNG,
+BMP, TIFF (``data/tiff.py::encode_tiff``, cv2's bytes) or lossless WebP
+(``data/webp.py::encode_webp``) by the suffix, as ``cv2.imwrite`` chooses.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import zlib
 
 import numpy as np
 
-from yolov6_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, jpeg_size
+from yolov6_tpu_torch.data.exif import exif_orientation
+from yolov6_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, jpeg_size, orient
+from yolov6_tpu_torch.data.tiff import SIGNATURES as TIFF_SIGNATURES
+from yolov6_tpu_torch.data.tiff import decode_tiff, encode_tiff, tiff_size
+from yolov6_tpu_torch.data.webp import decode_webp, encode_webp, is_webp, webp_size
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and a marker's FF, as OpenCV's JPEG decoder checks
@@ -48,15 +61,14 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 _CRITICAL = (b"IHDR", b"PLTE", b"IDAT", b"IEND")
 _FORMATS = (  # leading bytes -> name, for the error of a file the port does not read
     (b"GIF8", "GIF"),
-    (b"II*\x00", "TIFF"),
-    (b"MM\x00*", "TIFF"),
-    (b"RIFF", "RIFF/WebP"),
+    (b"RIFF", "RIFF (not WebP)"),
 )
+READS = "PNG, JPEG (MPO), BMP, TIFF (DNG) and WebP"
 
 
 def _unknown(path: str, head: bytes) -> ValueError:
     name = next((n for magic, n in _FORMATS if head.startswith(magic)), "an unknown format")
-    return ValueError(f"{path}: {name} file; the port reads PNG, JPEG and BMP only")
+    return ValueError(f"{path}: {name} file; the port reads {READS}")
 
 
 def _read_ihdr(path: str, data: bytes):
@@ -88,10 +100,9 @@ def _bmp_header(path: str, data: bytes):
         w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
     else:
         raise ValueError(f"{path}: BMP with a {hsize}-byte DIB header is not supported")
-    if comp in (1, 2):
-        raise ValueError(f"{path}: {'RLE8' if comp == 1 else 'RLE4'} BMP; the port reads "
-                         "uncompressed BMP only")
-    if comp not in (0, 3):
+    if comp in (1, 2) and (bpp != 8 if comp == 1 else bpp != 4):
+        raise ValueError(f"{path}: {'RLE8' if comp == 1 else 'RLE4'} BMP at {bpp} bits")
+    if comp not in (0, 1, 2, 3):
         raise ValueError(f"{path}: BMP compression {comp} (JPEG/PNG inside a BMP) is not "
                          "supported")
     if w <= 0 or h == 0:
@@ -99,37 +110,94 @@ def _bmp_header(path: str, data: bytes):
     return w, abs(h), bpp, comp, hsize, h < 0
 
 
+def mpo_images(data: bytes) -> int:
+    """The number of images an APP2 ``MPF`` segment of the JPEG ``data``
+    lists (its MP header's NumberOfImages, tag 45057), 1 without one: PIL
+    names a JPEG with more than one an MPO."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker in (0xD9, 0xDA):
+            break
+        n = struct.unpack_from(">H", data, pos + 2)[0]
+        seg = data[pos + 4:pos + 2 + n]
+        if marker == 0xE2 and seg.startswith(b"MPF\x00") and len(seg) >= 12:
+            t = seg[4:]
+            e = "<" if t[:2] == b"II" else ">"
+            try:
+                off = struct.unpack_from(e + "I", t, 4)[0]
+                for k in range(struct.unpack_from(e + "H", t, off)[0]):
+                    tag, _, _, value = struct.unpack_from(e + "HHII", t, off + 2 + 12 * k)
+                    if tag == 45057:
+                        return value
+            except struct.error:
+                return 1
+            return 1
+        pos += 2 + n
+    return 1
+
+
 def image_format(path: str):
-    """``"jpeg"``, ``"png"`` or ``"bmp"`` from the leading bytes of the file
-    at ``path`` (PIL's ``Image.format``, lower case), else None."""
+    """PIL's ``Image.format`` of the file at ``path``, lower case, from its
+    leading bytes: ``"jpeg"``, ``"mpo"``, ``"png"``, ``"bmp"``, ``"tiff"``
+    (a DNG too) or ``"webp"``, else None."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head.startswith(JPEG_SIGNATURE):
-        return "jpeg"
+        head = f.read(12)
+        if head.startswith(JPEG_SIGNATURE):
+            return "mpo" if mpo_images(head + f.read()) > 1 else "jpeg"
     if head.startswith(PNG_SIGNATURE):
         return "png"
     if head.startswith(BMP_SIGNATURE):
         return "bmp"
+    if head[:4] in TIFF_SIGNATURES:
+        return "tiff"
+    if is_webp(head):
+        return "webp"
     return None
 
 
+def _png_exif(f) -> int:
+    """The orientation of the first ``eXIf`` chunk of the PNG open as ``f``
+    (before or after the image data), 1 without one: the chunks' headers
+    are read and their payloads skipped."""
+    pos = 8
+    while True:
+        f.seek(pos)
+        head = f.read(8)
+        if len(head) < 8:
+            return 1
+        length, kind = struct.unpack(">I4s", head)
+        if kind == b"eXIf":
+            return exif_orientation(f.read(length))
+        if kind == b"IEND":
+            return 1
+        pos += 12 + length
+
+
 def image_size(path: str):
-    """``(w, h)`` of a PNG, JPEG or BMP from its headers, without decoding
-    the pixels. For a JPEG with Exif orientation 6 or 8, w and h are
-    swapped, as ``check_image`` records them; under orientations 5 and 7
-    ``imread`` transposes the image while the recorded shape stays as
-    stored (the JAX package's quirk, kept so that both packages record the
-    same shapes)."""
+    """``(w, h)`` of an image from its headers, as the JAX package's
+    ``check_image`` records it through PIL, without decoding the pixels.
+    For a JPEG, PNG or WebP with Exif orientation 6 or 8, w and h are
+    swapped (PIL's ``_getexif``); under orientations 5 and 7 ``imread``
+    transposes the image while the recorded shape stays as stored (the JAX
+    package's quirk, kept so that both packages record the same shapes). A
+    TIFF has no ``_getexif``: its shape is IFD0's as stored."""
     with open(path, "rb") as f:
         head = f.read(54)
-        if head.startswith(JPEG_SIGNATURE):
-            w, h, orientation = jpeg_size(head + f.read(), path)
-            return (h, w) if orientation in (6, 8) else (w, h)
-    if head.startswith(BMP_SIGNATURE):
-        w, h = _bmp_header(path, head)[:2]
-        return w, h
-    w, h, _, _, _ = _read_ihdr(path, head)
-    return w, h
+        if head.startswith(BMP_SIGNATURE):
+            return _bmp_header(path, head)[:2]
+        if head.startswith(PNG_SIGNATURE):
+            w, h, _, _, _ = _read_ihdr(path, head)
+            return (h, w) if _png_exif(f) in (6, 8) else (w, h)
+        data = head + f.read()
+    if data.startswith(JPEG_SIGNATURE):
+        w, h, orientation = jpeg_size(data, path)
+        return (h, w) if orientation in (6, 8) else (w, h)
+    if data[:4] in TIFF_SIGNATURES:
+        return tiff_size(data, path)
+    if is_webp(data[:12]):
+        return webp_size(data, path)
+    raise _unknown(path, data[:8])
 
 
 def _paeth_or_average_row(line: np.ndarray, prev: np.ndarray, bpp: int, paeth: bool) -> np.ndarray:
@@ -188,6 +256,10 @@ def _unpack_samples(rows: np.ndarray, width: int, depth: int, spp: int) -> np.nd
 
 
 def _decode_png(path: str, data: bytes) -> np.ndarray:
+    return orient(_decode_png_stored(path, data), _png_exif(io.BytesIO(data)))
+
+
+def _decode_png_stored(path: str, data: bytes) -> np.ndarray:
     w, h, depth, ctype, interlace = _read_ihdr(path, data)
     idat, palette, pos = [], None, 8
     while pos + 12 <= len(data):
@@ -243,8 +315,117 @@ def _decode_png(path: str, data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[:, :, 2::-1])  # RGB(A) -> BGR
 
 
+def _bmp_palette(data: bytes, hsize: int, bpp: int) -> np.ndarray:
+    """The BMP's colour table, BGR, padded with black to 256 entries."""
+    entry = 3 if hsize == 12 else 4
+    n_used = 0 if hsize == 12 else struct.unpack_from("<I", data, 46)[0]
+    n = n_used or (1 << bpp)
+    start = 14 + hsize
+    pal = np.frombuffer(data[start:start + n * entry], np.uint8)
+    pal = pal[:len(pal) // entry * entry].reshape(-1, entry)[:, :3]
+    return np.concatenate([pal, np.zeros((256 - len(pal), 3), np.uint8)])
+
+
+def _decode_bmp_rle(path: str, data: bytes, w: int, h: int, bpp: int, top_down: bool,
+                    pal: np.ndarray) -> np.ndarray:
+    """RLE8 (``bpp`` 8) or RLE4 (4) as OpenCV's grfmt_bmp.cpp decodes it: an
+    encoded run repeats an index (RLE4 alternates its two nibbles); an
+    absolute run copies indices, padded to a 16-bit word; end-of-line and
+    end-of-bitmap fill the rest of the row or image, and a delta the pixels
+    it steps over (RLE8: dy rows and dx on; RLE4: dx on, as OpenCV 5
+    decodes it), with palette entry 0. An RLE8 run
+    wraps at the row's end, where the end-of-line that follows is then
+    skipped; an RLE4 run does not wrap. A run or absolute run past its row,
+    or data that ends before end-of-bitmap, is refused (cv2 returns None,
+    and the JAX package's PIL branch raises on a palette image)."""
+    kind = "RLE8" if bpp == 8 else "RLE4"
+    src = data[struct.unpack_from("<I", data, 10)[0]:]
+    idx = np.zeros(w * h, np.uint8)
+    pos = 0  # the next pixel, rows in file order (bottom-up unless top_down)
+    y, line_end = 0, w
+    line_end_flag = 0
+    i = 0
+
+    def word():
+        nonlocal i
+        if i + 2 > len(src):
+            raise ValueError(f"{path}: {kind} BMP data ends before its end-of-bitmap")
+        i += 2
+        return src[i - 2], src[i - 1]
+
+    def fill(count, value):  # OpenCV's FillUniColor: wraps rows, stops at the last
+        nonlocal pos, y, line_end
+        while True:
+            end = min(pos + count, line_end)
+            count -= end - pos
+            idx[pos:end] = value
+            pos = end
+            if pos >= line_end:
+                line_end += w
+                pos = line_end - w
+                y += 1
+                if y >= h:
+                    break
+            if count <= 0:
+                break
+
+    while True:
+        n, code = word()
+        if n:  # encoded run
+            if bpp == 8:
+                if pos + n > line_end:
+                    raise ValueError(f"{path}: {kind} BMP run past the end of its row")
+                prev = y
+                fill(n, code)
+                line_end_flag = y - prev
+                if y >= h:
+                    break
+            else:
+                if pos + n > line_end:
+                    raise ValueError(f"{path}: {kind} BMP run past the end of its row")
+                idx[pos:pos + n] = np.resize([code >> 4, code & 15], n)
+                pos += n
+        elif code > 2:  # absolute run
+            if pos + code > line_end:
+                raise ValueError(f"{path}: {kind} BMP absolute run past the end of its row")
+            nbytes = ((code + 1) & ~1) if bpp == 8 else ((((code + 1) >> 1) + 1) & ~1)
+            if i + nbytes > len(src):
+                raise ValueError(f"{path}: {kind} BMP data ends before its end-of-bitmap")
+            raw = np.frombuffer(src, np.uint8, nbytes, i)
+            i += nbytes
+            if bpp == 4:
+                raw = np.stack([raw >> 4, raw & 15], axis=1).reshape(-1)
+            idx[pos:pos + code] = raw[:code]
+            pos += code
+            line_end_flag = 0
+        else:  # escapes: 0 end of line, 1 end of bitmap, 2 delta
+            x_shift = line_end - pos
+            y_shift = h - y
+            if bpp == 8 and not (code or not line_end_flag or x_shift < w):
+                line_end_flag = 0
+                continue
+            if code == 2:
+                dx, dy = word()
+                # OpenCV 5 steps an RLE8 delta over dy rows and dx pixels,
+                # an RLE4 delta over its dx pixels only
+                x_shift, y_shift = dx, (dy if bpp == 8 else 0)
+            count = x_shift + (y_shift * w if code else 0)
+            if y >= h:
+                break
+            fill(count, 0)
+            line_end_flag = 0
+            if y >= h:
+                break
+    rows = idx.reshape(h, w)
+    if not top_down:
+        rows = rows[::-1]
+    return np.ascontiguousarray(pal[rows])
+
+
 def _decode_bmp(path: str, data: bytes) -> np.ndarray:
     w, h, bpp, comp, hsize, top_down = _bmp_header(path, data)
+    if comp in (1, 2):
+        return _decode_bmp_rle(path, data, w, h, bpp, top_down, _bmp_palette(data, hsize, bpp))
     offset = struct.unpack_from("<I", data, 10)[0]
     stride = (w * bpp + 31) // 32 * 4
     if len(data) < offset + stride * h:
@@ -253,13 +434,7 @@ def _decode_bmp(path: str, data: bytes) -> np.ndarray:
     if not top_down:
         rows = rows[::-1]
     if bpp in (1, 4, 8):
-        entry = 3 if hsize == 12 else 4
-        n_used = 0 if hsize == 12 else struct.unpack_from("<I", data, 46)[0]
-        n = n_used or (1 << bpp)
-        start = 14 + hsize
-        pal = np.frombuffer(data[start:start + n * entry], np.uint8)
-        pal = pal[:len(pal) // entry * entry].reshape(-1, entry)[:, :3]
-        pal = np.concatenate([pal, np.zeros((256 - len(pal), 3), np.uint8)])
+        pal = _bmp_palette(data, hsize, bpp)
         idx = _unpack_samples(np.ascontiguousarray(rows), w, bpp, 1)[:, :, 0]
         return np.ascontiguousarray(pal[idx])
     if bpp == 16:
@@ -283,16 +458,22 @@ def _decode_bmp(path: str, data: bytes) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """The image at ``path`` as ``cv2.imread(path)`` returns it: HWC uint8, 3
-    channels, BGR. Grey is replicated and alpha dropped; a JPEG's Exif
-    orientation is applied. Raises ``ValueError`` on any other format and on
-    the kinds not decoded (see the module doc)."""
+    """The image at ``path`` as the JAX package's loaders read it:
+    ``cv2.imread(path)``'s HWC uint8, 3 channels, BGR, or where cv2 gives
+    None for a TIFF their PIL branch's pixels (``data/tiff.py``). Grey is
+    replicated and alpha dropped; the Exif orientation of a JPEG, PNG or
+    WebP is applied. Raises ``ValueError`` on any other format and on the
+    kinds not decoded (see the module doc)."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(JPEG_SIGNATURE):
         return decode_jpeg(data, path)
     if data.startswith(BMP_SIGNATURE):
         return _decode_bmp(path, data)
+    if data[:4] in TIFF_SIGNATURES:
+        return decode_tiff(data, path)
+    if is_webp(data[:12]):
+        return decode_webp(data, path)
     return _decode_png(path, data)
 
 
@@ -347,11 +528,15 @@ def encode_bmp(img: np.ndarray) -> bytes:
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
-    """Write ``img`` (HWC BGR uint8; HW grey for JPEG and PNG) to ``path`` in
-    the format its suffix names, as ``cv2.imwrite`` chooses:
+    """Write ``img`` (HWC BGR uint8; HW grey for JPEG, PNG, TIFF and WebP)
+    to ``path`` in the format its suffix names, as ``cv2.imwrite`` chooses:
     ``.jpg``/``.jpeg`` as JPEG at cv2's defaults (quality 95, 4:2:0; the
     bytes cv2 writes), ``.png`` as PNG (``encode_png``), ``.bmp`` as 24-bit
-    BMP. Any other suffix raises ``ValueError``."""
+    BMP, ``.tif``/``.tiff`` as cv2's TIFF (``encode_tiff``: its bytes),
+    ``.webp`` as lossless WebP (``encode_webp``: its pixels, not libwebp's
+    bytes). Any other suffix raises ``ValueError``, as ``cv2.imwrite``
+    fails with "could not find a writer" (``.dng`` and ``.mpo`` among them:
+    cv2 reads those and writes neither)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".jpg", ".jpeg"):
         data = encode_jpeg(img)
@@ -359,7 +544,12 @@ def imwrite(path: str, img: np.ndarray) -> None:
         data = encode_png(img)
     elif ext == ".bmp":
         data = encode_bmp(img)
+    elif ext in (".tif", ".tiff"):
+        data = encode_tiff(img)
+    elif ext == ".webp":
+        data = encode_webp(img)
     else:
-        raise ValueError(f"{path}: the port writes .jpg, .jpeg, .png and .bmp only")
+        raise ValueError(f"{path}: could not find a writer for {ext or 'a file without a suffix'}"
+                         "; the port writes .jpg, .jpeg, .png, .bmp, .tif, .tiff and .webp")
     with open(path, "wb") as f:
         f.write(data)

@@ -8,13 +8,14 @@ the name carries a hash of the source and the flags) and loaded with ctypes;
 a failed build raises, and nothing falls back to another codec. A ctypes
 call releases the GIL, so loader threads decode in parallel.
 
-The decoder takes sequential and progressive Huffman JPEG, 8-bit, grey or
-three components (YCbCr, or RGB as libjpeg guesses it), through
+The decoder takes sequential and progressive Huffman JPEG, 8-bit, grey,
+three components (YCbCr, or RGB as libjpeg guesses it) or four (CMYK, or
+YCCK under Adobe transform 2, turned into BGR as OpenCV turns CMYK), through
 libjpeg-turbo's default pipeline (accurate integer IDCT, fancy upsampling),
 and applies the Exif orientation as ``cv2.imread`` does. A file that ends
 early decodes as cv2 decodes it (the blocks past the end grey), with a
-warning logged. Lossless, hierarchical, arithmetic-coded, 12-bit and
-4-component (CMYK/YCCK) files, corrupt ones, a file that ends before its
+warning logged. Lossless, hierarchical, arithmetic-coded and 12-bit
+files, corrupt ones, a file that ends before its
 first scan, and a truncated progressive file that libjpeg would smooth
 raise ``ValueError`` naming the file and the kind.
 
@@ -63,10 +64,14 @@ def load() -> ctypes.CDLL:
             lib.yolov6_jpeg_info.restype = ctypes.c_int
             lib.yolov6_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, c_int_p, c_int_p,
                                              c_int_p, c_int_p, ctypes.c_char_p, ctypes.c_int]
-            lib.yolov6_jpeg_decode.restype = ctypes.c_int
-            lib.yolov6_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
-                                               ctypes.c_int, ctypes.c_int, c_int_p,
-                                               ctypes.c_char_p, ctypes.c_int]
+            lib.yolov6_jpeg_decode_as.restype = ctypes.c_int
+            lib.yolov6_jpeg_decode_as.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, c_int_p, ctypes.c_char_p, ctypes.c_int]
+            lib.yolov6_jpeg_decode_cmyk.restype = ctypes.c_int
+            lib.yolov6_jpeg_decode_cmyk.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                c_int_p, ctypes.c_char_p, ctypes.c_int]
             _lib = lib
         return _lib
 
@@ -106,21 +111,51 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def decode_jpeg(data: bytes, path="<bytes>") -> np.ndarray:
-    """The JPEG ``data`` as ``cv2.imread`` returns it: HxWx3 uint8 BGR,
-    C-contiguous, the Exif orientation applied. Raises ``ValueError`` naming
-    ``path`` for a file it does not decode."""
+def _decode(data: bytes, path, force_color: int) -> Tuple[np.ndarray, int]:
     w, h, orientation = jpeg_size(data, path)
     out = np.empty((h, w, 3), np.uint8)
     truncated = ctypes.c_int()
     err = ctypes.create_string_buffer(_ERRLEN)
-    if load().yolov6_jpeg_decode(data, len(data), out.ctypes.data, w, h,
-                                 ctypes.byref(truncated), err, _ERRLEN):
+    if load().yolov6_jpeg_decode_as(data, len(data), out.ctypes.data, w, h, force_color,
+                                    ctypes.byref(truncated), err, _ERRLEN):
         raise _error(path, err)
     if truncated.value:
         LOGGER.warning(f"{path}: premature end of JPEG file; the missing blocks are grey "
                        "(128), as cv2.imread returns them")
+    return out, orientation
+
+
+def decode_jpeg(data: bytes, path="<bytes>") -> np.ndarray:
+    """The JPEG ``data`` as ``cv2.imread`` returns it: HxWx3 uint8 BGR,
+    C-contiguous, the Exif orientation applied. Raises ``ValueError`` naming
+    ``path`` for a file it does not decode."""
+    out, orientation = _decode(data, path, -1)
     return orient(out, orientation)
+
+
+COLOR_MODES = {"none": 0, "ycbcr": 1}
+
+
+def decode_jpeg_as(data: bytes, path="<bytes>", color: str = "ycbcr") -> np.ndarray:
+    """The JPEG stream ``data`` decoded as libtiff decodes a strip of a
+    JPEG-compressed TIFF: HxWx3 uint8 BGR, no Exif orientation, the colour
+    space set by the TIFF, not guessed: ``"ycbcr"`` (YCbCr, or YCCK) or
+    ``"none"`` (the components as stored: RGB, CMYK)."""
+    return _decode(data, path, COLOR_MODES[color])[0]
+
+
+def decode_jpeg_cmyk(data: bytes, path="<bytes>") -> np.ndarray:
+    """A 4-component JPEG as libjpeg's CMYK output gives it (YCCK
+    converted): HxWx4 uint8, C-contiguous, no orientation."""
+    w, h, _ = jpeg_size(data, path)
+    out = np.empty((h, w, 4), np.uint8)
+    truncated = ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if load().yolov6_jpeg_decode_cmyk(data, len(data), out.ctypes.data, w, h,
+                                      ctypes.byref(truncated), err, _ERRLEN):
+        raise _error(path, err)
+    return out
+
 
 
 def load_encoder() -> ctypes.CDLL:
@@ -144,14 +179,16 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420") ->
     """``img`` (HW or HWx1 grey, or HWx3 BGR, uint8, as ``cv2.imencode``
     takes it) as a baseline JPEG: libjpeg-turbo's default compression at
     ``quality`` (0-100) with ``subsampling`` ``"420"`` or ``"444"`` chroma.
-    The defaults give the bytes of ``cv2.imencode('.jpg', img)``."""
+    The defaults give the bytes of ``cv2.imencode('.jpg', img)``. HWx4 is
+    CMYK samples, written 4:4:4 with an Adobe marker as libjpeg writes
+    PIL's CMYK JPEG."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"encode_jpeg needs uint8, got {img.dtype}")
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
-    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"encode_jpeg needs HW grey or HWx3 BGR, got {img.shape}")
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"encode_jpeg needs HW grey, HWx3 BGR or HWx4 CMYK, got {img.shape}")
     if subsampling not in SUBSAMPLINGS:
         raise ValueError(f"subsampling={subsampling!r}: one of {sorted(SUBSAMPLINGS)}")
     img = np.ascontiguousarray(img)
@@ -160,7 +197,8 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "420") ->
     out = np.empty(lib.yolov6_jpeg_encode_bound(w, h), np.uint8)
     n = ctypes.c_size_t()
     err = ctypes.create_string_buffer(_ERRLEN)
-    if lib.yolov6_jpeg_encode(img.ctypes.data, w, h, 1 if img.ndim == 2 else 3, int(quality),
+    if lib.yolov6_jpeg_encode(img.ctypes.data, w, h, 1 if img.ndim == 2 else img.shape[2],
+                              int(quality),
                               SUBSAMPLINGS[subsampling], out.ctypes.data, out.size,
                               ctypes.byref(n), err, _ERRLEN):
         raise ValueError(f"encode_jpeg: {err.value.decode(errors='replace')}")
