@@ -93,7 +93,9 @@ Phases, each of which asserts:
      the tile walk in every image of its evals, and the first batch with a
      candidate of its in-training eval, of its checkpoint evals and of its
      exact-NMS pass each kept as the plain emit-once keep keeps it; it logs
-     the trajectory, the exact-NMS delta and the wall time;
+     the trajectory, the exact-NMS delta and the wall time. It runs in a
+     child process started when group 11 starts, beside phases 11-31, and
+     is joined before phase 23, which reads its checkpoint;
  14. the fuse-AB (anchor-aided) training step: YOLOv6-S with the fuse-AB head,
      ``ComputeLossAB`` beside the anchor-free loss, on phase 6's cell; timed
      as phase 6 with the loss split into its anchor-free and anchor-based
@@ -109,9 +111,10 @@ Phases, each of which asserts:
  16. the M KD step: YOLOv6-M with a fuse-AB M teacher, ``ComputeLossDistill``
      with DFL and the channel-wise KD, 5 timed steps;
  17. the distill learning gate (``tools/learning_gate.py --distill`` at its
-     defaults but ``--teacher-epochs 10``, in a child process that runs beside
-     phase 13 and is joined before phase 14, so that the two gates share the
-     card and the host and no timed step does: the fuse-AB N teacher 10 epochs,
+     defaults but ``--teacher-epochs 10``, in a child process started with
+     phase 13's when group 11 starts and joined at the end, so that the two
+     gates share the card and the host with each other and with the main
+     process's phases, whose lines say so: the fuse-AB N teacher 10 epochs,
      then the distill-NS N student 30, 160 px, fp32): the student's final
      mAP50 > 0.75 and a gain > 0.20, the tile
      walk in every image of its evals, and the first keep with a candidate of
@@ -269,7 +272,21 @@ Phases, each of which asserts:
      candidate equal to the plain keep; [36c] the infer CLI with [35c]'s N
      file over a TIFF and a lossy WebP source (and their PNG twins) writes
      cv2's TIFF bytes and a lossless WebP of the drawn pixels, every keep
-     equal to the plain keep.
+     equal to the plain keep;
+ 37. video: [37a] the MPEG-4 Part 2 and Motion JPEG files of
+     tests/data/torch_videos/ (MP4, MOV, AVI, MKV) decode to their
+     manifest's frames (sha256), count, fps and size, the port's writer
+     makes a 1280x720 clip of [11]'s 64 images at 30 fps, and its encode and
+     decode (and a Motion JPEG frame's) are timed a frame; [37b] the infer
+     CLI with [13]'s gate N over that clip: one keep launch a frame, 64 in
+     all, the first with a candidate and every eighth equal to the plain
+     keep, the written .mp4 read back at 64 frames, 30 fps, 1280x720, the
+     label rows, the loop's imgs/s and its steps a frame; [37c] the ONNX
+     demo's video loop with [33c]'s file over the clip's first 16 frames,
+     its printed frame and detection counts.
+Phases run in the order of their numbers but for [23], which runs after
+[31], once [13]'s gate (a child process from the start of group [11]) is
+joined.
 Then it prints one JSON line of kernels, the nvidia-smi line of the card and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero on any failure,
 when there is no CUDA device, and when the ``yolov6_tpu_torch`` package is
@@ -286,6 +303,7 @@ prior-probability init are as built.
 
 from __future__ import annotations
 
+import contextlib
 import json
 from functools import partial
 import math
@@ -380,7 +398,23 @@ DEMO_JPEGS = {
 }
 
 
+# the gate phases that run in child processes beside the main process's
+# phases: (tag, process) while started and not yet joined
+CHILDREN = []
+# the children's tags that ran at some time during the current phase group
+SHARED_WITH = set()
+
+
 def log(msg: str) -> None:
+    """Print a phase line. While a gate child runs (or ran during this phase
+    group), a line of another phase says so: whatever it timed shared the
+    card and the host with that child."""
+    SHARED_WITH.update(tag for tag, proc in CHILDREN if proc.poll() is None)
+    tag = msg.split(" ", 1)[0]
+    others = sorted(t for t in SHARED_WITH if not tag.startswith(t))
+    if msg.startswith("[") and others:
+        msg += f" {{beside the child{'ren' if len(others) > 1 else ''} of " \
+               f"{' and '.join(others)}, sharing the card and the host}}"
     print(msg, flush=True)
 
 
@@ -389,6 +423,7 @@ PHASE_MARKS = []  # (phase tag, host clock) at the start of each phase group
 
 def phase_mark(tag: str) -> None:
     PHASE_MARKS.append((tag, time.perf_counter()))
+    SHARED_WITH.clear()
     if len(PHASE_MARKS) > 1:
         log(f"phase group {tag} starts {PHASE_MARKS[-1][1] - PHASE_MARKS[0][1]:.1f} s after [1]")
 
@@ -1822,7 +1857,8 @@ def learning_gate_phase(root: str, card: str) -> dict:
         f"mAP50, mAP50-95) {traj}; gain {result['gain']:.4f}; exact NMS mAP50 "
         f"{result['exact_nms']['map50']:.4f}, mAP50-95 {result['exact_nms']['map50_95']:.4f}, "
         f"delta mAP50-95 {result['nms_delta_map50_95']:+.4f}; training {result['train_s']:.1f} s, "
-        f"gate {wall:.1f} s (beside [17]'s child, sharing the card and the host); "
+        f"gate {wall:.1f} s (in a child process beside [17]'s and the main process's phases "
+        f"[11]-[31], sharing the card and the host); "
         f"{walk['launches']} kernel launches in its evals, the tile walk in "
         f"every image ({walk['tiles_visited']:.2f} tiles/image), the first batch's keep with a "
         f"candidate equal to the plain emit-once keep in each pass ({firsts}) [{card}]")
@@ -1888,7 +1924,8 @@ def distill_gate_phase(root: str, card: str) -> dict:
         f"mAP50, mAP50-95) {traj} with the original config; gain {result['gain']:.4f}; exact "
         f"NMS mAP50 {result['exact_nms']['map50']:.4f}, delta mAP50-95 "
         f"{result['nms_delta_map50_95']:+.4f}; student training {result['train_s']:.1f} s, gate "
-        f"{wall:.1f} s (beside [13], sharing the card and the host); kernel launches: "
+        f"{wall:.1f} s (in a child process beside [13]'s and the main process's phases, sharing "
+        f"the card and the host); kernel launches: "
         f"{counts['teacher']} in the teacher's eval, "
         f"{counts['student']} in the student's evals, the tile walk in every image "
         f"({walk['tiles_visited']:.2f} tiles/image), the first keep with a candidate equal to "
@@ -1903,47 +1940,75 @@ def distill_gate_phase(root: str, card: str) -> dict:
                                           "nms_delta_map50_95", "train_s")})
 
 
-def start_distill_gate(root: str):
-    """Phase 17 runs in a child process (``chip_smoke.py --distill-gate <root>
-    <result.json>``), started before [13] and joined after it, before the
-    timed steps of [14]-[16]: both gates are host-bound (the card idles most
-    of each step), so the distill gate's five minutes overlap the plain
-    gate's three instead of adding to the script's wall time. Only the two
-    gates' wall times share the card and the host. Returns ``(process,
-    result path, log path)``."""
-    out = os.path.join(root, "distill_gate_child.json")
-    log_path = os.path.join(root, "distill_gate_child.log")
+def start_child(tag: str, flag: str, root: str):
+    """Start a gate phase in a child process (``chip_smoke.py <flag> <root>
+    <result.json>``). The learning gate [13] and the distill gate [17] start
+    when group [11] starts and are joined where their results are needed:
+    both gates are host-bound (the card idles most of each step) and write
+    their own data under ``root``, so their minutes overlap [11]-[31] (and
+    [17]'s the later groups) instead of adding to the script's wall time;
+    every line of the main process logged while one runs says so. Returns ``(tag, process, result
+    path, log path)``."""
+    name = flag.strip("-").replace("-", "_")
+    out = os.path.join(root, f"{name}_child.json")
+    log_path = os.path.join(root, f"{name}_child.log")
     with open(log_path, "w") as f:
-        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--distill-gate",
-                                 root, out], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
-    return proc, out, log_path
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, root, out],
+                                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    CHILDREN.append((tag, proc))
+    return tag, proc, out, log_path
 
 
-def join_distill_gate(child) -> dict:
-    """Wait for [17]'s child, replay its phase lines, and return its result
-    (it asserts the gate's bar and its keeps itself)."""
-    proc, out, log_path = child
+def kill_children() -> None:
+    for _, proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@contextlib.contextmanager
+def killing_children():
+    """Kill the gates' children if the main process leaves early."""
+    try:
+        yield
+    finally:
+        kill_children()
+
+
+def join_child(child) -> dict:
+    """Wait for a gate's child, replay its phase lines, and return its
+    result (it asserts the gate's bar and its keeps itself)."""
+    tag, proc, out, log_path = child
+    t0 = time.perf_counter()
     try:
         rc = proc.wait(timeout=1200)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    SHARED_WITH.add(tag)
+    CHILDREN.remove((tag, proc))
     with open(log_path) as f:
         lines = f.read().splitlines()
     for line in lines:
-        if line.startswith("[17]"):
-            log(line)
-    assert rc == 0, "[17] the distill gate's child failed:\n" + "\n".join(lines[-60:])
+        if line.startswith(tag):
+            print(line, flush=True)
+    assert rc == 0, f"{tag} the gate's child failed:\n" + "\n".join(lines[-60:])
+    log(f"{tag} joined its child after {time.perf_counter() - t0:.1f} s of waiting")
     with open(out) as f:
         return json.load(f)
 
 
-def distill_gate_child(argv) -> int:
-    """The child of phase 17 (``chip_smoke.py --distill-gate <root> <json>``):
-    the distill gate with its kernel checks, its result written as JSON."""
+def gate_child(argv, phase) -> int:
+    """A gate's child (``chip_smoke.py --learning-gate|--distill-gate <root>
+    <json>``): the gate with its kernel checks, its result written as JSON.
+    Every launch of the keep in this process is one of the gate's evals."""
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
+
     root, out = argv
-    result = distill_gate_phase(root, nvidia_smi_line())
+    greedy_nms.launches = 0
+    result = phase(root, nvidia_smi_line())
+    result["counted_launches"] = greedy_nms.launches  # main holds it against "launches"
     with open(out, "w") as f:
         json.dump(result, f)
     return 0
@@ -3571,8 +3636,9 @@ def artifact_eval_phase(model, train_data: str, root: str, dev, card: str) -> di
                 max_abs_err=float((idx - idx_p).abs().max()))
 
 
-def onnx_phase(model, images, ptq, dev, card: str) -> dict:
-    """Phase 33c: S's fp32 ONNX file (dynamic batch) through ``OnnxTorchModule``
+def onnx_phase(model, images, ptq, onnx_path: str, dev, card: str) -> dict:
+    """Phase 33c: S's fp32 ONNX file (dynamic batch; written to ``onnx_path``
+    for [37c]) through ``OnnxTorchModule``
     on the card at b32 against the live fp32 forward plus decode (TF32 off),
     within ONNX_TOL; the same file once through the numpy runner at B=1;
     then [32]'s PTQ S (``ptq``: its deploy model with fake-quantised weights
@@ -3596,6 +3662,8 @@ def onnx_phase(model, images, ptq, dev, card: str) -> dict:
     make_dynamic_batch(m, SENTINEL)
     data = encode_parsed(m)
     export_s = time.perf_counter() - t0
+    with open(onnx_path, "wb") as f:
+        f.write(data)
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
@@ -4646,6 +4714,282 @@ def format_infer_phase(root: str, weights: str, card: str) -> dict:
     return dict(launches=len(launches), max_abs_err=err, wall_s=wall)
 
 
+# [37]: the video clip the infer CLI and the ONNX demo run over: [11]'s 64
+# val images, each centred on a grey 1280x720 frame, written at 30 fps by the
+# port's writer (MPEG-4 Part 2 in MP4, every frame an I-VOP)
+VIDEO_CLIP = dict(width=1280, height=720, fps=30, frames=64)
+VIDEO_FIXTURES = "tests/data/torch_videos"
+# [37b]: the learning gate's N through the infer CLI at 640 (a 1280x720 frame
+# letterboxed to 640x360 inside 640x640), conf as [23]'s gate run; every
+# eighth frame's keep (and the first with a candidate) held against the plain
+# keep; [37c]: the ONNX demo's loop over the clip's first 16 frames (S with
+# seeded weights keeps its 300 a frame, which the host draws at about 1 ms a
+# box)
+VIDEO_INFER = dict(img_size=640, conf_thres=0.25, check_every=8)
+VIDEO_ONNX_FRAMES = 16
+
+
+def video_codec_phase(data: dict, root: str, card: str) -> tuple:
+    """Phase 37a: each video of tests/data/torch_videos/ decodes (the port's
+    demuxers, MPEG-4 Part 2 decoder and Motion JPEG path, built by this
+    machine's g++) to its manifest's frames (sha256), count, fps and size;
+    then the port's writer makes the 1280x720 clip of [11]'s images, timed a
+    frame, and its decode and a Motion JPEG frame's are timed a frame.
+    Returns the phase's numbers and the clip's path."""
+    import glob
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    from yolov6_tpu_torch.data import jpeg, video
+    from yolov6_tpu_torch.data.image_io import imread
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, VIDEO_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in manifest.items():
+        cap = video.VideoCapture(os.path.join(ROOT, VIDEO_FIXTURES, name))
+        digest, n = hashlib.sha256(), 0
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            digest.update(frame.tobytes())
+            n += 1
+        got = (n, digest.hexdigest(), cap.track.codec, cap.get(video.CAP_PROP_FRAME_COUNT),
+               cap.get(video.CAP_PROP_FPS), cap.get(video.CAP_PROP_FRAME_WIDTH),
+               cap.get(video.CAP_PROP_FRAME_HEIGHT))
+        cap.release()
+        assert got == (want["frames"], want["sha256"], want["codec"], want["frame_count"],
+                       want["fps"], want["width"], want["height"]), f"[37a] {name}: {got}"
+    fixtures_s = time.perf_counter() - t0
+
+    w, h, fps, n = (VIDEO_CLIP[k] for k in ("width", "height", "fps", "frames"))
+    images = sorted(glob.glob(os.path.join(data["val"], "*.png")))[:n]
+    assert len(images) == n
+    clip = os.path.join(root, "video", "clip.mp4")
+    os.makedirs(os.path.dirname(clip), exist_ok=True)
+    writer = video.VideoWriter(clip, fps, (w, h))
+    frames, encode_ms = [], []
+    for path in images:
+        img = imread(path)
+        frame = np.full((h, w, 3), 114, np.uint8)
+        y0, x0 = (h - img.shape[0]) // 2, (w - img.shape[1]) // 2
+        frame[y0:y0 + img.shape[0], x0:x0 + img.shape[1]] = img
+        t1 = time.perf_counter()
+        writer.write(frame)
+        encode_ms.append((time.perf_counter() - t1) * 1e3)
+        frames.append(frame)
+    writer.release()
+    cap = video.VideoCapture(clip)
+    decode_ms, psnr = [], []
+    while True:
+        t1 = time.perf_counter()
+        ok, frame = cap.read()
+        if not ok:
+            break
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        err = np.mean((frame.astype(np.float64) - frames[len(psnr)]) ** 2)
+        psnr.append(10 * np.log10(255.0 ** 2 / err) if err else float("inf"))
+    got = (len(decode_ms), cap.get(video.CAP_PROP_FPS), cap.get(video.CAP_PROP_FRAME_WIDTH),
+           cap.get(video.CAP_PROP_FRAME_HEIGHT))
+    cap.release()
+    assert got == (n, fps, w, h), f"[37a] the clip read back as {got}"
+    assert min(psnr) > 30, f"[37a] the clip's frames read back at PSNR {min(psnr):.2f} dB"
+    # a Motion JPEG frame of the clip's size: the JPEG the encoder writes as
+    # cv2.imencode does, then the MJPEG path of VideoCapture.read
+    data_jpeg = jpeg.encode_jpeg(frames[0], quality=90)
+    mjpeg_ms = []
+    for _ in range(9):
+        t1 = time.perf_counter()
+        video.yuv_to_bgr(*jpeg.decode_jpeg_planes(data_jpeg), full_range=True)
+        mjpeg_ms.append((time.perf_counter() - t1) * 1e3)
+    out = dict(fixtures=len(manifest), fixtures_s=fixtures_s,
+               clip_bytes=os.path.getsize(clip), clip_min_psnr=min(psnr),
+               encode_ms=statistics.median(encode_ms), decode_ms=statistics.median(decode_ms),
+               mjpeg_decode_ms=statistics.median(mjpeg_ms))
+    log(f"[37a] {len(manifest)} videos of {VIDEO_FIXTURES} (mp4v in MP4, MOV, AVI and MKV; MJPEG "
+        f"in AVI and MKV) decode to the manifest's frames (sha256), count, fps and size in "
+        f"{fixtures_s:.2f} s; the port's writer made a {w}x{h} clip of {n} of [11]'s images at "
+        f"{fps} fps ({out['clip_bytes']} bytes, I-VOPs at quantiser "
+        f"{video.WRITER_QUANT}, read back at PSNR >= {min(psnr):.2f} dB); host ms a {w}x{h} "
+        f"frame, median: encode {out['encode_ms']:.2f} (BGR to 4:2:0 and the I-VOP), mp4v "
+        f"decode {out['decode_ms']:.2f} (demux, decode, BGR), MJPEG decode "
+        f"{out['mjpeg_decode_ms']:.2f} (a {len(data_jpeg)}-byte frame: planes and BGR) [{card}]")
+    return out, clip
+
+
+class VideoStepTimer(StepTimer):
+    """Times, while active, the steps of the inferer's per-frame loop over a
+    video (host clock): decode (``VideoCapture.read``), letterbox, device
+    (the infer function, synchronised), draw (``plot_box_and_label`` and the
+    FPS overlay's ``draw_text``), encode (``VideoWriter.write``) and the
+    loop (``Inferer.infer``); the rest of the loop is the rescale and the
+    label rows."""
+
+    STEPS = ("decode", "letterbox", "device", "draw", "encode", "loop")
+
+    def __enter__(self):
+        from yolov6_tpu_torch.data import video
+
+        timed = self._timed
+        mod, cls = self.inferer_mod, self.inferer_mod.Inferer
+        self.saved = [(video.VideoCapture, "read", video.VideoCapture.read),
+                      (video.VideoWriter, "write", video.VideoWriter.write),
+                      (mod, "make_infer_fn", mod.make_infer_fn),
+                      (cls, "process_image", cls.process_image),
+                      (cls, "plot_box_and_label", cls.__dict__["plot_box_and_label"]),
+                      (cls, "draw_text", cls.__dict__["draw_text"]),
+                      (cls, "infer", cls.infer)]
+        make = mod.make_infer_fn
+        video.VideoCapture.read = timed("decode", video.VideoCapture.read)
+        video.VideoWriter.write = timed("encode", video.VideoWriter.write)
+        mod.make_infer_fn = lambda *a, **kw: timed("device", make(*a, **kw), sync=True)
+        cls.process_image = timed("letterbox", cls.process_image)
+        cls.plot_box_and_label = staticmethod(timed("draw", cls.plot_box_and_label))
+        cls.draw_text = staticmethod(timed("draw", cls.draw_text))
+        cls.infer = timed("loop", cls.infer)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+
+def video_infer_phase(root: str, clip: str, card: str) -> dict:
+    """Phase 37b: the infer CLI (``tools/infer.py::run``) over [37a]'s clip
+    with [13]'s gate N: one keep launch a frame (B=1, K 2000), the first keep
+    with a candidate and every eighth frame's equal to the plain keep; the
+    written .mp4, read back by the port, has the clip's frames, fps and
+    size, with a label file beside it; the loop's imgs/s and its steps a
+    frame."""
+    import glob
+
+    from yolov6_tpu_torch.data import video
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.tools import infer as infer_cli
+
+    import torch
+
+    gate_ckpt = glob.glob(os.path.join(root, "gate", "**", "weights", "last_ckpt.pt"),
+                          recursive=True)
+    assert len(gate_ckpt) == 1, f"[37b] the gate's checkpoint: {gate_ckpt}"
+    out = os.path.join(root, "video", "infer")
+    v = VIDEO_INFER
+    args = infer_cli.get_args_parser().parse_args([
+        "--weights", gate_ckpt[0], "--config", os.path.join(ROOT, "configs", "yolov6n.py"),
+        "--source", clip, "--yaml", os.path.join(root, "gate", "dataset", "data.json"),
+        "--img-size", str(v["img_size"]), "--conf-thres", str(v["conf_thres"]), "--save-txt",
+        "--save-dir", out, "--device", "cuda"])
+    greedy_nms.launches = 0
+    with KeepRecorder(record_all=True) as rec, VideoStepTimer() as timer:
+        infer_cli.run(args)
+    launches = greedy_nms.launches
+    n = VIDEO_CLIP["frames"]
+    assert launches == len(rec.all) == n, f"[37b] {launches} keep launches for {n} frames"
+    checked = sorted({i for i in range(0, n, v["check_every"])} | {next(
+        (i for i, f in enumerate(rec.all) if bool((f["scores"] > 0).any())), 0)})
+    err, with_candidate = 0.0, 0
+    for i in checked:
+        f = rec.all[i]
+        assert f["boxes"].shape == (1, INFER_CLI["max_nms"], 4) and f["emit_once"]
+        idx_p, valid_p = greedy_nms_plain(f["boxes"], f["scores"], f["max_det"], f["iou_thres"],
+                                          emit_once=True)
+        assert torch.equal(f["idx"], idx_p) and torch.equal(f["valid"], valid_p), \
+            f"[37b] frame {i}: the kernel's keep differs from the plain keep"
+        with_candidate += bool((f["scores"] > 0).any())
+        err = max(err, float((f["idx"] - idx_p).abs().max()))
+    assert with_candidate, "[37b] no checked keep had a candidate"
+    kept = [int(f["valid"].sum()) for f in rec.all]
+    written = os.path.join(out, "clip.mp4")
+    cap = video.VideoCapture(written)
+    frames = 0
+    while cap.read()[0]:
+        frames += 1
+    got = (frames, cap.get(video.CAP_PROP_FPS), cap.get(video.CAP_PROP_FRAME_WIDTH),
+           cap.get(video.CAP_PROP_FRAME_HEIGHT))
+    cap.release()
+    want = (n, VIDEO_CLIP["fps"], VIDEO_CLIP["width"], VIDEO_CLIP["height"])
+    assert got == want, f"[37b] the written video read back as {got}, not {want}"
+    with open(os.path.join(out, "labels", "clip.txt")) as fh:
+        rows = fh.read().splitlines()
+    assert len(rows) == sum(kept) and all(len(r.split()) == 6 for r in rows)
+    steps = {k: s * 1e3 / n for k, s in timer.s.items()}
+    steps["rest"] = steps["loop"] - sum(steps[k] for k in steps if k != "loop")
+    res = dict(launches=launches, checked=len(checked), checked_with_candidate=with_candidate,
+               max_abs_err=err, kept=sum(kept), rows=len(rows), frames=frames,
+               imgs_per_s=n / timer.s["loop"], steps_ms=steps)
+    log(f"[37b] infer CLI over the {VIDEO_CLIP['width']}x{VIDEO_CLIP['height']} clip ({n} "
+        f"frames at {VIDEO_CLIP['fps']} fps) with [13]'s gate N at {v['img_size']}, conf "
+        f"{v['conf_thres']}: {launches} kernel launches (B=1, K {INFER_CLI['max_nms']} each), "
+        f"{len(checked)} keeps checked ({with_candidate} with a candidate) equal to the plain "
+        f"emit-once keep; {sum(kept)} detections, as many label rows; the written .mp4 reads "
+        f"back as {frames} frames at {got[1]:g} fps, {int(got[2])}x{int(got[3])}; "
+        f"{res['imgs_per_s']:.2f} imgs/s; ms a frame: "
+        + ", ".join(f"{k} {s:.2f}" for k, s in steps.items()) + f" (host clock) [{card}]")
+    return res
+
+
+def video_onnx_phase(root: str, clip: str, onnx_path: str, card: str) -> dict:
+    """Phase 37c: ``tools/onnx_demo.py`` over [37a]'s clip with [33c]'s ONNX
+    file (its first 16 frames): one keep launch a frame, each frame's keep
+    (the demo's multi-label keep at B=1, max_det 300) equal to the plain
+    keep, the frame and detection counts printed, the written .mp4 read back
+    at the clip's fps and size."""
+    import contextlib
+    import io
+
+    import torch
+
+    from yolov6_tpu_torch.data import video
+    from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms, greedy_nms_plain
+    from yolov6_tpu_torch.tools import onnx_demo
+
+    out = os.path.join(root, "video", "onnx_demo.mp4")
+    args = onnx_demo.get_args_parser().parse_args([
+        "--model", onnx_path, "--source", clip, "--save", out, "--max-frames",
+        str(VIDEO_ONNX_FRAMES), "--device", "cuda"])
+    greedy_nms.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with KeepRecorder(record_all=True) as rec, contextlib.redirect_stdout(printed):
+        frames, dets = onnx_demo.main(args)
+    wall = time.perf_counter() - t0
+    launches = greedy_nms.launches
+    last = printed.getvalue().splitlines()[-1]
+    assert last == f"{frames} frames, {dets} detections" and frames == VIDEO_ONNX_FRAMES, last
+    assert launches == len(rec.all) == frames, f"[37c] {launches} keep launches for {frames} frames"
+    # every frame's keep against the plain keep: the printed count alone would
+    # not show a wrong keep, since each frame may fill max_det
+    err, with_candidate = 0.0, 0
+    for i, f in enumerate(rec.all):
+        assert f["boxes"].shape[0] == 1, f"[37c] frame {i}: keep of {f['boxes'].shape[0]} images"
+        idx_p, valid_p = greedy_nms_plain(f["boxes"], f["scores"], f["max_det"], f["iou_thres"],
+                                          emit_once=f["emit_once"])
+        assert torch.equal(f["idx"], idx_p) and torch.equal(f["valid"], valid_p), \
+            f"[37c] frame {i}: the kernel's keep differs from the plain keep"
+        with_candidate += bool((f["scores"] > 0).any())
+        err = max(err, float((f["idx"] - idx_p).abs().max()))
+    assert with_candidate, "[37c] no keep had a candidate"
+    kept = sum(int(f["valid"].sum()) for f in rec.all)
+    assert kept == dets, f"[37c] {kept} boxes kept, {dets} detections printed"
+    cap = video.VideoCapture(out)
+    got = (cap.get(video.CAP_PROP_FRAME_COUNT), cap.get(video.CAP_PROP_FPS),
+           cap.get(video.CAP_PROP_FRAME_WIDTH), cap.get(video.CAP_PROP_FRAME_HEIGHT))
+    cap.release()
+    assert got == (frames, VIDEO_CLIP["fps"], VIDEO_CLIP["width"], VIDEO_CLIP["height"]), got
+    log(f"[37c] ONNX demo (tools/onnx_demo.py, [33c]'s S file through OnnxTorchModule) over the "
+        f"clip's first {frames} frames: printed '{last}'; {launches} kernel launches (B=1, K "
+        f"{sorted({f['boxes'].shape[1] for f in rec.all})}, max_det {rec.all[0]['max_det']}), "
+        f"each equal to the plain keep ({with_candidate} with a candidate, {kept} kept); the "
+        f"written .mp4 reads back at {got[1]:g} fps, {int(got[2])}x{int(got[3])}; "
+        f"{frames / wall:.2f} imgs/s with the draw, the writer and the checks' recording "
+        f"(host clock) [{card}]")
+    return dict(launches=launches, frames=frames, detections=dets, wall_s=wall,
+                checked=len(rec.all), checked_with_candidate=with_candidate, max_abs_err=err)
+
+
 def main() -> int:
     try:
         import torch
@@ -4784,7 +5128,14 @@ def main() -> int:
     phase_mark("[11]")
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root, killing_children():
+        # phases 13 and 17, the two gates, in children: [13] runs beside
+        # [11]-[31] and is joined before [23]; [17] runs on until it is joined
+        # after [37]. Every phase timed meanwhile (the evals, the recipes'
+        # steps [14]-[16], the P6 ... RepOpt phases) shares the card and the
+        # host with them, and its line says so; none has the card alone
+        gate_child_ = start_child("[13]", "--learning-gate", root)
+        distill_child = start_child("[17]", "--distill-gate", root)
         data = write_eval_set(root, card)
         perfect_mock_phase(data, dev, card)
         model = deploy_model(cfgs["s"], 0, dev)
@@ -4802,18 +5153,8 @@ def main() -> int:
         train_cli = train_cli_phase(train_data, root, dev, card)
         train_cli_launches = greedy_nms.launches
         vis = vis_dataset_phase(train_data, root, card)
-        distill_child = start_distill_gate(root)  # phase 17, beside [13] alone
-        try:
-            greedy_nms.launches = 0
-            gate = learning_gate_phase(root, card)
-            gate_launches = greedy_nms.launches
-        except BaseException:
-            distill_child[0].kill()
-            distill_child[0].wait()
-            raise
-        distill_gate = join_distill_gate(distill_child)
 
-        # ---- 14.-16. the training recipes' steps, with the card to themselves
+        # ---- 14.-16. the training recipes' steps
         phase_mark("[14]")
         recipes = recipe_phases(cfgs, images, dev, card)
 
@@ -4835,12 +5176,6 @@ def main() -> int:
         greedy_nms.launches = 0
         p6_cli = p6_train_cli_phase(root, dev, card)
         p6_cli_launches = greedy_nms.launches
-
-        # ---- 23. inference: the demo JPEGs, the infer CLI on S, the gate's N
-        phase_mark("[23]")
-        greedy_nms.launches = 0
-        infer = infer_phase(root, dev, card)
-        infer_launches = greedy_nms.launches
 
         # ---- 24.-27. the lite family at 320: serve, the Lite-S step and fold,
         # Lite-S through the Evaler, the train, infer and hub entries
@@ -4869,6 +5204,17 @@ def main() -> int:
         repopt_cli_launches = greedy_nms.launches
         upstream = upstream_files_phase(root, dev, card)
 
+        # ---- 23. inference: the demo JPEGs, the infer CLI on S, the gate's N
+        # (which needs [13]'s checkpoint: its child is joined first, after
+        # [24]-[31], which need nothing of it, so that the main process
+        # seldom waits for the gate)
+        phase_mark("[23]")
+        gate = join_child(gate_child_)
+        gate_launches = gate["launches"]
+        greedy_nms.launches = 0
+        infer = infer_phase(root, dev, card)
+        infer_launches = greedy_nms.launches
+
         # ---- 32. INT8 quantisation: PTQ and the quantised serve of [30]'s S, the QAT
         # step, RepOpt's third stage through the train CLI, the PTQ CLI on [13]'s N
         phase_mark("[32]")
@@ -4887,7 +5233,8 @@ def main() -> int:
         model = deploy_model(cfgs["s"], 0, dev)
         export = dict(artifact=artifact_phase(model, images_np, images, root, dev, card))
         export["eval"] = artifact_eval_phase(model, train_data, root, dev, card)
-        export["onnx"] = onnx_phase(model, images, ptq, dev, card)
+        onnx_path = os.path.join(root, "s.onnx")
+        export["onnx"] = onnx_phase(model, images, ptq, onnx_path, dev, card)
         del ptq
         export["torchscript_ncnn"] = torchscript_ncnn_phase(model, images, root, dev, card)
         del model
@@ -4918,8 +5265,17 @@ def main() -> int:
         greedy_nms.launches = 0
         formats["infer"] = format_infer_phase(root, gate_n_pt, card)
         format_infer_launches = greedy_nms.launches
+        # ---- 37. video: the fixtures and the codecs' times; the infer CLI
+        # over a 1280x720 clip; the ONNX demo's video loop over it
+        phase_mark("[37]")
+        videos, clip = video_codec_phase(data, root, card)
+        videos["infer"] = video_infer_phase(root, clip, card)
+        videos["onnx"] = video_onnx_phase(root, clip, onnx_path, card)
+        distill_gate = join_child(distill_child)
         phase_mark("end")
-    assert train_cli_launches >= train_cli["launches"] and gate_launches == gate["launches"]
+    assert train_cli_launches >= train_cli["launches"]
+    assert gate["counted_launches"] == gate_launches, gate
+    assert distill_gate["counted_launches"] == distill_gate["launches"], distill_gate
     assert all(recipes[k]["launches"] == 0 for k in ("train_fuse_ab", "train_distill_ns",
                                                      "train_m_kd"))
     assert p6_train["train_s6"]["launches"] == p6_train["train_l6"]["launches"] == 0
@@ -5017,7 +5373,9 @@ def main() -> int:
                              "repro_gate_k8192_and_k30000": repro_launches,
                              "infer_jpeg_out": infer_jpeg_launches,
                              "eval_cli_tiff_webp": format_eval_launches,
-                             "infer_cli_tiff_webp_out": format_infer_launches},
+                             "infer_cli_tiff_webp_out": format_infer_launches,
+                             "infer_cli_video": videos["infer"]["launches"],
+                             "onnx_demo_video": videos["onnx"]["launches"]},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -5047,7 +5405,8 @@ def main() -> int:
                            export["eval"]["max_abs_err"], ddp["cli"]["max_abs_err"],
                            shape_cli["max_abs_err"], gate_repro["max_abs_err"],
                            infer_jpeg["max_abs_err"], formats["eval"]["max_abs_err"],
-                           formats["infer"]["max_abs_err"]),
+                           formats["infer"]["max_abs_err"], videos["infer"]["max_abs_err"],
+                           videos["onnx"]["max_abs_err"]),
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
         "call_ms": main["call_ms"],
@@ -5100,6 +5459,7 @@ def main() -> int:
         "repro_gate": gate_repro,
         "infer_jpeg": infer_jpeg,
         "image_formats": formats,
+        "video": videos,
         "eval_plots": eval_plots,
         "model_info": model_info,
         "vis_dataset": vis,
@@ -5116,8 +5476,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--upstream-files"]:
         sys.exit(upstream_files_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--learning-gate"]:
+        sys.exit(gate_child(sys.argv[2:], learning_gate_phase))
     if sys.argv[1:2] == ["--distill-gate"]:
-        sys.exit(distill_gate_child(sys.argv[2:]))
+        sys.exit(gate_child(sys.argv[2:], distill_gate_phase))
     if sys.argv[1:2] == ["--ddp-step"]:
         sys.exit(ddp_step_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--ddp-cli"]:

@@ -132,6 +132,19 @@ EXPORT_MODULES = {f"yolov6_tpu_torch.export.{m}" for m in (
     "yolov6_tpu_torch.quant.onnx_ptq", "yolov6_tpu_torch.quant.trt_calibrator"}
 
 
+def _std_includes(source):
+    """The ``<...>`` includes of a C++ file and of the headers beside it that
+    it includes (``#include "name"``, followed); a quoted name that is no
+    file beside it is returned as it stands."""
+    with open(source) as f:
+        text = f.read()
+    out = re.findall(r'^#include\s*<([^>]+)>', text, re.M)
+    for name in re.findall(r'^#include\s*"([^"]+)"', text, re.M):
+        header = os.path.join(os.path.dirname(source), name)
+        out += _std_includes(header) if os.path.isfile(header) else [name]
+    return out
+
+
 def test_port_imports_no_jax_flax_cv2_or_jax_package():
     """Importing every module of the port (its eval, train and infer CLIs,
     the hub, the trainer, the learning gate, the data modules, the
@@ -140,7 +153,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     loads none of jax, jaxlib, flax, cv2, PIL, yaml, matplotlib, tensorboard,
     tensorboardX, tifffile, imageio, a libwebp binding or the JAX package; the host
     augmentation library's source includes only the C++ standard library and its build
-    links nothing else, and so do the JPEG decoder's and the TIFF and WebP codecs'."""
+    links nothing else, and so do the JPEG decoder's, the TIFF and WebP codecs' and the
+    MPEG-4 video codec's."""
     res = subprocess.run([sys.executable, "-c", PORT_IMPORT_CHECK], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
@@ -152,19 +166,22 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
 
     from yolov6_tpu_torch.data import jpeg, native_aug
 
-    with open(native_aug.SOURCE) as f:
-        includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
+    includes = _std_includes(native_aug.SOURCE)
     assert includes and set(includes) <= {"algorithm", "cmath", "cstdint", "cstring"}, includes
-    with open(jpeg.SOURCE) as f:  # the JPEG decoder: the C++ standard library only
-        includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
-    assert includes and set(includes) <= {"cstdint", "cstdio", "cstring", "exception", "new",
-                                          "vector"}, includes
+    includes = _std_includes(jpeg.SOURCE)  # the JPEG decoder: the C++ standard library only
+    assert includes and set(includes) <= {"cstddef", "cstdint", "cstdio", "cstring", "exception",
+                                          "new", "vector"}, includes
     from yolov6_tpu_torch.data import tiff, webp
 
     for source in (tiff.SOURCE, webp.SOURCE):  # the C++ standard library only
-        with open(source) as f:
-            includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
+        includes = _std_includes(source)
         assert includes and set(includes) <= {"algorithm", "cstdint", "cstdio", "cstdlib",
                                               "cstring", "new", "vector"}, (source, includes)
+    from yolov6_tpu_torch.data import mpeg4
+
+    includes = _std_includes(mpeg4.SOURCE)  # the video codec: the C++ standard library only
+    assert includes and set(includes) <= {"algorithm", "cmath", "cstdarg", "cstddef", "cstdint",
+                                          "cstdio", "cstdlib", "cstring", "new", "utility",
+                                          "vector"}, includes
     assert not any(flag.startswith(("-l", "-L", "-I")) for flag in native_aug.CXX_FLAGS)
     assert os.path.dirname(native_aug.lib_path()) == os.path.join(REPO_ROOT, "build", "host")

@@ -17,7 +17,9 @@ tools, on the CPU, on the same files:
 - ``quant/trt_calibrator.py``: the batches equal the JAX stream's on the same
   PNG files (the port's letterbox resizes as cv2 does, bit for bit), the
   cache reader equals JAX's; without ``tensorrt`` the TensorRT paths raise.
-Video sources raise ``NotImplementedError`` in both runners.
+A video file raises ``FileNotFoundError`` in both TorchScript runners (the
+JAX tool's ``cv2.imread`` finds no image in it); the ONNX demo's video loop
+is held against the JAX demo's in ``tests/test_torch_video_infer.py``.
 """
 
 import json
@@ -93,8 +95,17 @@ def test_infer_torchscript_matches_jax_runner(setup, tmp_path):
     np.testing.assert_allclose(got[order_g, 4:], want[order_w, 4:], atol=1e-5)
     drawn = imread(str(tmp_path / "image1.jpg"))
     assert drawn.shape == imread(jpeg).shape
-    with pytest.raises(NotImplementedError):
-        infer_torchscript.run("clip.mp4", setup["ts"], device="cpu", **kw)
+    # the JAX tool's cv2.imread finds no image in a video: FileNotFoundError
+    import cv2
+
+    writer = cv2.VideoWriter(str(tmp_path / "clip.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                             (64, 48))
+    writer.write(np.zeros((48, 64, 3), np.uint8))
+    writer.release()
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):
+        _jax_tool("infer_torchscript").run(str(tmp_path / "clip.mp4"), setup["ts"], **kw)
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):
+        infer_torchscript.run(str(tmp_path / "clip.mp4"), setup["ts"], device="cpu", **kw)
 
 
 def _by_class_then_box(dets):
@@ -126,7 +137,7 @@ def test_onnx_demo_matches_jax_demo(setup):
          str(setup["root"] / "demo.png"), "--device", "cpu"])
     assert len(onnx_demo.main(args)) == len(
         onnx_demo.infer_frame(runner, imread(setup["pngs"][0]), IMG, IMG, 0.4, 0.45, "cpu"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):  # a video path: run_video
         onnx_demo.main(onnx_demo.get_args_parser().parse_args(
             ["--model", setup["onnx"], "--source", "clip.mp4", "--device", "cpu"]))
     # an end2end file (the ORT NonMaxSuppression tail) through both demos

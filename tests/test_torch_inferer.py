@@ -197,14 +197,7 @@ def test_cli_needs_a_device_without_cuda(setup, monkeypatch):
 
 
 def test_video_webcam_and_view_img_raise(setup, tmp_path):
-    video = tmp_path / "clip.mp4"
-    video.write_bytes(b"\x00" * 64)
-    with pytest.raises(NotImplementedError, match="VideoCapture"):
-        LoadData(str(video))
-    shutil.copy(os.path.join(setup["src"], "image4.png"), tmp_path)
-    with pytest.raises(NotImplementedError, match="VideoCapture"):
-        LoadData(str(tmp_path))  # a directory that holds a video
-    with pytest.raises(NotImplementedError, match="VideoCapture"):
+    with pytest.raises(NotImplementedError, match="webcam"):
         LoadData("0", webcam=True)
     with pytest.raises(NotImplementedError, match="imshow"):
         setup["ours"].infer(save_dir=str(tmp_path / "v"), classes=None, agnostic_nms=False,
@@ -214,6 +207,28 @@ def test_video_webcam_and_view_img_raise(setup, tmp_path):
     (img, path, cap), = list(loader)
     assert loader.type == "image" and cap is None and len(loader) == 1
     assert np.array_equal(img, cv2.imread(path))
+
+
+def test_load_data_reads_a_video(setup, tmp_path):
+    """A directory with an image and an mp4v clip written by cv2: the image,
+    then the clip's frames as cv2.VideoCapture gives them."""
+    shutil.copy(os.path.join(setup["src"], "image4.png"), tmp_path)
+    clip = str(tmp_path / "clip.mp4")
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 25, (96, 64))
+    base = cv2.GaussianBlur(np.random.default_rng(5).integers(0, 256, (64, 96, 3), np.uint8),
+                            (0, 0), 3)
+    for i in range(5):
+        writer.write(np.roll(base, 2 * i, axis=1))
+    writer.release()
+    loader = LoadData(str(tmp_path))
+    items = list(loader)
+    assert len(loader) == 2 and loader.type == "video" and len(items) == 6
+    assert items[0][1].endswith("image4.png") and items[0][2] is None
+    cap = cv2.VideoCapture(clip)
+    for img, path, vcap in items[1:]:
+        ok, frame = cap.read()
+        assert ok and path == clip and vcap is not None
+        assert np.array_equal(img, frame)
 
 
 # ------------------------------------------------------------------ drawing

@@ -7,11 +7,15 @@ keep is the NMS kernel. Letterboxing, drawing and writing stay on the host.
 
 The drawn image is written under the source's own name by
 ``image_io.imwrite``, in the format its suffix names, as ``cv2.imwrite``
-writes it (a JPEG source's drawn image is the JPEG cv2 would write).
-Departures from the JAX inferer, for what the machine with the card lacks
-(no cv2): boxes and labels are drawn by ``utils/draw.py`` (cv2's geometry
-and text sizes, the port's own font); video, webcam and ``view_img`` raise
-``NotImplementedError``.
+writes it (a JPEG source's drawn image is the JPEG cv2 would write). A
+video's frames are read by ``data/video.py::VideoCapture``, each drawn with
+the JAX inferer's FPS overlay and written to ``<stem>.mp4`` by
+``data/video.py::VideoWriter`` (MPEG-4 Part 2, every frame an I-VOP), at the
+capture's fps and size; its label rows go to ``labels/<stem>.txt``, frame
+after frame. Departures from the JAX inferer, for what the machine with the
+card lacks (no cv2): boxes, labels and the overlay are drawn by
+``utils/draw.py`` (cv2's geometry and text sizes, the port's own font);
+webcam and ``view_img`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ import torch
 from yolov6_tpu_torch.data.data_augment import letterbox
 from yolov6_tpu_torch.data.datasets import LoadData
 from yolov6_tpu_torch.data.image_io import imwrite
+from yolov6_tpu_torch.data.video import (
+    CAP_PROP_FPS, CAP_PROP_FRAME_HEIGHT, CAP_PROP_FRAME_WIDTH, VideoWriter,
+)
 from yolov6_tpu_torch.ops.nms import non_max_suppression
 from yolov6_tpu_torch.utils import draw
 from yolov6_tpu_torch.utils.checkpoint import load_state_dict_file
@@ -126,44 +133,69 @@ class Inferer:
             mask[np.asarray(classes)] = 1.0
             class_mask = torch.from_numpy(mask).to(self.device)
 
+        vid_path, vid_writer = None, None
         fps_calculator = CalcFPS()
-        for img_src, img_path, vid_cap in self.files:
-            img = self.process_image(img_src)
-            t1 = time.perf_counter()
-            dets, valid = self._infer(img, conf_thres, iou_thres, max_det, agnostic_nms,
-                                      class_mask)
-            dets = dets[0][valid[0]].cpu().numpy()
-            t2 = time.perf_counter()
-            fps_calculator.update(1.0 / (t2 - t1))
+        try:
+            for img_src, img_path, vid_cap in self.files:
+                img = self.process_image(img_src)
+                t1 = time.perf_counter()
+                dets, valid = self._infer(img, conf_thres, iou_thres, max_det, agnostic_nms,
+                                          class_mask)
+                dets = dets[0][valid[0]].cpu().numpy()
+                t2 = time.perf_counter()
+                fps_calculator.update(1.0 / (t2 - t1))
+                avg_fps = fps_calculator.accumulate()
 
-            rel_path = osp.relpath(osp.dirname(img_path), osp.dirname(self.source)) \
-                if not osp.isfile(self.source) else ""
-            save_path = osp.join(save_dir, rel_path, osp.basename(img_path))
-            txt_path = osp.join(save_dir, rel_path, "labels", osp.splitext(osp.basename(img_path))[0])
-            os.makedirs(osp.dirname(save_path), exist_ok=True)
+                rel_path = osp.relpath(osp.dirname(img_path), osp.dirname(self.source)) \
+                    if not osp.isfile(self.source) else ""
+                save_path = osp.join(save_dir, rel_path, osp.basename(img_path))
+                txt_path = osp.join(save_dir, rel_path, "labels", osp.splitext(osp.basename(img_path))[0])
+                os.makedirs(osp.dirname(save_path), exist_ok=True)
 
-            gn = np.array(img_src.shape)[[1, 0, 1, 0]]
-            img_ori = img_src.copy()
-            if len(dets):
-                dets[:, :4] = self.rescale(img.shape[1:3], dets[:, :4], img_src.shape[:2])
-                for *xyxy, conf, cls in reversed(dets):
-                    if save_txt:
-                        xywh = (self.box_convert(np.array(xyxy).reshape(1, 4)) / gn).reshape(-1).tolist()
-                        os.makedirs(osp.dirname(txt_path), exist_ok=True)
-                        with open(txt_path + ".txt", "a") as f:
-                            f.write(("%g " * 6).rstrip() % (cls, *xywh, conf) + "\n")
-                    if save_img:
-                        class_num = int(cls)
-                        label = None if hide_labels else (
-                            self.class_names[class_num] if hide_conf
-                            else f"{self.class_names[class_num]} {conf:.2f}"
-                        )
-                        self.plot_box_and_label(
-                            img_ori, max(round(sum(img_ori.shape) / 2 * 0.003), 2),
-                            xyxy, label, color=self.generate_colors(class_num, True),
-                        )
-            if save_img:
-                imwrite(save_path, img_ori)
+                gn = np.array(img_src.shape)[[1, 0, 1, 0]]
+                img_ori = img_src.copy()
+                if len(dets):
+                    dets[:, :4] = self.rescale(img.shape[1:3], dets[:, :4], img_src.shape[:2])
+                    for *xyxy, conf, cls in reversed(dets):
+                        if save_txt:
+                            xywh = (self.box_convert(np.array(xyxy).reshape(1, 4)) / gn).reshape(-1).tolist()
+                            os.makedirs(osp.dirname(txt_path), exist_ok=True)
+                            with open(txt_path + ".txt", "a") as f:
+                                f.write(("%g " * 6).rstrip() % (cls, *xywh, conf) + "\n")
+                        if save_img:
+                            class_num = int(cls)
+                            label = None if hide_labels else (
+                                self.class_names[class_num] if hide_conf
+                                else f"{self.class_names[class_num]} {conf:.2f}"
+                            )
+                            self.plot_box_and_label(
+                                img_ori, max(round(sum(img_ori.shape) / 2 * 0.003), 2),
+                                xyxy, label, color=self.generate_colors(class_num, True),
+                            )
+                if self.files.type == "video":
+                    self.draw_text(img_ori, f"FPS: {avg_fps:0.1f}", pos=(20, 20), font_scale=1.0,
+                                   text_color=(204, 85, 17), text_color_bg=(255, 255, 255),
+                                   font_thickness=2)
+                if save_img:
+                    if self.files.type == "image":
+                        imwrite(save_path, img_ori)
+                    else:  # the JAX inferer's video branch (inferer.py:176-192)
+                        if vid_path != save_path:
+                            vid_path = save_path
+                            if vid_writer is not None:
+                                vid_writer.release()
+                            if vid_cap:
+                                fps = vid_cap.get(CAP_PROP_FPS)
+                                w = int(vid_cap.get(CAP_PROP_FRAME_WIDTH))
+                                h = int(vid_cap.get(CAP_PROP_FRAME_HEIGHT))
+                            else:
+                                fps, w, h = 30, img_ori.shape[1], img_ori.shape[0]
+                            save_path = osp.splitext(save_path)[0] + ".mp4"
+                            vid_writer = VideoWriter(save_path, fps, (w, h))
+                        vid_writer.write(img_ori)
+        finally:
+            if vid_writer is not None:
+                vid_writer.release()
 
     @staticmethod
     def box_convert(x):

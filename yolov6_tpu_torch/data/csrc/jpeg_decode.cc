@@ -37,6 +37,8 @@
 #include <new>
 #include <vector>
 
+#include "simple_idct.h"
+
 namespace {
 
 enum Code { OK = 0, UNSUPPORTED = 1, CORRUPT = 2, TRUNCATED = 3, INTERNAL = 4 };
@@ -876,6 +878,29 @@ struct Decoder {
     }
   }
 
+  // the planes as FFmpeg's MJPEG decoder reconstructs them: coefficients
+  // dequantised into 16 bits, the DC offset by its predictor's start (1024,
+  // the level shift), the simple IDCT
+  void reconstruct_simple() {
+    for (int i = 0; i < ncomp; i++) {
+      Comp& c = comp[i];
+      if (c.coef.empty()) {
+        c.plane.assign(size_t(c.stride) * c.rows, 128);
+        continue;
+      }
+      c.plane.assign(size_t(c.stride) * c.rows, 0);
+      int16_t blk[64];
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++) {
+          const int16_t* in = c.block(bx, by);
+          for (int k = 0; k < 64; k++) blk[k] = static_cast<int16_t>(in[k] * c.q[k]);
+          blk[0] = static_cast<int16_t>(in[0] * c.q[0] + 1024);
+          uint8_t* out = c.plane.data() + size_t(by) * 8 * c.stride + size_t(bx) * 8;
+          yolov6_simple_idct::simple_idct(blk, out, c.stride, false);
+        }
+    }
+  }
+
   // the component upsampled to the image size (jdsample.c's choice of method)
   std::vector<uint8_t> upsample(const Comp& c) const {
     std::vector<uint8_t> out(size_t(width) * height);
@@ -1082,6 +1107,44 @@ int yolov6_jpeg_decode_cmyk(const uint8_t* data, size_t size, uint8_t* out, int 
                             int height, int* truncated, char* err, int errlen) {
   DecodeArgs a{data, size, out, width, height, truncated, -1, true};
   return run(err, errlen, decode_body, &a);
+}
+
+// Decode into planes as FFmpeg's MJPEG decoder does (reconstruct_simple):
+// component i's samples (dims[2i] wide, dims[2i + 1] high, its own
+// subsampled size) one after another into `out` (width * height * 3 bytes
+// are enough); *ncomp is 1 (grey) or 3.
+int yolov6_jpeg_decode_planes(const uint8_t* data, size_t size, uint8_t* out, int width,
+                              int height, int* ncomp, int* dims, int* truncated, char* err,
+                              int errlen) {
+  struct Args {
+    const uint8_t* d;
+    size_t n;
+    uint8_t* out;
+    int w, h;
+    int* ncomp;
+    int* dims;
+    int* truncated;
+  } a{data, size, out, width, height, ncomp, dims, truncated};
+  return run(err, errlen, [](void* p) {
+    Args& a = *static_cast<Args*>(p);
+    Decoder dec(a.d, a.n);
+    dec.decode();
+    if (dec.width != a.w || dec.height != a.h)
+      fail(INTERNAL, "output buffer is %dx%d pixels, not the image's size", a.w, a.h);
+    if (dec.ncomp != 1 && dec.ncomp != 3)
+      fail(UNSUPPORTED, "%d-component JPEG as a video frame", dec.ncomp);
+    dec.reconstruct_simple();
+    uint8_t* o = a.out;
+    for (int i = 0; i < dec.ncomp; i++) {
+      const Comp& c = dec.comp[i];
+      a.dims[2 * i] = c.w;
+      a.dims[2 * i + 1] = c.hgt;
+      for (int y = 0; y < c.hgt; y++, o += c.w)
+        std::memcpy(o, c.plane.data() + size_t(y) * c.stride, c.w);
+    }
+    *a.ncomp = dec.ncomp;
+    *a.truncated = dec.truncated;
+  }, &a);
 }
 
 }  // extern "C"

@@ -7,8 +7,8 @@ letterbox and the COCO ground-truth JSON, on numpy and the standard library:
 images are PNG, JPEG or BMP, read by ``data/image_io.py``. A file the scan
 cannot read is kept at shape (0, 0) and resolved at its first decode, or
 dropped under ``check_images``, as in JAX.
-``LoadData`` streams image files to the inferer; video and webcam sources
-need ``cv2.VideoCapture`` and raise ``NotImplementedError``.
+``LoadData`` streams image and video files to the inferer (the frames of
+a video through ``data/video.py``); a webcam raises ``NotImplementedError``.
 
 With ``augment=True`` a sample takes the JAX package's native train path
 (datasets.py:396-640), at ``img_size`` or, with ``specific_shape``, at
@@ -62,6 +62,7 @@ from yolov6_tpu_torch.data.data_augment import (
     sample_seed,
 )
 from yolov6_tpu_torch.data.image_io import image_format, image_size, imread
+from yolov6_tpu_torch.data.video import VideoCapture
 from yolov6_tpu_torch.data.jpeg import (
     decode_jpeg_cmyk, encode_jpeg, jpeg_info, orient,
 )
@@ -553,18 +554,20 @@ def _write_json(obj, path: str) -> None:
 
 
 class LoadData:
-    """The inferer's source (JAX: datasets.py:691-758): the image files under
-    ``path`` (a recursive, sorted glob filtered by ``IMG_FORMATS``) or the one
-    file ``path``, yielding ``(img BGR HWC uint8, path, None)``; ``type`` is
-    ``"image"``. A video file, or ``webcam=True``, raises
-    ``NotImplementedError``: reading frames needs ``cv2.VideoCapture``, which
-    the port does not have."""
+    """The inferer's source (JAX: datasets.py:691-758): the image and video
+    files under ``path`` (a recursive, sorted glob filtered by
+    ``IMG_FORMATS`` and ``VID_FORMATS``; images first, then videos) or the
+    one file ``path``, yielding ``(img BGR HWC uint8, path, cap)``. ``type``
+    turns ``"video"`` at the first video, whose frames come from the port's
+    ``data/video.py::VideoCapture`` (opened per file; ``cap`` is it), one a
+    call, the next file at a file's end; ``nf`` counts files.
+    ``webcam=True`` raises ``NotImplementedError``: the port reads no
+    camera."""
 
     def __init__(self, path: str, webcam: bool = False, webcam_addr: str = "0"):
         if webcam:
             raise NotImplementedError(
-                f"webcam source {webcam_addr!r}: reading a camera needs cv2.VideoCapture, "
-                "which the port does not have")
+                f"webcam source {webcam_addr!r}: the port reads video files, not cameras")
         p = str(Path(path).resolve())
         if os.path.isdir(p):
             files = sorted(glob.glob(os.path.join(p, "**", "*.*"), recursive=True))
@@ -572,15 +575,16 @@ class LoadData:
             files = [p]
         else:
             raise FileNotFoundError(f"Invalid path {p}")
-        videos = [f for f in files if f.split(".")[-1].lower() in VID_FORMATS]
-        if videos:
-            raise NotImplementedError(
-                f"video source {videos[0]}: reading video needs cv2.VideoCapture, which the "
-                "port does not have")
-        self.files = [f for f in files if f.split(".")[-1].lower() in IMG_FORMATS]
+        imgp = [f for f in files if f.split(".")[-1].lower() in IMG_FORMATS]
+        vidp = [f for f in files if f.split(".")[-1].lower() in VID_FORMATS]
+        self.files = imgp + vidp
         self.nf = len(self.files)
         self.type = "image"
         self.cap = None
+
+    @staticmethod
+    def checkext(path):
+        return "video" if path.split(".")[-1].lower() in VID_FORMATS else "image"
 
     def __iter__(self):
         self.count = 0
@@ -590,8 +594,23 @@ class LoadData:
         if self.count == self.nf:
             raise StopIteration
         path = self.files[self.count]
-        self.count += 1
-        return imread(path), path, self.cap
+        if self.checkext(path) == "video":
+            self.type = "video"
+            if self.cap is None or not self.cap.isOpened():
+                self.cap = VideoCapture(path)
+            ret_val, img = self.cap.read()
+            while not ret_val:
+                self.count += 1
+                self.cap.release()
+                if self.count == self.nf:
+                    raise StopIteration
+                path = self.files[self.count]
+                self.cap = VideoCapture(path)
+                ret_val, img = self.cap.read()
+        else:
+            self.count += 1
+            img = imread(path)
+        return img, path, self.cap
 
     def __len__(self):
         return self.nf

@@ -4,7 +4,7 @@ carries; the machine with the card has no cv2).
 
 ``csrc/jpeg_decode.cc`` and ``csrc/jpeg_encode.cc`` are compiled on first
 use with the host ``g++`` into ``build/host/`` (``native_aug.build_library``:
-the name carries a hash of the source and the flags) and loaded with ctypes;
+the name carries a hash of the source, its headers and the flags) and loaded with ctypes;
 a failed build raises, and nothing falls back to another codec. A ctypes
 call releases the GIL, so loader threads decode in parallel.
 
@@ -72,6 +72,10 @@ def load() -> ctypes.CDLL:
             lib.yolov6_jpeg_decode_cmyk.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 c_int_p, ctypes.c_char_p, ctypes.c_int]
+            lib.yolov6_jpeg_decode_planes.restype = ctypes.c_int
+            lib.yolov6_jpeg_decode_planes.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                c_int_p, c_int_p, c_int_p, ctypes.c_char_p, ctypes.c_int]
             _lib = lib
         return _lib
 
@@ -142,6 +146,28 @@ def decode_jpeg_as(data: bytes, path="<bytes>", color: str = "ycbcr") -> np.ndar
     space set by the TIFF, not guessed: ``"ycbcr"`` (YCbCr, or YCCK) or
     ``"none"`` (the components as stored: RGB, CMYK)."""
     return _decode(data, path, COLOR_MODES[color])[0]
+
+
+def decode_jpeg_planes(data: bytes, path="<bytes>") -> list:
+    """A JPEG (a Motion JPEG frame) as FFmpeg's MJPEG decoder reconstructs
+    it, before any colour conversion: its components' planes, each uint8
+    at its own sampled size ([Y] or [Y, Cb, Cr]; full range, "yuvj"), through
+    libavcodec's simple IDCT rather than libjpeg's. No orientation."""
+    w, h, _ = jpeg_size(data, path)
+    out = np.empty(w * h * 3, np.uint8)
+    ncomp, truncated = ctypes.c_int(), ctypes.c_int()
+    dims = (ctypes.c_int * 6)()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if load().yolov6_jpeg_decode_planes(data, len(data), out.ctypes.data, w, h,
+                                        ctypes.byref(ncomp), dims, ctypes.byref(truncated), err,
+                                        _ERRLEN):
+        raise _error(path, err)
+    planes, off = [], 0
+    for i in range(ncomp.value):
+        pw, ph = dims[2 * i], dims[2 * i + 1]
+        planes.append(out[off:off + pw * ph].reshape(ph, pw))
+        off += pw * ph
+    return planes
 
 
 def decode_jpeg_cmyk(data: bytes, path="<bytes>") -> np.ndarray:

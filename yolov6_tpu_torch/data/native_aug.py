@@ -4,7 +4,7 @@ yolov6_tpu/native/__init__.py).
 
 ``csrc/train_aug.cc`` is compiled on first use with the host ``g++`` into
 ``build/host/`` at the repository root (a git-ignored directory), under a
-name that carries a hash of the source and the flags, and loaded with
+name that carries a hash of the source, its headers and the flags, and loaded with
 ctypes; a failed build raises (``library_path`` and ``build_library`` build
 ``data/jpeg.py``'s decoder the same way). It does the mosaic compose, the
 inverse-affine warp and the flips in one pass, the mixup blend, and the
@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +49,14 @@ _lock = threading.Lock()
 
 def library_path(source: str) -> str:
     """Where the library built from the C++ file ``source`` lives: under
-    ``build/host/``, named after the file and a hash of it and the flags."""
+    ``build/host/``, named after the file and a hash of it, of the headers
+    beside it that it includes (``#include "name"``), and of the flags."""
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+        text = f.read()
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(os.path.dirname(source), name.decode()), "rb") as f:
+            text += f.read()
+    digest = hashlib.sha256(text + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

@@ -5,10 +5,14 @@
 
 ``--weights`` is a ``torch.save``d state dict (``utils/checkpoint.py``).
 ``--device`` defaults to ``cuda`` and raises without it; ``--device cpu``
-runs on the CPU. Drawn images are written as PNG (``<stem>.png``) and
-``--save-txt`` writes ``labels/<stem>.txt``, as the JAX CLI does. Not
-ported: ``--webcam``, video sources and ``--view-img`` (they need cv2's
-video I/O and windows, and raise ``NotImplementedError``).
+runs on the CPU. ``--source`` is an image, a video (``.mp4``, ``.mov``,
+``.avi``, ``.mkv`` holding MPEG-4 Part 2 or Motion JPEG) or a directory of
+both. A drawn image is written under its source's name and format; a video's
+drawn frames, each with the FPS overlay, go to ``<stem>.mp4`` at the
+source's fps and size; ``--save-txt`` writes ``labels/<stem>.txt`` (a
+video's rows frame after frame), as the JAX CLI does. Not ported:
+``--webcam`` and ``--view-img`` (a camera and a window; they raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ over class-offset boxes: the CUDA kernel on the card) in place of cv2's
 rescale (:240-246); the boxes drawn with ``utils/draw.py`` and written as
 ``<out-dir>/<source name>`` in the source's format (``image_io.imwrite``). The TorchScript export already holds the decode
 (model+decode -> ``[b, A, 5+nc]``), so the host starts at the confidence
-filter. Video sources raise ``NotImplementedError``, as in the inferer.
+filter. A video file raises ``FileNotFoundError``, as the JAX tool's
+``cv2.imread`` finds no image in it.
 """
 
 from __future__ import annotations
@@ -108,7 +109,9 @@ def run(img_path: str, model_path: str, img_size, conf_thres=CONF_THRES, iou_thr
     """Full single-image flow on ``device``; returns [n, 6] xyxy/conf/cls in
     source pixels."""
     if osp.splitext(img_path)[-1].lower() in VIDEO_SUFFIXES:
-        raise NotImplementedError("video sources are not ported (cv2's video I/O)")
+        # the JAX tool reads its one image with cv2.imread, which gives None
+        # for a video, and raises FileNotFoundError
+        raise FileNotFoundError(img_path)
     device = resolve_device(device)
     net_h, net_w = img_size
     img = imread(img_path)
