@@ -283,7 +283,14 @@ Phases, each of which asserts:
      keep, the written .mp4 read back at 64 frames, 30 fps, 1280x720, the
      label rows, the loop's imgs/s and its steps a frame; [37c] the ONNX
      demo's video loop with [33c]'s file over the clip's first 16 frames,
-     its printed frame and detection counts.
+     its printed frame and detection counts;
+ 38. drawing (host): the times of the g++ builds of the TrueType text and
+     the anti-aliased shapes, made at their first use before [13] and [17]
+     start; the text, boxes, labels, shapes and FPS
+     overlay of tests/data/torch_draw/hashes.json and the synthetic
+     generator's first 4 images equal to the SHA-256 of the JAX package's
+     cv2 5.0 drawing; ``plot_box_and_label`` over a 1080x810 image of 1000
+     detections and ``put_text`` of a label timed.
 Phases run in the order of their numbers but for [23], which runs after
 [31], once [13]'s gate (a child process from the start of group [11]) is
 joined.
@@ -4990,6 +4997,139 @@ def video_onnx_phase(root: str, clip: str, onnx_path: str, card: str) -> dict:
                 checked=len(rec.all), checked_with_candidate=with_candidate, max_abs_err=err)
 
 
+DRAW_FIXTURES = "tests/data/torch_draw/hashes.json"
+# [38]'s timed draws: an image the size of the demo JPEGs' largest with 1000
+# seeded detections (the infer CLI's max_det), and one label a call
+DRAW_TIMING = dict(height=810, width=1080, detections=1000, repeats=3, label_calls=2000)
+
+
+def draw_case(case):
+    """One case of ``DRAW_FIXTURES`` drawn by the port (``utils/draw.py``)
+    on the synthetic generator's background: the port's side of
+    ``tests/torch_draw_fixtures.py::draw_case_cv2``."""
+    import numpy as np
+
+    from yolov6_tpu_torch.data.synth_detect import _background
+    from yolov6_tpu_torch.utils import draw, text
+
+    h, w = case["size"]
+    img = _background(np.random.default_rng(case["seed"]), h, w)
+    for name, *a in case["calls"]:
+        if name == "plot_box_and_label":
+            lw, box, label, color = a
+            draw.plot_box_and_label(img, lw, box, label, color=tuple(color))
+        elif name == "put_text":
+            s, org, face, scale, color, th = a
+            text.put_text(img, s, tuple(org), face, scale, tuple(color), th, text.LINE_AA)
+        elif name == "rectangle":
+            p1, p2, color, th, line_type = a
+            draw.rectangle(img, tuple(p1), tuple(p2), tuple(color), th, line_type)
+        elif name == "circle":
+            c, r, color, th = a
+            draw.circle(img, tuple(c), r, tuple(color), th)
+        elif name == "fill_poly":
+            pts, color = a
+            draw.fill_poly(img, [np.array(q) for q in pts], tuple(color))
+        elif name == "draw_text":
+            s, pos, scale, th, fg, bg = a
+            draw.draw_text(img, s, pos=tuple(pos), font_scale=scale, font_thickness=th,
+                           text_color=tuple(fg), text_color_bg=tuple(bg))
+        else:
+            raise ValueError(f"[38] unknown call {name}")
+    return img
+
+
+def build_drawing() -> dict:
+    """Build ``utils/csrc/truetype.cc`` and ``drawing.cc`` with the host g++
+    (their first use in this run, before the gates' children draw their
+    synthetic sets) and time each; ``built`` is false where ``build/host/``
+    already held the library."""
+    from yolov6_tpu_torch.data.native_aug import library_path
+    from yolov6_tpu_torch.utils import draw, text
+
+    out = {}
+    for mod in (text, draw):
+        built = not os.path.exists(library_path(mod.SOURCE))
+        t0 = time.perf_counter()
+        mod.load()
+        out[os.path.basename(mod.SOURCE)] = dict(s=time.perf_counter() - t0, built=built)
+    return out
+
+
+def draw_phase(root: str, card: str, build_s: dict) -> dict:
+    """Phase 38: cv2 5.0's drawing on the card machine's host, which has no
+    cv2: ``build_drawing``'s g++ times printed; every case of ``DRAW_FIXTURES`` (text, boxes, labels, shapes, the
+    FPS overlay) and the synthetic generator's first images equal to the
+    SHA-256 of what the JAX package's cv2 calls draw; ``put_text`` of a
+    label and ``plot_box_and_label`` over an image of 1000 detections timed
+    on the host clock."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.data.synth_detect import generate_split
+    from yolov6_tpu_torch.utils import draw, text
+
+    log("[38] g++ -O3 builds at their first use, before [13] and [17] start (host clock): "
+        + ", ".join(f"{name} {b['s']:.2f} s" if b["built"] else f"{name} found built"
+                    for name, b in build_s.items()))
+
+    with open(os.path.join(ROOT, DRAW_FIXTURES)) as f:
+        fixtures = json.load(f)
+    def digest(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    for case in fixtures["cases"]:
+        assert digest(draw_case(case)) == case["sha256"], \
+            f"[38] {case['name']}: the port's drawing differs from cv2 {fixtures['opencv']}'s"
+    synth = fixtures["synth"]
+    split = os.path.join(root, "draw_synth")
+    generate_split(os.path.join(split, "images"), os.path.join(split, "labels"), synth["n"],
+                   synth["img_size"], synth["nc"], np.random.default_rng(synth["seed"]),
+                   "train")
+    for i, want in enumerate(synth["sha256"]):
+        got = digest(imread(os.path.join(split, "images", f"train{i:05d}.png")))
+        assert got == want, f"[38] synthetic image {i} differs from the JAX generator's"
+
+    t = DRAW_TIMING
+    rng = np.random.default_rng(38)
+    img0 = np.full((t["height"], t["width"], 3), 114, np.uint8)
+    lw = max(round(sum(img0.shape) / 2 * 0.003), 2)
+    a, b = (rng.uniform(0, 1, (t["detections"], 2)) * [t["width"], t["height"]]
+            for _ in range(2))
+    boxes = np.concatenate([np.minimum(a, b), np.maximum(a, b)], 1)
+    labels = [f"class{int(c)} {s:.2f}" for c, s in zip(rng.integers(0, 80, len(boxes)),
+                                                       rng.uniform(0.25, 1.0, len(boxes)))]
+    colors = [tuple(int(v) for v in rng.integers(0, 256, 3)) for _ in labels]
+    plot_ms = []
+    for _ in range(t["repeats"]):
+        img = img0.copy()
+        t0 = time.perf_counter()
+        for box, label, color in zip(boxes, labels, colors):
+            draw.plot_box_and_label(img, lw, box, label, color=color)
+        plot_ms.append((time.perf_counter() - t0) * 1e3)
+    img = img0.copy()
+    t0 = time.perf_counter()
+    for i in range(t["label_calls"]):
+        text.put_text(img, labels[i % len(labels)], (20, 60), text.FONT_HERSHEY_COMPLEX,
+                      lw / 3, (255, 255, 255), max(lw - 1, 1), text.LINE_AA)
+    label_us = (time.perf_counter() - t0) * 1e6 / t["label_calls"]
+    res = dict(build_s=build_s, cases=len(fixtures["cases"]), synth_images=len(synth["sha256"]),
+               plot_box_and_label_ms=statistics.median(plot_ms), plot_runs_ms=plot_ms,
+               put_text_label_us=label_us, lw=lw, detections=t["detections"],
+               image=[t["height"], t["width"]])
+    log(f"[38] the port's drawing equals cv2 {fixtures['opencv']}'s (the JAX package's calls) "
+        f"in all {res['cases']} cases of {DRAW_FIXTURES} and the synthetic generator's first "
+        f"{res['synth_images']} images (SHA-256)")
+    log(f"[38] plot_box_and_label over a {t['width']}x{t['height']} image of "
+        f"{t['detections']} detections at lw {lw}: {res['plot_box_and_label_ms']:.1f} ms "
+        f"(median of {t['repeats']}: " + ", ".join(f"{v:.1f}" for v in plot_ms)
+        + f"); put_text of a label {label_us:.1f} us a call (host clock) [{card}]")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -5134,6 +5274,7 @@ def main() -> int:
         # after [37]. Every phase timed meanwhile (the evals, the recipes'
         # steps [14]-[16], the P6 ... RepOpt phases) shares the card and the
         # host with them, and its line says so; none has the card alone
+        drawing_build = build_drawing()  # [38] prints its times
         gate_child_ = start_child("[13]", "--learning-gate", root)
         distill_child = start_child("[17]", "--distill-gate", root)
         data = write_eval_set(root, card)
@@ -5271,6 +5412,10 @@ def main() -> int:
         videos, clip = video_codec_phase(data, root, card)
         videos["infer"] = video_infer_phase(root, clip, card)
         videos["onnx"] = video_onnx_phase(root, clip, onnx_path, card)
+        # ---- 38. cv2 5.0's drawing: the text and shapes against cv2's hashes,
+        # the synthetic images against the JAX generator's, the draw timed
+        phase_mark("[38]")
+        drawing = draw_phase(root, card, drawing_build)
         distill_gate = join_child(distill_child)
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"]
@@ -5463,6 +5608,7 @@ def main() -> int:
         "eval_plots": eval_plots,
         "model_info": model_info,
         "vis_dataset": vis,
+        "drawing": drawing,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -153,8 +153,8 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     loads none of jax, jaxlib, flax, cv2, PIL, yaml, matplotlib, tensorboard,
     tensorboardX, tifffile, imageio, a libwebp binding or the JAX package; the host
     augmentation library's source includes only the C++ standard library and its build
-    links nothing else, and so do the JPEG decoder's, the TIFF and WebP codecs' and the
-    MPEG-4 video codec's."""
+    links nothing else, and so do the JPEG decoder's, the TIFF and WebP codecs', the
+    MPEG-4 video codec's, and the TrueType text's and anti-aliased shapes' of the drawing."""
     res = subprocess.run([sys.executable, "-c", PORT_IMPORT_CHECK], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO_ROOT})
@@ -182,6 +182,14 @@ def test_port_imports_no_jax_flax_cv2_or_jax_package():
     includes = _std_includes(mpeg4.SOURCE)  # the video codec: the C++ standard library only
     assert includes and set(includes) <= {"algorithm", "cmath", "cstdarg", "cstddef", "cstdint",
                                           "cstdio", "cstdlib", "cstring", "new", "utility",
+                                          "vector"}, includes
+    from yolov6_tpu_torch.utils import draw, text
+
+    includes = _std_includes(text.SOURCE)  # the TrueType text: the C++ standard library only
+    assert includes and set(includes) <= {"algorithm", "cmath", "cstdint", "cstring", "map",
+                                          "mutex", "tuple", "vector"}, includes
+    includes = _std_includes(draw.SOURCE)  # cv2's anti-aliased shapes, likewise
+    assert includes and set(includes) <= {"algorithm", "climits", "cmath", "cstdint", "cstdlib",
                                           "vector"}, includes
     assert not any(flag.startswith(("-l", "-L", "-I")) for flag in native_aug.CXX_FLAGS)
     assert os.path.dirname(native_aug.lib_path()) == os.path.join(REPO_ROOT, "build", "host")

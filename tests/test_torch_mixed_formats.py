@@ -172,12 +172,13 @@ def _small_n_config_file(path):
 
 def test_inferer_writes_tiff_and_webp_as_jax(tmp_path):
     """Each drawn image goes out under its source's name and format, as the
-    JAX inferer's ``cv2.imwrite`` writes it. The drawn pixels themselves
-    are not the JAX package's (the port's anti-aliased box edges and label
-    glyphs are its own: utils/draw.py), so each source also goes in under a
-    ``.png`` name: the written TIFF is byte for byte ``cv2.imencode('.tif')``
-    of that PNG's pixels, and the written WebP reads back under
-    ``cv2.imread`` to them exactly."""
+    JAX inferer's ``cv2.imwrite`` writes it. The boxes come from two
+    packages' float arithmetic (rows equal within 1e-4, not bit for bit), so
+    the drawn pixels are not held against the JAX package's here (the
+    drawing itself is: tests/test_torch_inferer.py); each source also goes in
+    under a ``.png`` name: the written TIFF is byte for byte
+    ``cv2.imencode('.tif')`` of that PNG's pixels, and the written WebP reads
+    back under ``cv2.imread`` to them exactly."""
     src = tmp_path / "src"
     src.mkdir()
     shutil.copy(os.path.join(FIXTURES, "infer_source.webp"), src / "scene.webp")

@@ -101,3 +101,33 @@ def test_eval_and_infer_cli_on_the_lite_checkpoint(lite_run, tmp_path):
         rows = (out / "images" / "labels" / name).read_text().splitlines()
         assert len(rows) == 20 and all(len(r.split()) == 6 for r in rows)
     assert sorted(os.listdir(out / "images"))[:3] == ["image1.jpg", "image2.jpg", "image3.jpg"]
+
+
+def test_lite_gate_gains_over_the_untrained_model(tmp_path):
+    """``learning_gate --gain-over untrained`` on Lite-S at a tiny size (128
+    px, 8 train and 4 val images, 2 epochs; no bar): the seed-initialised
+    EMA is saved before the first step and evaluated as epoch -1, the gain
+    is the final mAP50 less its, and the saved weights are not the trained
+    ones."""
+    import json
+
+    from yolov6_tpu_torch.tools import learning_gate
+    from yolov6_tpu_torch.utils.checkpoint import read_state_dict
+
+    args = learning_gate.get_args_parser().parse_args([
+        "--out", str(tmp_path), "--conf-file", LITE_CONFIGS["s"], "--img-size", str(IMG),
+        "--n-train", "8", "--n-val", "4", "--epochs", "2", "--batch-size", "4", "--workers",
+        "1", "--eval-points", "1", "--skip-exact-nms", "--gain-over", "untrained",
+        "--device", "cpu"])
+    learning_gate.main(args)
+    with open(osp.join(str(tmp_path), "gate_result.json")) as f:
+        result = json.load(f)
+    traj = result["trajectory"]
+    assert [e["epoch"] for e in traj] == [-1, 1] and result["gain_over"] == "untrained"
+    assert result["gain"] == pytest.approx(traj[-1]["map50"] - traj[0]["map50"])
+    weights = osp.join(str(tmp_path), "train", "gate", "weights")
+    untrained = read_state_dict(osp.join(weights, "untrained_ckpt.pt"))
+    trained = read_state_dict(osp.join(weights, "1_ckpt.pt"))
+    assert untrained.keys() == trained.keys()
+    assert any(not torch.equal(untrained[k], trained[k]) for k in untrained
+               if untrained[k].is_floating_point())

@@ -9,9 +9,9 @@ reads the clip through ``cv2.VideoCapture`` for this test (patched in), and
 ``CalcFPS`` is pinned, so that the FPS overlays carry the same text. The
 label rows are equal as in ``tests/test_torch_inferer.py``, and so are the
 rows each frame adds; the drawn frames (caught on their way to each side's
-writer, labels hidden) are equal outside the overlay's box and the
-anti-aliased edges of that frame's own outlines, as in that file's drawing
-test; the written files have the same frame count, fps and size under
+writer, labels hidden) are equal, the FPS overlay included, but near the
+edges of that frame's own outlines, whose boxes the two packages compute to
+1e-4; the written files have the same frame count, fps and size under
 ``cv2.VideoCapture``.
 """
 
@@ -51,7 +51,7 @@ from yolov6_tpu_torch.tools import onnx_demo
 from yolov6_tpu_torch.utils.config import Config
 from yolov6_tpu_torch.utils.weights import state_dict_from_jax
 
-from test_torch_inferer import NAMES, NC, _assert_rows_equal, _band_edge_distance, _rows, \
+from test_torch_inferer import NAMES, NC, _assert_rows_equal, _rows, \
     _small_n_config_file
 from torch_port_utils import REPO_ROOT, random_jax_variables, small_s_config
 from torch_video_fixtures import moving_frames
@@ -196,10 +196,10 @@ def test_inferer_video_matches_jax(setup, tmp_path, monkeypatch):
     assert _meta(path) == _meta(path_j) == (CLIP[2], 25.0, CLIP[0], CLIP[1])
     assert spy.opened == [(path_j, 25.0, (CLIP[0], CLIP[1]))]
 
-    # the drawn frames: equal outside the overlay's box (its text is the
-    # port's font) and within 2 px of none of that frame's own outlines' band
-    # edges (1 px, as in test_torch_inferer.py, and 1 for the corners read
-    # back from the rows)
+    # the drawn frames: equal, the FPS overlay's text included, but within 2
+    # px of the edges of a frame's own outlines' band (1 px, and 1 for the
+    # corners read back from the rows): the two packages' boxes agree to
+    # 1e-4, not bit for bit, so an outline may sit a pixel apart
     assert len(ours_frames) == len(theirs_frames) == CLIP[2]
     text_w, text_h = cv2.getTextSize(f"FPS: {PINNED_FPS:0.1f}", cv2.FONT_HERSHEY_SIMPLEX, 1.0,
                                      2)[0]
@@ -210,9 +210,25 @@ def test_inferer_video_matches_jax(setup, tmp_path, monkeypatch):
         near = np.zeros_like(in_overlay)
         for box in _corners(per_frame[k]):
             near |= _band_edge_distance(got.shape, box[:2], box[2:], lw) <= 2
-        differs = (got != want).any(2) & ~in_overlay & ~near
+        differs = (got != want).any(2) & ~near
         assert not differs.any(), (k, np.argwhere(differs)[:5])
         assert (got[in_overlay] == 255).mean() > 0.5  # the overlay's white box is drawn
+
+
+def _band_edge_distance(shape, p1, p2, lw):
+    """Distance of each pixel centre to the nearest edge of cv2's thick
+    outline through p1 and p2: its sides are bands of half-width
+    (lw + lw % 2) / 2 around the rectangle, its outer corners discs of
+    radius lw / 2, and a pixel at the band's reach covers 0.5 px beyond."""
+    y, x = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float64)
+    x1, x2 = sorted((p1[0], p2[0]))
+    y1, y2 = sorted((p1[1], p2[1]))
+    dx = np.maximum(np.maximum(x1 - x, x - x2), 0)
+    dy = np.maximum(np.maximum(y1 - y, y - y2), 0)
+    inside = np.minimum(np.minimum(x - x1, x2 - x), np.minimum(y - y1, y2 - y))
+    d = np.where((dx > 0) | (dy > 0), np.hypot(dx, dy), inside)
+    reach = np.where((dx > 0) & (dy > 0), lw / 2, (lw + (lw & 1)) / 2)
+    return np.abs(d - (reach + 0.5))
 
 
 def _corners(rows):

@@ -58,8 +58,9 @@ val APs, the three mean losses and the three group LRs at step ``epoch +
 val images with their best predictions drawn (``val_img_*``); and with
 ``--write_trainbatch_tb`` at the first step of each epoch the annotated
 train batch (``train_batch``, ``plot_train_batch``). The boxes are cv2's
-``LINE_8`` rectangles pixel for pixel and the resize is cv2's INTER_LINEAR;
-the text is the port's 5x7 font, not Hershey.
+``LINE_8`` rectangles pixel for pixel, the text is ``cv2.putText``'s
+(``utils/text.py``) and the resize is cv2's INTER_LINEAR, so the images are
+the JAX trainer's.
 
 Not ported, and refused with ``NotImplementedError``: the orbax checkpoint
 backend (queue 1, "Do not port").
@@ -102,9 +103,10 @@ from yolov6_tpu_torch.utils.checkpoint import (
 )
 from yolov6_tpu_torch.utils.coco_eval import coco80_to_coco91_class
 from yolov6_tpu_torch.utils.device import resolve_device
-from yolov6_tpu_torch.utils.draw import put_text, rectangle_line8
+from yolov6_tpu_torch.utils.draw import rectangle_line8
 from yolov6_tpu_torch.utils.events import LOGGER, load_yaml, write_tbimg, write_tblog
 from yolov6_tpu_torch.utils.tb_writer import TBWriter
+from yolov6_tpu_torch.utils.text import FONT_HERSHEY_COMPLEX, put_text
 
 
 def check_supported(args, cfg) -> None:
@@ -437,8 +439,8 @@ class Trainer:
             x0, y0 = w * (i // ns), h * (i % ns)
             mosaic[y0:y0 + h, x0:x0 + w] = imgs[i][..., ::-1]  # drawn in BGR, as cv2 draws
             rectangle_line8(mosaic, (x0, y0), (x0 + w, y0 + h), (255, 255, 255), 2)
-            put_text(mosaic, osp.basename(paths[i])[:40], (x0 + 5, y0 + 15), 0.5,
-                     (220, 220, 220), 1)
+            put_text(mosaic, osp.basename(paths[i])[:40], (x0 + 5, y0 + 15),
+                     FONT_HERSHEY_COMPLEX, 0.5, (220, 220, 220), 1)
             lb = labels[i]
             lb = lb[lb[:, 0] >= 0]
             for cls, cx, cy, bw, bh in lb:
@@ -449,7 +451,7 @@ class Trainer:
                 color = tuple(int(c) for c in np.random.default_rng(int(cls)).integers(64, 255, 3))
                 rectangle_line8(mosaic, (x1, y1), (x2, y2), color, 1)
                 put_text(mosaic, str(self.data_dict["names"][int(cls)]), (x1, max(y1 - 5, 10)),
-                         0.5, color, 1)
+                         FONT_HERSHEY_COMPLEX, 0.5, color, 1)
         scale = max_size / ns / max(h, w)
         if scale < 1:
             mosaic = resize_linear(mosaic, (int(ns * w * scale), int(ns * h * scale)))
@@ -675,7 +677,7 @@ class Trainer:
                 color = Inferer.generate_colors(cls_id, True)
                 rectangle_line8(img, (int(x), int(y)), (int(x + w), int(y + h)), color, 1)
                 put_text(img, f"{self.data_dict['names'][cls_id]}: {d['score']:.2f}",
-                         (int(x), max(int(y) - 8, 10)), 0.5, color, 1)
+                         (int(x), max(int(y) - 8, 10)), FONT_HERSHEY_COMPLEX, 0.5, color, 1)
             vis.append(img[:, :, ::-1])
         if vis:
             write_tbimg(self.tblogger, vis, self.epoch, type="val")

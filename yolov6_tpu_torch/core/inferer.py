@@ -14,8 +14,8 @@ the JAX inferer's FPS overlay and written to ``<stem>.mp4`` by
 capture's fps and size; its label rows go to ``labels/<stem>.txt``, frame
 after frame. Departures from the JAX inferer, for what the machine with the
 card lacks (no cv2): boxes, labels and the overlay are drawn by
-``utils/draw.py`` (cv2's geometry and text sizes, the port's own font);
-webcam and ``view_img`` raise ``NotImplementedError``.
+``utils/draw.py``, pixel for pixel as cv2 5.0 draws them; webcam and
+``view_img`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -5,9 +5,10 @@ Saturated shapes (circle, square, triangle, ring) on smooth noisy
 backgrounds, in YOLO-txt format under ``images/{train,val}`` and
 ``labels/{train,val}``, with a ``data.json``. The random draws are the JAX
 generator's, in the same order, so with the same seed and square images the
-label rows are the same. The shapes are rasterised in numpy without cv2's
-anti-aliasing, so the pixels are not the JAX generator's. ``sizes`` gives
-the images other shapes than ``img_size`` square.
+label rows are the same, and the shapes are drawn as cv2 draws them
+(``utils/draw.py``), so the pixels are the JAX generator's before its JPEG
+encode (this one writes PNG). ``sizes`` gives the images other shapes than
+``img_size`` square.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from yolov6_tpu_torch.data.image_io import imwrite_png
+from yolov6_tpu_torch.utils import draw
 
 CLASS_NAMES = ["circle", "square", "triangle", "ring"]
 # Saturated BGR fills, chosen to survive the default HSV jitter
@@ -39,22 +41,20 @@ def _background(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
 
 
 def _draw_shape(img: np.ndarray, cls: int, cx: int, cy: int, r: int) -> tuple:
-    """Fill one shape in place; returns its tight xyxy box in pixels."""
-    h, w = img.shape[:2]
-    x0, y0, x1, y1 = max(cx - r, 0), max(cy - r, 0), min(cx + r + 1, w), min(cy + r + 1, h)
-    ys, xs = np.mgrid[y0:y1, x0:x1]
-    dx, dy = xs - cx, ys - cy
+    """Draw one shape in place as the JAX generator does with cv2 (its
+    anti-aliased circle, ring and triangle; the square filled at LINE_8);
+    returns its tight xyxy box in pixels."""
+    color = _COLORS[cls]
     if cls == 0:  # circle
-        mask = dx * dx + dy * dy <= r * r
+        draw.circle(img, (cx, cy), r, color, -1)
     elif cls == 1:  # axis-aligned square
-        mask = np.ones(dx.shape, bool)
-    elif cls == 2:  # upright triangle, apex (cx, cy - r), base y = cy + r
-        mask = (dy <= r) & (2 * np.abs(dx) <= dy + r)
-    else:  # ring: a band of width th around radius r - th // 2
+        draw.rectangle(img, (cx - r, cy - r), (cx + r, cy + r), color, -1)
+    elif cls == 2:  # upright triangle
+        pts = np.array([[cx, cy - r], [cx - r, cy + r], [cx + r, cy + r]])
+        draw.fill_poly(img, [pts], color)
+    else:  # ring (annulus): a thick circle outline
         th = max(2, r // 3)
-        dist = np.sqrt(dx * dx + dy * dy)
-        mask = np.abs(dist - (r - th // 2)) <= th / 2
-    img[y0:y1, x0:x1][mask] = _COLORS[cls]
+        draw.circle(img, (cx, cy), r - th // 2, color, th)
     return cx - r, cy - r, cx + r, cy + r
 
 

@@ -9,7 +9,7 @@ Each of the first ``max_images`` images (by name) is read by
 ``ValueError``, as in the loaders), each label's box is drawn 2 px wide as
 ``cv2.rectangle`` draws it (``utils/draw.py::rectangle_line8``) in the
 colour of its class from ``default_rng(0)``, its class name or id above it
-in the port's 5x7 font, and the result is written under the image's name
+as ``cv2.putText`` writes it (``utils/text.py``), and the result is written under the image's name
 in its format (``image_io.imwrite``, as the JAX tool's ``cv2.imwrite``).
 """
 
@@ -22,7 +22,8 @@ import os.path as osp
 import numpy as np
 
 from yolov6_tpu_torch.data.image_io import imread, imwrite
-from yolov6_tpu_torch.utils.draw import put_text, rectangle_line8
+from yolov6_tpu_torch.utils.draw import rectangle_line8
+from yolov6_tpu_torch.utils.text import FONT_HERSHEY_SIMPLEX, put_text
 
 
 def visualize(img_dir: str, label_dir: str, out_dir: str, class_names=None, max_images=20):
@@ -51,7 +52,7 @@ def visualize(img_dir: str, label_dir: str, out_dir: str, class_names=None, max_
                     color = tuple(int(c) for c in colors[int(cls) % len(colors)])
                     rectangle_line8(img, (x1, y1), (x2, y2), color, 2)
                     label = class_names[int(cls)] if class_names else str(int(cls))
-                    put_text(img, label, (x1, max(y1 - 4, 10)), 0.5, color, 1)
+                    put_text(img, label, (x1, max(y1 - 4, 10)), FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
         out = osp.join(out_dir, name)
         imwrite(out, img)
         written.append(out)

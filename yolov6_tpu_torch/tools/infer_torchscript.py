@@ -36,7 +36,8 @@ from yolov6_tpu_torch.data.data_augment import resize_linear
 from yolov6_tpu_torch.data.image_io import imread, imwrite
 from yolov6_tpu_torch.ops.cuda.nms_kernel import greedy_nms
 from yolov6_tpu_torch.utils.device import resolve_device
-from yolov6_tpu_torch.utils.draw import put_text, rectangle
+from yolov6_tpu_torch.utils.draw import rectangle
+from yolov6_tpu_torch.utils.text import FONT_HERSHEY_SIMPLEX, put_text
 
 CONF_THRES = 0.45
 IOU_THRES = 0.65
@@ -132,7 +133,8 @@ def run(img_path: str, model_path: str, img_size, conf_thres=CONF_THRES, iou_thr
         y1 = math.ceil(min(max((box[3] - hpad / 2) / scale, 1), img_h - 1))
         dets.append([x0, y0, x1, y1, score, label])
         rectangle(draw, (x0, y0), (x1, y1), (0, 255, 0), 2)
-        put_text(draw, f"{label}: {score:.2f}", (x0, max(y0 - 5, 1)), 0.5, (0, 255, 255), 2)
+        put_text(draw, f"{label}: {score:.2f}", (x0, max(y0 - 5, 1)), FONT_HERSHEY_SIMPLEX, 0.5,
+                 (0, 255, 255), 2)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         imwrite(osp.join(out_dir, osp.basename(img_path)), draw)

@@ -41,7 +41,8 @@ from yolov6_tpu_torch.data.video import (
 from yolov6_tpu_torch.export.torch_export import OnnxTorchModule
 from yolov6_tpu_torch.ops.nms import non_max_suppression
 from yolov6_tpu_torch.utils.device import resolve_device
-from yolov6_tpu_torch.utils.draw import plot_box_and_label, put_text
+from yolov6_tpu_torch.utils.draw import plot_box_and_label
+from yolov6_tpu_torch.utils.text import FONT_HERSHEY_SIMPLEX, put_text
 
 VIDEO_SUFFIXES = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 MAX_DET = 300
@@ -100,7 +101,8 @@ def run_video(runner, h, w, args, device="cuda"):
             dets = infer_frame(runner, frame, h, w, args.conf_thres, args.iou_thres, device)
             draw_dets(frame, dets, args.class_names, verbose=False)
             cur_fps = (n_frames + 1) / (time.perf_counter() - t0)
-            put_text(frame, f"FPS: {cur_fps:.1f}", (10, 25), 0.7, (0, 255, 0), 2)
+            put_text(frame, f"FPS: {cur_fps:.1f}", (10, 25), FONT_HERSHEY_SIMPLEX, 0.7,
+                     (0, 255, 0), 2)
             if writer is not None:
                 writer.write(frame)
             n_frames += 1

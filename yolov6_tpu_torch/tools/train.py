@@ -175,21 +175,28 @@ def check_and_init(args):
     return cfg
 
 
-def main(args):
-    """Train; returns the ``Trainer`` (its ``epoch_stats``, ``eval_stats``
-    and ``profile_result``). With ``--quant --calib`` it calibrates instead
-    (``Trainer.calibrate``, JAX tools/train.py:130-132). Under torchrun it
-    first joins the process group (JAX tools/train.py:120-127); a group the
-    caller initialised is used as it is."""
+def build_trainer(args):
+    """Join the process group under torchrun (JAX tools/train.py:120-127; a
+    group the caller initialised is used as it is), check the arguments and
+    build the ``Trainer``."""
     initialize_distributed(args.device)
-    cfg = check_and_init(args)
-    trainer = Trainer(args, cfg)
-    if args.quant and args.calib:
+    return Trainer(args, check_and_init(args))
+
+
+def run(trainer):
+    """Train a built ``Trainer``, or with ``--quant --calib`` calibrate it
+    instead (``Trainer.calibrate``, JAX tools/train.py:130-132); returns it."""
+    if trainer.args.quant and trainer.args.calib:
         trainer.calib_path = trainer.calibrate()
         return trainer
     trainer.train()
     return trainer
 
+
+def main(args):
+    """Train; returns the ``Trainer`` (its ``epoch_stats``, ``eval_stats``
+    and ``profile_result``)."""
+    return run(build_trainer(args))
 
 if __name__ == "__main__":
     main(get_args_parser().parse_args())

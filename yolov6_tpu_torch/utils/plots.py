@@ -20,7 +20,8 @@ The machine with the card has no matplotlib.
   cells stay white. ``colorbar()`` draws the scale beside it, ``text``
   writes in a cell's centre.
 - Ticks at 0, 0.2, ... 1 (or the cells' centres), tick labels and axis
-  labels, in the port's 5x7 font (utils/draw.py).
+  labels, in cv2 5.0's text (utils/text.py: Rubik, anti-aliased), not
+  matplotlib's DejaVu Sans.
 - ``savefig(path)`` writes the PNG (data/image_io.py::imwrite_png).
 
 The data, colours and strings are matplotlib's; the pixels are not (no
@@ -34,7 +35,7 @@ from typing import Optional
 import numpy as np
 
 from yolov6_tpu_torch.data.image_io import imwrite_png
-from yolov6_tpu_torch.utils.draw import get_text_size, put_text
+from yolov6_tpu_torch.utils.text import FONT_HERSHEY_SIMPLEX, get_text_size, put_text
 
 DPI = 250
 FIG_W, FIG_H = 9 * DPI, 6 * DPI
@@ -85,13 +86,14 @@ def _disc(radius: float) -> np.ndarray:
     return np.stack([dy[keep], dx[keep]], 1)
 
 
-def _text_mask(text: str, scale: float, thickness: int) -> np.ndarray:
-    """The pixels ``put_text`` writes for ``text``, as a bool [h, w] block
-    whose bottom row is the baseline."""
-    w, h = get_text_size(text, scale, thickness)
-    buf = np.zeros((h + 1, max(w, 1), 3), np.uint8)
-    put_text(buf, text, (0, h), scale, (255, 255, 255), thickness)
-    return buf[..., 0] > 0
+def _text_alpha(text: str, scale: float, thickness: int) -> np.ndarray:
+    """``put_text``'s coverage of ``text`` (FONT_HERSHEY_SIMPLEX) as a uint8
+    [h, w] block: the text's box, its descent included (white drawn on black
+    is the coverage itself)."""
+    (w, h), base = get_text_size(text, FONT_HERSHEY_SIMPLEX, scale, thickness)
+    buf = np.zeros((h + base + 1, max(w, 1), 3), np.uint8)
+    put_text(buf, text, (0, h), FONT_HERSHEY_SIMPLEX, scale, (255, 255, 255), thickness)
+    return buf[..., 0]
 
 
 class Axes:
@@ -190,26 +192,31 @@ class Axes:
 
     # ------------------------------------------------------------- drawing
 
-    def _paste(self, mask: np.ndarray, top: int, left: int, color) -> None:
+    def _paste(self, alpha: np.ndarray, top: int, left: int, color) -> None:
+        """Blend ``color`` into the canvas under the coverage block ``alpha``
+        as ``put_text`` blends it."""
         H, W = self.img.shape[:2]
-        h, w = mask.shape
+        h, w = alpha.shape
         ya, xa = max(top, 0), max(left, 0)
         yb, xb = min(top + h, H), min(left + w, W)
         if ya < yb and xa < xb:
-            self.img[ya:yb, xa:xb][mask[ya - top:yb - top, xa - left:xb - left]] = color
+            a = alpha[ya - top:yb - top, xa - left:xb - left, None].astype(np.int32)
+            region = self.img[ya:yb, xa:xb].astype(np.int32)
+            col = np.asarray(color, np.int32)
+            self.img[ya:yb, xa:xb] = ((col * a + region * (255 - a) + 127) // 255).astype(np.uint8)
 
     def _label(self, text: str, cx: float, cy: float, scale: float, rotate: bool = False,
                color=(0, 0, 0), anchor: str = "center") -> None:
         """``text`` centred on (cx, cy), read bottom to top when ``rotate``;
         ``anchor`` 'left' or 'right' puts that end at cx, 'top' its top at
         cy."""
-        mask = _text_mask(text, scale, 1 if scale < 1 else 2)
+        alpha = _text_alpha(text, scale, 1 if scale < 1 else 2)
         if rotate:
-            mask = np.rot90(mask)
-        h, w = mask.shape
+            alpha = np.rot90(alpha)
+        h, w = alpha.shape
         left = {"left": cx, "right": cx - w}.get(anchor, cx - w / 2)
         top = cy if anchor == "top" else cy - h / 2
-        self._paste(mask, int(round(top)), int(round(left)), color)
+        self._paste(alpha, int(round(top)), int(round(left)), color)
 
     def _stamp(self, x, y, width_px: float, color) -> None:
         """A polyline through pixel points (x, y), ``width_px`` wide, clipped to
@@ -280,8 +287,8 @@ class Axes:
             width = line["linewidth"] * PT
             r = int(np.ceil(width / 2))
             self.img[row - r:row + r + 1, left:left + 80] = line["color"]
-            mask = _text_mask(line["label"], self.LEGEND_SCALE, 2)
-            self._paste(mask, row - mask.shape[0] // 2, left + 100, (0, 0, 0))
+            alpha = _text_alpha(line["label"], self.LEGEND_SCALE, 2)
+            self._paste(alpha, row - alpha.shape[0] // 2, left + 100, (0, 0, 0))
             row += 48
 
     def _draw_image(self) -> None:
