@@ -290,7 +290,17 @@ Phases, each of which asserts:
      overlay of tests/data/torch_draw/hashes.json and the synthetic
      generator's first 4 images equal to the SHA-256 of the JAX package's
      cv2 5.0 drawing; ``plot_box_and_label`` over a 1080x810 image of 1000
-     detections and ``put_text`` of a label timed.
+     detections and ``put_text`` of a label timed;
+ 39. the train path's JPEG read (host, and a train CLI epoch): [39a] the
+     files of tests/data/torch_jpeg_train/ through ``load_image_rgb`` at 64
+     and at 96x160 give their manifest's SHA-256 (the JAX native library's
+     DCT-scaled decode and bilinear; cv2's for the Exif-6 file), and
+     through ``imread`` cv2.imread's (block-smoothed where cut short);
+     [39b] the read of a 1920x1080 and a 4032x3024 JPEG at 640 (DCT scale
+     1/2 and 1/4) timed beside ``imread`` and ``resize_linear``; [39c] one
+     mosaic epoch of S b32@640 bf16 through the train CLI over [11]'s 64
+     images written as 1920x1080 JPEGs, its imgs/s and loader wait a step
+     beside [12]'s PNG epoch, its in-training eval's 2 keep launches.
 Phases run in the order of their numbers but for [23], which runs after
 [31], once [13]'s gate (a child process from the start of group [11]) is
 joined.
@@ -5130,6 +5140,154 @@ def draw_phase(root: str, card: str, build_s: dict) -> dict:
     return res
 
 
+# [39]: the train path's JPEG read. The committed set and its manifest
+# (tests/torch_jpeg_train_fixtures.py), the read timed on two camera-sized
+# files written here, and one mosaic epoch of the train CLI over [11]'s
+# images rewritten as 1920x1080 JPEGs
+JPEG_TRAIN_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg_train")
+JPEG_READ_SIZES = ((1920, 1080), (4032, 3024))  # (w, h): DCT scale 1/2 and 1/4 at 640
+JPEG_READ_REPEATS = 5
+JPEG_CLI = dict(size=(1920, 1080), workers=8)
+
+
+def jpeg_read_phase(root: str, card: str) -> dict:
+    """Phase 39a-b: every file of ``JPEG_TRAIN_FIXTURES`` through
+    ``TrainValDataset.load_image_rgb`` at ``img_size`` 64 and at the
+    specific shape 96x160 gives the SHA-256 its manifest holds (the JAX
+    native library's read; cv2's oriented reduced read and the native
+    bilinear for the Exif-6 file), and through ``imread`` cv2.imread's
+    (block-smoothed for the cut progressive files); then the train-path
+    read of a 1920x1080 and a 4032x3024 JPEG at 640 timed beside ``imread``
+    and ``resize_linear`` of the same file (host clock, one thread)."""
+    import hashlib
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from yolov6_tpu_torch.data import jpeg
+    from yolov6_tpu_torch.data.data_augment import resize_linear
+    from yolov6_tpu_torch.data.datasets import TrainValDataset
+    from yolov6_tpu_torch.data.image_io import imread
+
+    def digest(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    with open(os.path.join(JPEG_TRAIN_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    images = os.path.join(root, "jpeg_train_fixtures", "images", "train")
+    shutil.copytree(JPEG_TRAIN_FIXTURES, images, ignore=shutil.ignore_patterns("*.json"))
+    spec_h, spec_w = manifest["specific_shape"]
+    t0 = time.perf_counter()
+    reads = 0
+    for k, kw in enumerate(({}, dict(specific_shape=True, height=spec_h, width=spec_w))):
+        ds = TrainValDataset(images, img_size=manifest["img_size"], augment=True,
+                             hyp=dict(mosaic=1.0), **kw)
+        for i, path in enumerate(ds.img_paths):
+            name = os.path.basename(path)
+            want = manifest["files"][name]["reads"][k]
+            img = ds.load_image_rgb(i)[0]
+            assert list(img.shape[:2]) == want["dst"] and digest(img) == want["sha256"], \
+                f"[39a] {name} at {want['target']}: the train-path read differs from {want['from']}"
+            reads += 1
+    for name, entry in manifest["files"].items():
+        assert digest(imread(os.path.join(images, name))) == entry["imread_sha256"], \
+            f"[39a] {name}: imread differs from cv2.imread"
+    check_s = time.perf_counter() - t0
+    denoms = sorted({r["denom"] for e in manifest["files"].values() for r in e["reads"]})
+    log(f"[39a] {len(manifest['files'])} fixture files, {reads} train-path reads (DCT scale "
+        f"1/{', 1/'.join(map(str, denoms))}; 4:2:0 4:2:2 4:4:4 4:4:0 4:1:1, grey, progressive, "
+        f"restarts, odd sizes, two progressive files cut before their last scans, the CMYK and "
+        f"PNG fallbacks, Exif 6) equal the manifest's SHA-256 and imread equals cv2.imread on "
+        f"every file, in {check_s:.2f} s [{card}]")
+
+    src = imread(os.path.join(ROOT, "data", "images", "image1.jpg"))
+    timed = {}
+    for w, h in JPEG_READ_SIZES:
+        path = os.path.join(root, f"read_{w}x{h}.jpg")
+        with open(path, "wb") as f:
+            f.write(jpeg.encode_jpeg(resize_linear(src, (w, h))))
+        ratio = IMG / max(h, w)
+        dst_h, dst_w = int(h * ratio), int(w * ratio)
+        denom = jpeg.train_denom(h, w, IMG)
+        read_ms, plain_ms = [], []
+        for _ in range(JPEG_READ_REPEATS):
+            t0 = time.perf_counter()
+            img = jpeg.read_jpeg_train(path, denom, dst_h, dst_w)
+            read_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            full = resize_linear(imread(path)[:, :, ::-1], (dst_w, dst_h))
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        assert img.shape == full.shape == (dst_h, dst_w, 3)
+        diff = float(np.abs(img.astype(np.int16) - full.astype(np.int16)).mean())
+        timed[f"{w}x{h}"] = dict(denom=denom, dst=[dst_h, dst_w], bytes=os.path.getsize(path),
+                                 read_ms=statistics.median(read_ms),
+                                 imread_resize_ms=statistics.median(plain_ms),
+                                 read_runs_ms=read_ms, imread_resize_runs_ms=plain_ms,
+                                 mean_abs_diff=diff)
+        log(f"[39b] train-path read of a {w}x{h} JPEG ({os.path.getsize(path)} B) to "
+            f"{dst_w}x{dst_h}: DCT scale 1/{denom} and the native bilinear "
+            f"{timed[f'{w}x{h}']['read_ms']:.2f} ms; imread and resize_linear "
+            f"{timed[f'{w}x{h}']['imread_resize_ms']:.2f} ms (medians of {JPEG_READ_REPEATS}, "
+            f"host clock, one thread); the two images {diff:.2f} levels apart on average [{card}]")
+    return dict(fixtures=len(manifest["files"]), reads=reads, check_s=check_s, timed=timed)
+
+
+def jpeg_train_cli_phase(data: dict, root: str, png_epoch: dict, card: str) -> dict:
+    """Phase 39c: [11]'s 64 images written as 1920x1080 JPEGs (stretched,
+    their labels as they are; ``encode_jpeg``, eight threads), then one
+    mosaic epoch of S b32@640 bf16 through ``tools/train.py::main`` over
+    them (DCT scale 1/2 and the native bilinear on every read), its
+    in-training eval on [11]'s PNGs through the kernel; its imgs/s and
+    loader wait a step beside [12]'s PNG mosaic epoch."""
+    import glob
+    import shutil
+    from multiprocessing.pool import ThreadPool
+
+    from yolov6_tpu_torch.data.data_augment import resize_linear
+    from yolov6_tpu_torch.data.image_io import imread
+    from yolov6_tpu_torch.data.jpeg import encode_jpeg
+
+    w, h = JPEG_CLI["size"]
+    out = os.path.join(root, "jpeg_cli", "images", "train")
+    labels = os.path.join(root, "jpeg_cli", "labels", "train")
+    os.makedirs(out)
+    shutil.copytree(os.path.join(os.path.dirname(os.path.dirname(data["val"])), "labels",
+                                 os.path.basename(data["val"])), labels)
+    pngs = sorted(glob.glob(os.path.join(data["val"], "*.png")))
+
+    def write(png):
+        name = os.path.splitext(os.path.basename(png))[0] + ".jpg"
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(encode_jpeg(resize_linear(imread(png), (w, h))))
+
+    t0 = time.perf_counter()
+    with ThreadPool(JPEG_CLI["workers"]) as pool:
+        pool.map(write, pngs)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(f) for f in glob.glob(os.path.join(out, "*.jpg")))
+    log(f"[39c] wrote [11]'s {len(pngs)} images as {w}x{h} JPEGs ({nbytes} B) in {write_s:.2f} s "
+        f"({JPEG_CLI['workers']} threads) [{card}]")
+    path = os.path.join(root, "jpeg_cli", "data80.json")
+    with open(path, "w") as f:
+        json.dump(dict(data, train=out), f)
+    conf = cli_config(root, os.path.join(ROOT, "configs", "yolov6s.py"), "yolov6s_jpeg_cli.py")
+    trainer, walk, wall = cli_train(path, conf, root, "s_jpeg", 1, "[39c]", card, "S JPEG",
+                                    "--stop_aug_last_n_epoch", "0")
+    e = trainer.epoch_stats[0]
+    assert e["steps"] == len(pngs) // BATCH, e
+    wait_ms = e["loader_wait_s"] / e["steps"] * 1e3
+    png_wait_ms = png_epoch["loader_wait_s"] / png_epoch["steps"] * 1e3
+    log(f"[39c] the JPEG mosaic epoch: {e['steps']} steps, {e['imgs_per_s']:.1f} imgs/s with the "
+        f"loader, loader wait {wait_ms:.2f} ms a step; [12]'s PNG mosaic epoch "
+        f"({png_epoch['steps']} steps of 320x240-768x576 PNGs): {png_epoch['imgs_per_s']:.1f} "
+        f"imgs/s, loader wait {png_wait_ms:.2f} ms a step (host clock) [{card}]")
+    return dict(launches=walk["launches"], images=len(pngs), size=[w, h], write_s=write_s,
+                bytes=nbytes, epoch=e, loader_wait_ms=wait_ms, png_epoch_imgs_per_s=png_epoch[
+                    "imgs_per_s"], png_loader_wait_ms=png_wait_ms, wall_s=wall,
+                max_abs_err=walk["max_abs_err"])
+
+
 def main() -> int:
     try:
         import torch
@@ -5416,6 +5574,13 @@ def main() -> int:
         # the synthetic images against the JAX generator's, the draw timed
         phase_mark("[38]")
         drawing = draw_phase(root, card, drawing_build)
+        # ---- 39. the train path's JPEG read: the fixtures' hashes, the read
+        # timed, one mosaic epoch of the train CLI over 1920x1080 JPEGs
+        phase_mark("[39]")
+        train_jpeg = jpeg_read_phase(root, card)
+        greedy_nms.launches = 0
+        train_jpeg["cli"] = jpeg_train_cli_phase(data, root, train_cli["epochs"][0], card)
+        jpeg_cli_launches = greedy_nms.launches
         distill_gate = join_child(distill_child)
         phase_mark("end")
     assert train_cli_launches >= train_cli["launches"]
@@ -5435,6 +5600,7 @@ def main() -> int:
     assert infer_jpeg_launches == infer_jpeg["launches"] == len(DEMO_JPEGS)
     assert format_eval_launches == formats["eval"]["launches"] == 2
     assert format_infer_launches == formats["infer"]["launches"] == 4
+    assert jpeg_cli_launches == train_jpeg["cli"]["launches"] == 2
     log("phase wall times (s): " + ", ".join(
         f"{a} {tb - ta:.1f}" for (a, ta), (_, tb) in zip(PHASE_MARKS, PHASE_MARKS[1:])))
 
@@ -5520,7 +5686,8 @@ def main() -> int:
                              "eval_cli_tiff_webp": format_eval_launches,
                              "infer_cli_tiff_webp_out": format_infer_launches,
                              "infer_cli_video": videos["infer"]["launches"],
-                             "onnx_demo_video": videos["onnx"]["launches"]},
+                             "onnx_demo_video": videos["onnx"]["launches"],
+                             "train_cli_jpeg_eval": jpeg_cli_launches},
         "matches_plain": True,
         "max_abs_err": max(main["max_abs_err"], m_serve["max_abs_err"],
                            *(e["kernel"]["max_abs_err"] for e in (eval_s, eval_m, eval_s_rect)),
@@ -5551,7 +5718,7 @@ def main() -> int:
                            shape_cli["max_abs_err"], gate_repro["max_abs_err"],
                            infer_jpeg["max_abs_err"], formats["eval"]["max_abs_err"],
                            formats["infer"]["max_abs_err"], videos["infer"]["max_abs_err"],
-                           videos["onnx"]["max_abs_err"]),
+                           videos["onnx"]["max_abs_err"], train_jpeg["cli"]["max_abs_err"]),
         "tiles_visited": main["tiles_visited"],
         "ms": main["ms"],
         "call_ms": main["call_ms"],
@@ -5609,6 +5776,7 @@ def main() -> int:
         "model_info": model_info,
         "vis_dataset": vis,
         "drawing": drawing,
+        "train_jpeg": train_jpeg,
     }]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -102,6 +102,31 @@ def test_check_image_equals_jax(tmp_path, full_check):
         assert got["truncated.jpg"] == ((64, 48), "")
 
 
+@pytest.mark.parametrize("mode", ["RGB", "CMYK"])
+def test_truncated_progressive_restore_equals_jax(tmp_path, mode):
+    """A progressive JPEG cut before its last scans (one libjpeg
+    block-smooths), RGB and CMYK: each side restores its own copy under the
+    full check, and cv2 decodes the two restored files to equal pixels
+    (tolerance: none), as for the baseline file above."""
+    from PIL import Image
+
+    src = tmp_path / "src.jpg"
+    Image.fromarray(smooth_image(48, 64, 6)).convert(mode).save(src, "JPEG", progressive=True)
+    data = src.read_bytes()
+    paths = []
+    for side in ("ours", "theirs"):
+        os.makedirs(tmp_path / side)
+        paths.append(str(tmp_path / side / "cut.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(data[:len(data) // 2])
+    shape, msg = check_image(paths[0], full_check=True)
+    shape_j, msg_j = jax_check_image(paths[1], full_check=True)
+    assert tuple(shape) == tuple(shape_j) == (64, 48)
+    assert _kind(msg) == _kind(msg_j) == "restored"
+    restored, restored_j = (cv2.imread(p) for p in paths)
+    np.testing.assert_array_equal(restored, restored_j)
+
+
 def _dataset(root, names):
     """A YOLO set of ``names`` from ``_files``, each with one label row; a
     label file of ``bad_labels.png`` out of range."""

@@ -154,19 +154,22 @@ def _patch_sof(data, marker=None, precision=None):
 def test_unsupported_and_corrupt_files_raise_value_error(tmp_path):
     """What stays unread raises; a progressive file, a CMYK file and files
     whose scan ends early (cut short, no EOI, the scan's tail overwritten by fill
-    bytes) decode as cv2 decodes them, grey past the end."""
+    bytes) decode as cv2 decodes them, grey past the end; a progressive file
+    cut before its last scans, RGB or CMYK, decodes block-smoothed as cv2
+    decodes it (once refused)."""
     img = _image(40, 48, seed=9)
     ok, buf = cv2.imencode(".jpg", img)
     base = buf.tobytes()
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     cmyk = tmp_path / "cmyk.jpg"
     Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG")
+    cmyk_prog = tmp_path / "cmyk_prog.jpg"
+    Image.fromarray(img).convert("CMYK").save(cmyk_prog, "JPEG", progressive=True)
     cases = {
         "twelve_bit": (_patch_sof(base, precision=12), "12-bit JPEG"),
         "arithmetic": (_patch_sof(base, marker=0xC9), "arithmetic-coded JPEG"),
         "lossless": (_patch_sof(base, marker=0xC3), "lossless JPEG"),
         "header_only": (base[:base.index(b"\xff\xda")], "truncated JPEG file"),
-        "progressive_cut": (prog.tobytes()[:len(prog) // 2], "block smoothing"),
     }
     for name, (data, kind) in cases.items():
         path = tmp_path / f"{name}.jpg"
@@ -182,6 +185,8 @@ def test_unsupported_and_corrupt_files_raise_value_error(tmp_path):
         "truncated": base[:len(base) // 2],
         "no_eoi": base[:-2],
         "bad_huffman_code": base[:-40] + b"\xff" * 38 + base[-2:],
+        "progressive_cut": prog.tobytes()[:len(prog) // 2],
+        "cmyk_progressive_cut": cmyk_prog.read_bytes()[:len(cmyk_prog.read_bytes()) // 2],
     }
     for name, data in decoded.items():
         path = tmp_path / f"{name}.jpg"

@@ -1,9 +1,13 @@
 // JPEG decoder that returns exactly what cv2.imread returns for the files it
 // accepts: libjpeg-turbo's default decompression (jdhuff.c's and jdphuff.c's
-// Huffman decoding, jidctint.c's accurate integer IDCT, jdsample.c's
-// "fancy" upsampling, jdcolor.c's fixed-point YCbCr->RGB), written out as
-// BGR, with the Exif orientation read as OpenCV reads it (the first APP1
-// segment). Written from ITU-T T.81 and the integer pipeline of those files.
+// Huffman decoding, the accurate integer IDCT as its x86-64 SIMD computes
+// it, jdsample.c's "fancy" upsampling, jdcolor.c's fixed-point YCbCr->RGB),
+// written out as BGR, with the Exif orientation read as OpenCV reads it (the
+// first APP1 segment). Written from ITU-T T.81 and the integer pipeline of
+// those files. It also decodes as libjpeg does at scale_denom 2, 4 and 8 to
+// RGB (jidctred.c's reduced IDCTs; the JAX package's train-path read), and
+// block-smooths a progressive image whose first AC coefficients are not all
+// final (jdcoefct.c decompress_smooth_data, as libjpeg-turbo 3 does it).
 //
 // Accepted: SOF0/SOF1 (sequential) and SOF2 (progressive: spectral
 // selection and successive approximation), Huffman-coded, at 8-bit precision
@@ -14,11 +18,10 @@
 // A stream that ends early decodes as libjpeg-turbo decodes it behind
 // OpenCV's file source, which inserts a fake EOI at the end of the data: the
 // MCU that runs out finishes on zero bits, every later MCU of the scan keeps
-// zero coefficients (128 grey through the IDCT), and the image is returned
+// zero coefficients (128 grey through the IDCT, or the earlier scans'
+// coefficients, smoothed, in a progressive file), and the image is returned
 // with the `truncated` flag set. A file that ends before its first scan, or
-// inside a table or SOS segment after it, gives an error, as does a
-// truncated progressive file whose missing low-frequency bits libjpeg would
-// fill by block smoothing (jdcoefct.c), which is not reproduced. The rest
+// inside a table or SOS segment after it, gives an error. The rest
 // (lossless, hierarchical, arithmetic coding, 12-bit) and corrupt streams
 // give an error. Four components are CMYK, or YCCK under Adobe transform 2
 // (jdcolor.c ycck_cmyk_convert), turned into BGR as OpenCV turns libjpeg's
@@ -41,7 +44,9 @@
 
 namespace {
 
-enum Code { OK = 0, UNSUPPORTED = 1, CORRUPT = 2, TRUNCATED = 3, INTERNAL = 4 };
+// NOT_RGB: a file libjpeg reads but does not convert to RGB (CMYK, YCCK),
+// which the train path's caller reads another way
+enum Code { OK = 0, UNSUPPORTED = 1, CORRUPT = 2, TRUNCATED = 3, INTERNAL = 4, NOT_RGB = 5 };
 
 struct Fail {
   int code;
@@ -252,17 +257,30 @@ struct IdctLimit {
 };
 const IdctLimit kIdctLimit;
 
+// The accurate IDCT as libjpeg-turbo's x86-64 SIMD version (jidctint-avx2)
+// computes it, which is jidctint.c's where the values stay in range: the
+// dequantised coefficients in 16 bits, the first pass's output saturated
+// to 16 bits, the samples clamped (not range-limited through the mask).
+// Only a block-smoothing estimate far out of range tells them apart.
+inline int sat16(int64_t v) {
+  return static_cast<int>(v > 32767 ? 32767 : (v < -32768 ? -32768 : v));
+}
+inline uint8_t clamp_sample(int64_t v) {
+  v += 128;
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
 void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
   int ws[64];
   for (int c = 0; c < 8; c++) {
     const int16_t* in = coef + c;
     const uint16_t* qt = q + c;
     int* w = ws + c;
-    auto dq = [&](int r) -> int64_t {
-      return static_cast<int64_t>(in[8 * r]) * static_cast<int16_t>(qt[8 * r]);
+    auto dq = [&](int r) -> int64_t {  // 16-bit products, as pmullw leaves them
+      return static_cast<int16_t>(in[8 * r] * static_cast<int16_t>(qt[8 * r]));
     };
     if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
-      int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+      int dc = static_cast<int16_t>(dq(0) * (1 << kPass1Bits));
       for (int r = 0; r < 8; r++) w[8 * r] = dc;
       continue;
     }
@@ -300,21 +318,20 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
     const int sh = kConstBits - kPass1Bits;
-    w[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
-    w[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
-    w[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
-    w[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
-    w[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
-    w[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
-    w[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
-    w[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+    w[0] = sat16(descale(tmp10 + tmp3, sh));
+    w[56] = sat16(descale(tmp10 - tmp3, sh));
+    w[8] = sat16(descale(tmp11 + tmp2, sh));
+    w[48] = sat16(descale(tmp11 - tmp2, sh));
+    w[16] = sat16(descale(tmp12 + tmp1, sh));
+    w[40] = sat16(descale(tmp12 - tmp1, sh));
+    w[24] = sat16(descale(tmp13 + tmp0, sh));
+    w[32] = sat16(descale(tmp13 - tmp0, sh));
   }
-  const uint8_t* lim = kIdctLimit.t;
   for (int r = 0; r < 8; r++) {
     const int* w = ws + 8 * r;
     uint8_t* o = out + r * stride;
     if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = lim[descale(w[0], kPass1Bits + 3) & 1023];
+      uint8_t v = clamp_sample(descale(w[0], kPass1Bits + 3));
       for (int c = 0; c < 8; c++) o[c] = v;
       continue;
     }
@@ -350,15 +367,127 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
     const int sh = kConstBits + kPass1Bits + 3;
-    o[0] = lim[descale(tmp10 + tmp3, sh) & 1023];
-    o[7] = lim[descale(tmp10 - tmp3, sh) & 1023];
-    o[1] = lim[descale(tmp11 + tmp2, sh) & 1023];
-    o[6] = lim[descale(tmp11 - tmp2, sh) & 1023];
-    o[2] = lim[descale(tmp12 + tmp1, sh) & 1023];
-    o[5] = lim[descale(tmp12 - tmp1, sh) & 1023];
-    o[3] = lim[descale(tmp13 + tmp0, sh) & 1023];
-    o[4] = lim[descale(tmp13 - tmp0, sh) & 1023];
+    o[0] = clamp_sample(descale(tmp10 + tmp3, sh));
+    o[7] = clamp_sample(descale(tmp10 - tmp3, sh));
+    o[1] = clamp_sample(descale(tmp11 + tmp2, sh));
+    o[6] = clamp_sample(descale(tmp11 - tmp2, sh));
+    o[2] = clamp_sample(descale(tmp12 + tmp1, sh));
+    o[5] = clamp_sample(descale(tmp12 - tmp1, sh));
+    o[3] = clamp_sample(descale(tmp13 + tmp0, sh));
+    o[4] = clamp_sample(descale(tmp13 - tmp0, sh));
   }
+}
+
+// jidctred.c: the reduced-size IDCTs libjpeg runs at DCT scale 1/2, 1/4
+// and 1/8 (jpeg_idct_4x4, _2x2, _1x1), on the same CONST_BITS 13 and
+// PASS1_BITS 2 and the same range limit
+constexpr int64_t FIX_0_211164243 = 1730;
+constexpr int64_t FIX_0_509795579 = 4176;
+constexpr int64_t FIX_0_601344887 = 4926;
+constexpr int64_t FIX_0_720959822 = 5906;
+constexpr int64_t FIX_0_850430095 = 6967;
+constexpr int64_t FIX_1_061594337 = 8697;
+constexpr int64_t FIX_1_272758580 = 10426;
+constexpr int64_t FIX_1_451774981 = 11893;
+constexpr int64_t FIX_2_172734803 = 17799;
+constexpr int64_t FIX_3_624509785 = 29692;
+
+void idct_4x4(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  int ws[32];
+  for (int c = 0; c < 8; c++) {
+    if (c == 4) continue;  // the second pass does not read column 4
+    const int16_t* in = coef + c;
+    const uint16_t* qt = q + c;
+    int* w = ws + c;
+    auto dq = [&](int r) -> int64_t {
+      return static_cast<int64_t>(in[8 * r]) * static_cast<int16_t>(qt[8 * r]);
+    };
+    if (!in[8] && !in[16] && !in[24] && !in[40] && !in[48] && !in[56]) {
+      int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+      for (int r = 0; r < 4; r++) w[8 * r] = dc;
+      continue;
+    }
+    int64_t tmp0 = dq(0) * (int64_t(1) << (kConstBits + 1));
+    int64_t tmp2 = dq(2) * FIX_1_847759065 + dq(6) * -FIX_0_765366865;
+    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    int64_t z1 = dq(7), z2 = dq(5), z3 = dq(3), z4 = dq(1);
+    tmp0 = z1 * -FIX_0_211164243 + z2 * FIX_1_451774981 + z3 * -FIX_2_172734803 +
+           z4 * FIX_1_061594337;
+    tmp2 = z1 * -FIX_0_509795579 + z2 * -FIX_0_601344887 + z3 * FIX_0_899976223 +
+           z4 * FIX_2_562915447;
+    const int sh = kConstBits - kPass1Bits + 1;
+    w[0] = static_cast<int>(descale(tmp10 + tmp2, sh));
+    w[24] = static_cast<int>(descale(tmp10 - tmp2, sh));
+    w[8] = static_cast<int>(descale(tmp12 + tmp0, sh));
+    w[16] = static_cast<int>(descale(tmp12 - tmp0, sh));
+  }
+  const uint8_t* lim = kIdctLimit.t;
+  for (int r = 0; r < 4; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
+      uint8_t v = lim[descale(w[0], kPass1Bits + 3) & 1023];
+      for (int c = 0; c < 4; c++) o[c] = v;
+      continue;
+    }
+    int64_t tmp0 = int64_t(w[0]) * (int64_t(1) << (kConstBits + 1));
+    int64_t tmp2 = int64_t(w[2]) * FIX_1_847759065 + int64_t(w[6]) * -FIX_0_765366865;
+    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
+    tmp0 = z1 * -FIX_0_211164243 + z2 * FIX_1_451774981 + z3 * -FIX_2_172734803 +
+           z4 * FIX_1_061594337;
+    tmp2 = z1 * -FIX_0_509795579 + z2 * -FIX_0_601344887 + z3 * FIX_0_899976223 +
+           z4 * FIX_2_562915447;
+    const int sh = kConstBits + kPass1Bits + 3 + 1;
+    o[0] = lim[descale(tmp10 + tmp2, sh) & 1023];
+    o[3] = lim[descale(tmp10 - tmp2, sh) & 1023];
+    o[1] = lim[descale(tmp12 + tmp0, sh) & 1023];
+    o[2] = lim[descale(tmp12 - tmp0, sh) & 1023];
+  }
+}
+
+void idct_2x2(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  int ws[16];
+  for (int c = 0; c < 8; c++) {
+    if (c == 2 || c == 4 || c == 6) continue;  // not read by the second pass
+    const int16_t* in = coef + c;
+    const uint16_t* qt = q + c;
+    int* w = ws + c;
+    auto dq = [&](int r) -> int64_t {
+      return static_cast<int64_t>(in[8 * r]) * static_cast<int16_t>(qt[8 * r]);
+    };
+    if (!in[8] && !in[24] && !in[40] && !in[56]) {
+      int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+      w[0] = w[8] = dc;
+      continue;
+    }
+    int64_t tmp10 = dq(0) * (int64_t(1) << (kConstBits + 2));
+    int64_t tmp0 = dq(7) * -FIX_0_720959822 + dq(5) * FIX_0_850430095 +
+                   dq(3) * -FIX_1_272758580 + dq(1) * FIX_3_624509785;
+    const int sh = kConstBits - kPass1Bits + 2;
+    w[0] = static_cast<int>(descale(tmp10 + tmp0, sh));
+    w[8] = static_cast<int>(descale(tmp10 - tmp0, sh));
+  }
+  const uint8_t* lim = kIdctLimit.t;
+  for (int r = 0; r < 2; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[3] && !w[5] && !w[7]) {
+      o[0] = o[1] = lim[descale(w[0], kPass1Bits + 3) & 1023];
+      continue;
+    }
+    int64_t tmp10 = int64_t(w[0]) * (int64_t(1) << (kConstBits + 2));
+    int64_t tmp0 = int64_t(w[7]) * -FIX_0_720959822 + int64_t(w[5]) * FIX_0_850430095 +
+                   int64_t(w[3]) * -FIX_1_272758580 + int64_t(w[1]) * FIX_3_624509785;
+    const int sh = kConstBits + kPass1Bits + 3 + 2;
+    o[0] = lim[descale(tmp10 + tmp0, sh) & 1023];
+    o[1] = lim[descale(tmp10 - tmp0, sh) & 1023];
+  }
+}
+
+void idct_1x1(const int16_t* coef, const uint16_t* q, uint8_t* out, int) {
+  int dc = static_cast<int>(int64_t(coef[0]) * static_cast<int16_t>(q[0]));
+  out[0] = kIdctLimit.t[descale(dc, 3) & 1023];
 }
 
 // ------------------------------------------------------------- colour
@@ -393,8 +522,11 @@ struct Comp {
   bool scanned = false;
   uint16_t q[64];  // quantisation table, latched at the component's first scan
   int coef_bits[64];  // progressive: the last Al of each coefficient, -1 before any scan
+  int prev_bits[10];  // coef_bits[0-9] before the latest scan of the component
   std::vector<int16_t> coef;  // bw x bh blocks of 64 coefficients, natural order
-  std::vector<uint8_t> plane;
+  int ss = 8;  // the DCT's output size at the decode's scale (jdmaster.c)
+  int sw = 0, sh = 0;  // samples of the component at that scale
+  std::vector<uint8_t> plane;  // bw x bh blocks of ss x ss samples
   int16_t* block(int bx, int by) { return coef.data() + (size_t(by) * bw + bx) * 64; }
 };
 
@@ -416,6 +548,12 @@ struct Decoder {
   int force_color = -1;  // -1: libjpeg's guess; 0: as stored; 1: YCbCr/YCCK
   bool in_scans = false;  // past the first SOS: the end of the data reads as EOI
   bool truncated = false;  // the data ended before EOI
+  int scans = 0;  // SOS markers read
+  // the first iMCU row of the last scan whose data ran out, or -1 when the
+  // last scan ran to its end (libjpeg-turbo's last_good_iMCU_row + 1)
+  int cut_row = -1;
+  int scale = 8;  // the DCT output size of the decode: 8, or 4, 2, 1 at 1/2, 1/4, 1/8
+  int out_w = 0, out_h = 0;  // the output size at that scale
 
   Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
 
@@ -661,13 +799,17 @@ struct Decoder {
     const int ah = ahal >> 4, al = ahal & 15;
     if (pos != end) fail(CORRUPT, "corrupt JPEG file: bad SOS length");
     in_scans = true;
+    scans++;
     if (progressive) {  // jdphuff.c start_pass_phuff_decoder
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
       if (ah != 0 && al != ah - 1) bad = true;
       if (al > 13) bad = true;
       if (bad) fail(CORRUPT, "corrupt JPEG file: bad progression parameters Ss=%d Se=%d", ss, se);
-      for (int i = 0; i < ns; i++)
+      for (int i = 0; i < ns; i++) {
+        for (int k = ss < 1 ? ss : 1; k <= 9; k++)
+          sc[i]->prev_bits[k] = scans > 1 ? sc[i]->coef_bits[k] : 0;
         for (int k = ss; k <= se; k++) sc[i]->coef_bits[k] = al;
+      }
     }
     const bool dc_first = progressive && ss == 0 && ah == 0;
     const bool dc_refine = progressive && ss == 0 && ah != 0;
@@ -696,6 +838,7 @@ struct Decoder {
       bh = (sc[0]->hgt + 7) / 8;
     }
     Bits bits{d, n, pos};
+    cut_row = -1;
     int pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     int next_rst = 0;
@@ -733,6 +876,7 @@ struct Decoder {
             else decode_ac_refine(bits, c, ss, se, al, eobrun, blk);
           }
       }
+      if (bits.exhausted && cut_row < 0) cut_row = ns == 1 ? my / sc[0]->v : my;
     }
     bits.to_marker();
     pos = bits.pos;
@@ -838,9 +982,6 @@ struct Decoder {
       else segment_marker(m);
       m = next_marker();
     }
-    if (progressive && smoothing_applies())
-      fail(UNSUPPORTED, "progressive JPEG whose low-frequency AC bits are incomplete (a "
-                        "truncated file): libjpeg's block smoothing of them is not reproduced");
   }
 
   // jdcoefct.c smoothing_ok (libjpeg-turbo 3): every component latched with
@@ -861,20 +1002,157 @@ struct Decoder {
     return useful;
   }
 
-  // the IDCT of every block into the component's plane; a component with
-  // no scan is all zero coefficients, 128 everywhere
-  void reconstruct() {
+  // jdmaster.c: the output size and each component's DCT output size at
+  // scale 1/(8 / scale), scale in {8, 4, 2, 1}. A chroma component takes a
+  // larger IDCT in place of upsampling where its sampling allows.
+  void set_scale(int s) {
+    scale = s;
+    out_w = static_cast<int>((int64_t(width) * scale + 7) / 8);
+    out_h = static_cast<int>((int64_t(height) * scale + 7) / 8);
     for (int i = 0; i < ncomp; i++) {
       Comp& c = comp[i];
+      int ssize = scale;
+      while (ssize < 8 && (hmax * scale) % (c.h * ssize * 2) == 0 &&
+             (vmax * scale) % (c.v * ssize * 2) == 0)
+        ssize *= 2;
+      c.ss = ssize;
+      c.sw = static_cast<int>((int64_t(width) * c.h * ssize + hmax * 8 - 1) / (hmax * 8));
+      c.sh = static_cast<int>((int64_t(height) * c.v * ssize + vmax * 8 - 1) / (vmax * 8));
+    }
+  }
+
+  // The IDCT of every block into the component's plane, at the scale
+  // set_scale chose; a component with no scan is all zero coefficients, 128
+  // everywhere. A progressive image whose first AC coefficients are not all
+  // final is block-smoothed as libjpeg does it (jdcoefct.c).
+  void reconstruct(int scale = 8) {
+    set_scale(scale);
+    const bool smooth = progressive && smoothing_applies();
+    for (int i = 0; i < ncomp; i++) {
+      Comp& c = comp[i];
+      const int ss = c.ss, stride = c.bw * ss;
       if (c.coef.empty()) {
-        c.plane.assign(size_t(c.stride) * c.rows, 128);
+        c.plane.assign(size_t(stride) * c.bh * ss, 128);
         continue;
       }
-      c.plane.assign(size_t(c.stride) * c.rows, 0);
+      c.plane.assign(size_t(stride) * c.bh * ss, 0);
+      void (*idct)(const int16_t*, const uint16_t*, uint8_t*, int) =
+          ss == 8 ? idct_islow : ss == 4 ? idct_4x4 : ss == 2 ? idct_2x2 : idct_1x1;
+      if (smooth) {
+        smooth_component(c, idct);
+        continue;
+      }
       for (int by = 0; by < c.bh; by++)
         for (int bx = 0; bx < c.bw; bx++)
-          idct_islow(c.block(bx, by), c.q,
-                     c.plane.data() + size_t(by) * 8 * c.stride + size_t(bx) * 8, c.stride);
+          idct(c.block(bx, by), c.q, c.plane.data() + size_t(by) * ss * stride + size_t(bx) * ss,
+               stride);
+    }
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): each
+  // block of the component, with those of its first nine AC coefficients
+  // that are zero and not final estimated from the DC values of the 5x5
+  // blocks around it, and with its DC value re-estimated too where no AC
+  // bits are known at all. An iMCU row past the one where the last scan's
+  // data ran out takes the coefficient bits from before that scan.
+  void smooth_component(Comp& c, void (*idct)(const int16_t*, const uint16_t*, uint8_t*, int)) {
+    const int ss = c.ss, stride = c.bw * ss;
+    const int wb = (c.w + 7) / 8, hb = (c.hgt + 7) / 8;  // blocks of the image proper
+    const int64_t Q00 = c.q[0];
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    int64_t Q[10];
+    for (int k = 0; k < 10; k++) Q[k] = c.q[kPos[k]];
+    int cur[10], prev[10];
+    cur[0] = prev[0] = c.coef_bits[0];
+    for (int k = 1; k < 10; k++) {
+      cur[k] = c.coef_bits[k];
+      prev[k] = scans > 1 ? c.prev_bits[k] : -1;
+    }
+    int16_t ws[64];
+    for (int by = 0; by < hb; by++) {
+      // the rows of DC values two above to two below, as libjpeg-turbo 3
+      // picks them: from the row's index counted in the block rows of its
+      // own iMCU row (fewer in a partial last one) against that count times
+      // the iMCU rows, so that the row two below may be an MCU's padding row
+      // and a small image's last iMCU row sees no row two above (2.1 decides
+      // by the iMCU rows instead; the tests note where the two differ)
+      const int r = by / c.v, b = by % c.v;
+      const int block_rows = r < mcuy - 1 ? c.v : (hb % c.v ? hb % c.v : c.v);
+      const int ibr = r * block_rows + b, ibrs = block_rows * mcuy;
+      const int p1 = ibr > 0 ? by - 1 : by, p2 = ibr > 1 ? by - 2 : p1;
+      const int n1 = ibr < ibrs - 1 ? by + 1 : by, n2 = ibr < ibrs - 2 ? by + 2 : n1;
+      const int rows[5] = {p2, p1, by, n1, n2};
+      const int* bits = (cut_row >= 0 && r > cut_row) ? prev : cur;
+      bool change_dc = true;
+      for (int k = 1; k < 10; k++)
+        if (bits[k] != -1) change_dc = false;
+      for (int bx = 0; bx < wb; bx++) {
+        int DC[26];
+        for (int y = 0; y < 5; y++)
+          for (int x = 0; x < 5; x++) {
+            int cx = bx + x - 2;
+            cx = cx < 0 ? 0 : (cx >= wb ? wb - 1 : cx);
+            DC[1 + 5 * y + x] = c.block(cx, rows[y])[0];
+          }
+        std::memcpy(ws, c.block(bx, by), sizeof(ws));
+        auto estimate = [&](int k, int pos, int64_t sum) {
+          int al = bits[k];
+          if (al == 0 || ws[pos] != 0) return;
+          int64_t num = Q00 * sum;
+          int pred;
+          if (num >= 0) {
+            pred = static_cast<int>(((Q[k] << 7) + num) / (Q[k] << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          } else {
+            pred = static_cast<int>(((Q[k] << 7) - num) / (Q[k] << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+            pred = -pred;
+          }
+          ws[pos] = static_cast<int16_t>(pred);
+        };
+        const int64_t DC01 = DC[1], DC02 = DC[2], DC03 = DC[3], DC04 = DC[4], DC05 = DC[5],
+                      DC06 = DC[6], DC07 = DC[7], DC08 = DC[8], DC09 = DC[9], DC10 = DC[10],
+                      DC11 = DC[11], DC12 = DC[12], DC13 = DC[13], DC14 = DC[14], DC15 = DC[15],
+                      DC16 = DC[16], DC17 = DC[17], DC18 = DC[18], DC19 = DC[19], DC20 = DC[20],
+                      DC21 = DC[21], DC22 = DC[22], DC23 = DC[23], DC24 = DC[24], DC25 = DC[25];
+        estimate(1, 1, change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                                    13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                                    3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                                    DC21 - DC22 + DC24 + DC25)
+                                 : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+        estimate(2, 8, change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                    13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                                    13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                    3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                 : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+        estimate(3, 16, change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                                     14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                                     DC23)
+                                  : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+        estimate(4, 9, change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                                    DC21 - DC25)
+                                 : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                                    DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+        estimate(5, 2, change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                                    14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                                    2 * DC19)
+                                 : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+        if (change_dc) {
+          estimate(6, 3, DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+          estimate(7, 10, DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+          estimate(8, 17, DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+          estimate(9, 24, DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+          int64_t num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                               6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                               8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+                               6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                               2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+          int pred = num >= 0 ? static_cast<int>(((Q00 << 7) + num) / (Q00 << 8))
+                              : -static_cast<int>(((Q00 << 7) - num) / (Q00 << 8));
+          ws[0] = static_cast<int16_t>(pred);
+        }
+        idct(ws, c.q, c.plane.data() + size_t(by) * ss * stride + size_t(bx) * ss, stride);
+      }
     }
   }
 
@@ -901,43 +1179,47 @@ struct Decoder {
     }
   }
 
-  // the component upsampled to the image size (jdsample.c's choice of method)
+  // the component upsampled to the output size (jdsample.c's choice of
+  // method; no fancy upsampling at scale 1/8, where jdmainct.c has no
+  // context rows)
   std::vector<uint8_t> upsample(const Comp& c) const {
-    std::vector<uint8_t> out(size_t(width) * height);
-    if (hmax % c.h || vmax % c.v)
+    std::vector<uint8_t> out(size_t(out_w) * out_h);
+    const int hin = c.h * c.ss / scale, vin = c.v * c.ss / scale;
+    if (hin == 0 || vin == 0 || hmax % hin || vmax % vin)
       fail(UNSUPPORTED, "JPEG with fractional chroma sampling is not supported");
-    const int he = hmax / c.h, ve = vmax / c.v;
-    const int cw = c.w, ch = c.hgt;
+    const int he = hmax / hin, ve = vmax / vin;
+    const int cw = c.sw, ch = c.sh, stride = c.bw * c.ss;
+    const bool fancy = scale > 1;
     const uint8_t* p = c.plane.data();
-    auto at = [&](int y, int x) -> int { return p[size_t(y) * c.stride + x]; };
+    auto at = [&](int y, int x) -> int { return p[size_t(y) * stride + x]; };
     auto rowc = [&](int y) { return y < 0 ? 0 : (y >= ch ? ch - 1 : y); };
     auto colc = [&](int x) { return x < 0 ? 0 : (x >= cw ? cw - 1 : x); };
-    const bool h2v1 = he == 2 && ve == 1 && cw > 2;
-    const bool h1v2 = he == 1 && ve == 2;
-    const bool h2v2 = he == 2 && ve == 2 && cw > 2;
-    for (int y = 0; y < height; y++) {
-      uint8_t* o = out.data() + size_t(y) * width;
+    const bool h2v1 = fancy && he == 2 && ve == 1 && cw > 2;
+    const bool h1v2 = fancy && he == 1 && ve == 2;
+    const bool h2v2 = fancy && he == 2 && ve == 2 && cw > 2;
+    for (int y = 0; y < out_h; y++) {
+      uint8_t* o = out.data() + size_t(y) * out_w;
       if (h2v1) {
-        for (int x = 0; x < width; x++) {
+        for (int x = 0; x < out_w; x++) {
           int i = x >> 1, near = 3 * at(y, i);
           o[x] = static_cast<uint8_t>(x & 1 ? (near + at(y, colc(i + 1)) + 2) >> 2
                                              : (near + at(y, colc(i - 1)) + 1) >> 2);
         }
       } else if (h1v2) {
         int j = y >> 1, far = rowc(y & 1 ? j + 1 : j - 1), bias = y & 1 ? 2 : 1;
-        for (int x = 0; x < width; x++)
+        for (int x = 0; x < out_w; x++)
           o[x] = static_cast<uint8_t>((3 * at(j, x) + at(far, x) + bias) >> 2);
       } else if (h2v2) {
         int j = y >> 1, far = rowc(y & 1 ? j + 1 : j - 1);
         auto colsum = [&](int i) { return 3 * at(j, i) + at(far, i); };
-        for (int x = 0; x < width; x++) {
+        for (int x = 0; x < out_w; x++) {
           int i = x >> 1, near = 3 * colsum(i);
           o[x] = static_cast<uint8_t>(x & 1 ? (near + colsum(colc(i + 1)) + 7) >> 4
                                              : (near + colsum(colc(i - 1)) + 8) >> 4);
         }
       } else {  // full size, or replication by the integral factors
         int j = y / ve;
-        for (int x = 0; x < width; x++) o[x] = static_cast<uint8_t>(at(j, x / he));
+        for (int x = 0; x < out_w; x++) o[x] = static_cast<uint8_t>(at(j, x / he));
       }
     }
     return out;
@@ -950,7 +1232,7 @@ struct Decoder {
     std::vector<uint8_t> p[4] = {upsample(comp[0]), upsample(comp[1]), upsample(comp[2]),
                                  upsample(comp[3])};
     const bool ycck = force_color >= 0 ? force_color == 1 : (adobe && adobe_transform != 0);
-    const size_t npx = size_t(width) * height;
+    const size_t npx = size_t(out_w) * out_h;
     for (size_t i = 0; i < npx; i++) {
       uint8_t* o = out + 4 * i;
       if (ycck) {
@@ -967,15 +1249,17 @@ struct Decoder {
     }
   }
 
-  // BGR, HxWx3, into `out`
-  void output(uint8_t* out) const {
-    const size_t npx = size_t(width) * height;
+  // BGR (or with `rgb_order` RGB), HxWx3 at the output size, into `out`
+  void output(uint8_t* out, bool rgb_order = false) const {
+    const size_t npx = size_t(out_w) * out_h;
+    const int ob = rgb_order ? 2 : 0, orr = 2 - ob;  // where blue and red go
     if (ncomp == 1) {
       const Comp& c = comp[0];
-      for (int y = 0; y < height; y++)
-        for (int x = 0; x < width; x++) {
-          uint8_t g = c.plane[size_t(y) * c.stride + x];
-          uint8_t* o = out + (size_t(y) * width + x) * 3;
+      const int stride = c.bw * c.ss;
+      for (int y = 0; y < out_h; y++)
+        for (int x = 0; x < out_w; x++) {
+          uint8_t g = c.plane[size_t(y) * stride + x];
+          uint8_t* o = out + (size_t(y) * out_w + x) * 3;
           o[0] = o[1] = o[2] = g;
         }
       return;
@@ -1005,15 +1289,15 @@ struct Decoder {
     for (size_t i = 0; i < npx; i++) {
       uint8_t* o = out + 3 * i;
       if (rgb) {
-        o[0] = p2[i];
+        o[ob] = p2[i];
         o[1] = p1[i];
-        o[2] = p0[i];
+        o[orr] = p0[i];
         continue;
       }
       int y = p0[i], cb = p1[i], cr = p2[i];
-      o[2] = clamp255(y + kYcc.cr_r[cr]);
+      o[orr] = clamp255(y + kYcc.cr_r[cr]);
       o[1] = clamp255(y + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-      o[0] = clamp255(y + kYcc.cb_b[cb]);
+      o[ob] = clamp255(y + kYcc.cb_b[cb]);
     }
   }
 };
@@ -1066,6 +1350,49 @@ void decode_body(void* p) {
   *a.truncated = dec.truncated;
 }
 
+// std::floor and std::lround of a float, exactly, without <cmath>
+inline int floor_int(float v) {
+  int i = static_cast<int>(v);
+  return v < static_cast<float>(i) ? i - 1 : i;
+}
+inline long round_half_away(float v) {  // the double holds v + 0.5 exactly
+  return v < 0 ? -static_cast<long>(0.5 - static_cast<double>(v))
+               : static_cast<long>(static_cast<double>(v) + 0.5);
+}
+
+// The JAX package's native train-path resize (native/dataload.cc
+// BilinearResize): float32, half-pixel centres, std::lround. Built, like
+// that library, with no floating-point contraction, so that it gives its
+// bytes.
+void bilinear_resize(const uint8_t* src, int h, int w, uint8_t* dst, int dh, int dw) {
+  const float sx = static_cast<float>(w) / dw;
+  const float sy = static_cast<float>(h) / dh;
+  for (int y = 0; y < dh; ++y) {
+    float fy = (y + 0.5f) * sy - 0.5f;
+    int y0 = floor_int(fy);
+    float wy = fy - y0;
+    int y1 = y0 + 1 < h - 1 ? y0 + 1 : h - 1;
+    y0 = y0 > 0 ? y0 : 0;
+    uint8_t* drow = dst + static_cast<size_t>(y) * dw * 3;
+    const uint8_t* srow0 = src + static_cast<size_t>(y0) * w * 3;
+    const uint8_t* srow1 = src + static_cast<size_t>(y1) * w * 3;
+    for (int x = 0; x < dw; ++x) {
+      float fx = (x + 0.5f) * sx - 0.5f;
+      int x0 = floor_int(fx);
+      float wx = fx - x0;
+      int x1 = x0 + 1 < w - 1 ? x0 + 1 : w - 1;
+      x0 = x0 > 0 ? x0 : 0;
+      for (int c = 0; c < 3; ++c) {
+        float v00 = srow0[x0 * 3 + c], v01 = srow0[x1 * 3 + c];
+        float v10 = srow1[x0 * 3 + c], v11 = srow1[x1 * 3 + c];
+        float v0 = v00 + (v01 - v00) * wx;
+        float v1 = v10 + (v11 - v10) * wx;
+        drow[x * 3 + c] = static_cast<uint8_t>(round_half_away(v0 + (v1 - v0) * wy));
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1107,6 +1434,46 @@ int yolov6_jpeg_decode_cmyk(const uint8_t* data, size_t size, uint8_t* out, int 
                             int height, int* truncated, char* err, int errlen) {
   DecodeArgs a{data, size, out, width, height, truncated, -1, true};
   return run(err, errlen, decode_body, &a);
+}
+
+// Decode as libjpeg does with out_color_space JCS_RGB at scale_num 1,
+// scale_denom `denom` (1, 2, 4 or 8), its defaults otherwise (accurate
+// integer IDCT, or at the scale jidctred.c's reduced IDCTs; fancy
+// upsampling but at 1/8; block smoothing): `width` x `height` x 3 RGB bytes
+// into `out`, each side yolov6_jpeg_info's divided by `denom` and rounded
+// up (jdiv_round_up), no orientation.
+// Grey comes out as RGB. A 4-component file (CMYK, YCCK), which libjpeg
+// does not convert to RGB, returns NOT_RGB.
+int yolov6_jpeg_decode_scaled(const uint8_t* data, size_t size, int denom, uint8_t* out,
+                              int width, int height, int* truncated, char* err, int errlen) {
+  struct Args {
+    const uint8_t* d;
+    size_t n;
+    int denom;
+    uint8_t* out;
+    int w, h;
+    int* truncated;
+  } a{data, size, denom, out, width, height, truncated};
+  return run(err, errlen, [](void* p) {
+    Args& a = *static_cast<Args*>(p);
+    if (a.denom != 1 && a.denom != 2 && a.denom != 4 && a.denom != 8)
+      fail(INTERNAL, "DCT scale 1/%d: the denominator is 1, 2, 4 or 8", a.denom);
+    Decoder dec(a.d, a.n);
+    dec.decode();
+    if (dec.ncomp == 4)
+      fail(NOT_RGB, "4-component (CMYK or YCCK) JPEG: libjpeg converts it to no RGB");
+    dec.reconstruct(8 / a.denom);
+    if (dec.out_w != a.w || dec.out_h != a.h)
+      fail(INTERNAL, "output buffer is %dx%d pixels, not the scaled image's size", a.w, a.h);
+    dec.output(a.out, true);
+    *a.truncated = dec.truncated;
+  }, &a);
+}
+
+// `src` (h x w x 3 bytes) resized to `dh` x `dw` x 3 into `dst` as the JAX
+// package's native train path resizes (bilinear_resize).
+void yolov6_bilinear_resize(const uint8_t* src, int h, int w, uint8_t* dst, int dh, int dw) {
+  bilinear_resize(src, h, w, dst, dh, dw);
 }
 
 // Decode into planes as FFmpeg's MJPEG decoder does (reconstruct_simple):

@@ -17,13 +17,15 @@ under a random affine (optionally mixed up with a second mosaic), else the
 letterbox and a random affine; then the HSV jitter and the flips. The pixel
 passes are ``data/native_aug.py``'s C++ library; every random value is drawn
 from a ``Draws`` seeded by ``(seed, epoch, index)``, so a sample does not
-depend on which loader thread made it. The JAX package's C++ batch loader
-(``native/dataload.cc``) is not ported.
+depend on which loader thread made it. A JPEG is read as the JAX package's
+native library reads it for that path (``native/dataload.cc``
+``yolov6_decode_jpeg_resize``: ``data/jpeg.py::read_jpeg_train``); that
+library's batch decode-and-letterbox is not ported.
 
 The train path's image caches (JAX: datasets.py:143-182, 374-460) keep its
 decoded, pre-resized RGB image: ``cache="ram"`` in the dataset's memory, at
 first use; ``cache="disk"`` as one ``.npy`` an image in
-``.torch_img_cache_{dir}_{size}`` beside the images (``size`` is
+``.torch_img_cache_v2_{dir}_{size}`` beside the images (``size`` is
 ``img_size``, or ``max(height, width)`` at a specific shape), written through a
 temporary name and ``os.replace`` so that ranks sharing the directory never
 read a torn file. A cached sample is the uncached one bit for bit: the
@@ -64,7 +66,7 @@ from yolov6_tpu_torch.data.data_augment import (
 from yolov6_tpu_torch.data.image_io import image_format, image_size, imread
 from yolov6_tpu_torch.data.video import VideoCapture
 from yolov6_tpu_torch.data.jpeg import (
-    decode_jpeg_cmyk, encode_jpeg, jpeg_info, orient,
+    decode_jpeg_cmyk, encode_jpeg, jpeg_info, orient, read_jpeg_train, train_denom,
 )
 
 LOGGER = logging.getLogger(__name__)
@@ -74,6 +76,9 @@ VID_FORMATS = ["mp4", "mov", "avi", "mkv"]
 # 3: the entry records the scan's checks, so that an unchecked scan is not
 # read back as a checked one
 CACHE_VERSION = 3
+# in the disk tier's directory name; 2: JPEGs read as the JAX package's native
+# train path reads them (DCT-scaled decode, its bilinear resize)
+IMG_CACHE_VERSION = 2
 
 
 def restore_jpeg(im_file: str, img: np.ndarray) -> None:
@@ -203,7 +208,7 @@ class TrainValDataset:
             size = max(height, width) if specific_shape else img_size
             self.disk_cache_dir = osp.join(
                 osp.dirname(osp.dirname(self.img_paths[0])) or ".",
-                f".torch_img_cache_{osp.basename(str(img_dir))}_{size}")
+                f".torch_img_cache_v{IMG_CACHE_VERSION}_{osp.basename(str(img_dir))}_{size}")
             os.makedirs(self.disk_cache_dir, exist_ok=True)
         if self.rect:
             self._setup_rect_batches()
@@ -368,9 +373,15 @@ class TrainValDataset:
 
     def load_image_rgb(self, index):
         """The train path's decode and pre-resize (JAX: datasets.py:396-459
-        ``_load_image_rgb``): RGB, INTER_LINEAR to ``img_size / max(h0, w0)``,
-        or at a specific shape ``min(width / w0, height / h0)``, whatever the
-        size, served from the cache tier when there is one.
+        ``_load_image_rgb``) to ``img_size / max(h0, w0)``, or at a specific
+        shape ``min(width / w0, height / h0)``, ``(h0, w0)`` from the scan,
+        served from the cache tier when there is one. A ``.jpg``/``.jpeg``
+        file is read as the JAX package's native library reads it
+        (``jpeg.read_jpeg_train``: libjpeg's DCT-scaled decode at the largest
+        1/2, 1/4 or 1/8 that keeps the long side at the target or above, then
+        its float bilinear resize; the Exif orientation applied first, as
+        cv2 applies it); any other file, and a JPEG libjpeg does not convert
+        to RGB (CMYK, YCCK), is ``imread`` and INTER_LINEAR, as JAX's fallback.
         Returns ``(RGB image, (h0, w0), (h, w))``; the image is shared with
         the cache and is not to be written."""
         if self._ram is not None and self._ram[index] is not None:
@@ -383,15 +394,22 @@ class TrainValDataset:
                 return im, (h0, w0), im.shape[:2]
             except (OSError, ValueError) as e:
                 LOGGER.warning(f"re-decoding {self.img_paths[index]}: cache file {e}")
-        im = np.ascontiguousarray(imread(self.img_paths[index])[:, :, ::-1])
-        h0, w0 = im.shape[:2]
+        path = self.img_paths[index]
+        w0, h0 = self._resolve_shape(index)
         if self.specific_shape:
             ratio = min(self.target_width / w0, self.target_height / h0)
+            target = max(self.target_height, self.target_width)
         else:
             ratio = self.img_size / max(h0, w0)
+            target = self.img_size
         dst_h, dst_w = int(h0 * ratio), int(w0 * ratio)
-        if (dst_h, dst_w) != (h0, w0):
-            im = resize_linear(im, (dst_w, dst_h))
+        im = None
+        if path.lower().endswith((".jpg", ".jpeg")):
+            im = read_jpeg_train(path, train_denom(h0, w0, target), dst_h, dst_w)
+        if im is None:
+            im = np.ascontiguousarray(imread(path)[:, :, ::-1])
+            if im.shape[:2] != (dst_h, dst_w):
+                im = resize_linear(im, (dst_w, dst_h))
         out = im, (h0, w0), im.shape[:2]
         if self._ram is not None:
             self._ram[index] = out

@@ -13,11 +13,16 @@ three components (YCbCr, or RGB as libjpeg guesses it) or four (CMYK, or
 YCCK under Adobe transform 2, turned into BGR as OpenCV turns CMYK), through
 libjpeg-turbo's default pipeline (accurate integer IDCT, fancy upsampling),
 and applies the Exif orientation as ``cv2.imread`` does. A file that ends
-early decodes as cv2 decodes it (the blocks past the end grey), with a
-warning logged. Lossless, hierarchical, arithmetic-coded and 12-bit
-files, corrupt ones, a file that ends before its
-first scan, and a truncated progressive file that libjpeg would smooth
+early decodes as cv2 decodes it (the blocks past the end grey; a progressive
+file's missing low-frequency bits block-smoothed as libjpeg-turbo 3 fills
+them), with a warning logged. Lossless, hierarchical, arithmetic-coded and
+12-bit files, corrupt ones and a file that ends before its first scan
 raise ``ValueError`` naming the file and the kind.
+
+``decode_jpeg_scaled`` decodes to RGB at DCT scale 1/2, 1/4 or 1/8 as
+libjpeg does at ``scale_denom``, and ``bilinear_resize`` is the JAX native
+library's float resize: together the JAX package's train-path JPEG read
+(``read_jpeg_train``).
 
 ``encode_jpeg`` writes baseline JPEG as libjpeg-turbo's defaults write it:
 at ``quality=95, subsampling="420"`` the bytes of ``cv2.imencode('.jpg',
@@ -72,6 +77,14 @@ def load() -> ctypes.CDLL:
             lib.yolov6_jpeg_decode_cmyk.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 c_int_p, ctypes.c_char_p, ctypes.c_int]
+            lib.yolov6_jpeg_decode_scaled.restype = ctypes.c_int
+            lib.yolov6_jpeg_decode_scaled.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, c_int_p, ctypes.c_char_p, ctypes.c_int]
+            lib.yolov6_bilinear_resize.restype = None
+            lib.yolov6_bilinear_resize.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int]
             lib.yolov6_jpeg_decode_planes.restype = ctypes.c_int
             lib.yolov6_jpeg_decode_planes.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -80,8 +93,17 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def _error(path, err) -> ValueError:
-    return ValueError(f"{path}: {err.value.decode(errors='replace')}")
+class NotRGBError(ValueError):
+    """The file is one that libjpeg reads but converts to no RGB (CMYK,
+    YCCK), or is not a JPEG at all."""
+
+
+_NOT_RGB = 5  # the C library's code for NotRGBError
+
+
+def _error(path, err, code=0) -> ValueError:
+    return (NotRGBError if code == _NOT_RGB else ValueError)(
+        f"{path}: {err.value.decode(errors='replace')}")
 
 
 def jpeg_info(data: bytes, path="<bytes>") -> Tuple[int, int, int, int]:
@@ -168,6 +190,86 @@ def decode_jpeg_planes(data: bytes, path="<bytes>") -> list:
         planes.append(out[off:off + pw * ph].reshape(ph, pw))
         off += pw * ph
     return planes
+
+
+def decode_jpeg_scaled(data: bytes, denom: int, path="<bytes>") -> np.ndarray:
+    """The JPEG ``data`` as libjpeg decodes it to RGB at DCT scale
+    ``1/denom`` (``scale_denom``, 1, 2, 4 or 8; the JAX package's native
+    train-path read): ``ceil(h / denom) x ceil(w / denom) x 3`` uint8 RGB,
+    C-contiguous, no Exif orientation, grey as RGB. At 1/2, 1/4 and 1/8
+    that is jidctred.c's reduced IDCTs, chroma decoded larger in place of
+    upsampling where its sampling allows, and no fancy upsampling at 1/8.
+    Raises ``NotRGBError`` for a CMYK or YCCK file, which libjpeg does not
+    convert to RGB, and for data that is not a JPEG; ``ValueError`` for
+    what ``decode_jpeg`` refuses."""
+    if denom not in (1, 2, 4, 8):
+        raise ValueError(f"denom={denom}: one of 1, 2, 4 and 8")
+    if data[:2] != b"\xff\xd8":
+        raise NotRGBError(f"{path}: not a JPEG file (no SOI)")
+    w, h, _, components = jpeg_info(data, path)
+    if components == 4:
+        raise NotRGBError(f"{path}: 4-component (CMYK or YCCK) JPEG: libjpeg converts it to "
+                          "no RGB")
+    out = np.empty((-(-h // denom), -(-w // denom), 3), np.uint8)
+    truncated = ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    rc = load().yolov6_jpeg_decode_scaled(data, len(data), denom, out.ctypes.data, out.shape[1],
+                                          out.shape[0], ctypes.byref(truncated), err, _ERRLEN)
+    if rc:
+        raise _error(path, err, rc)
+    if truncated.value:
+        LOGGER.warning(f"{path}: premature end of JPEG file; the missing blocks are grey "
+                       "(128), as libjpeg returns them")
+    return out
+
+
+def bilinear_resize(img: np.ndarray, dst_h: int, dst_w: int) -> np.ndarray:
+    """HxWx3 uint8 ``img`` resized to ``dst_h x dst_w`` as the JAX package's
+    native train path resizes a decoded JPEG (``native/dataload.cc``
+    ``BilinearResize``: float32, half-pixel centres, rounded half away
+    from zero), bit for bit."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"bilinear_resize needs HxWx3, got {img.shape}")
+    out = np.empty((dst_h, dst_w, 3), np.uint8)
+    load().yolov6_bilinear_resize(img.ctypes.data, img.shape[0], img.shape[1], out.ctypes.data,
+                                  dst_h, dst_w)
+    return out
+
+
+def train_denom(h0: int, w0: int, target: int) -> int:
+    """The DCT scale's denominator of the JAX package's train-path read
+    (datasets.py ``_load_image_rgb``): the largest of 1, 2, 4 and 8 that
+    keeps ``max(h0, w0) / denom`` at ``target`` or above."""
+    denom = 1
+    for n in (2, 4, 8):
+        if max(h0, w0) / n >= target:
+            denom = n
+    return denom
+
+
+def read_jpeg_train(path: str, denom: int, dst_h: int, dst_w: int) -> Optional[np.ndarray]:
+    """The JPEG file at ``path`` read as the JAX package's native train path
+    reads it (``native.decode_jpeg_resize_native``): decoded at DCT scale
+    ``1/denom`` (``decode_jpeg_scaled``), then resized to ``dst_h x dst_w``
+    by ``bilinear_resize`` unless it has that size already; RGB uint8.
+    One departure: an Exif orientation is applied before the resize, as
+    ``cv2.imread`` applies it, where the JAX library decodes the stored
+    pixels into the oriented size. Returns None where libjpeg would refuse
+    the file (``NotRGBError``: CMYK, YCCK, not a JPEG), for the caller's
+    fallback; raises ``ValueError`` for the files ``decode_jpeg`` refuses."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        im = decode_jpeg_scaled(data, denom, path)
+    except NotRGBError:
+        return None
+    orientation = jpeg_info(data, path)[2]
+    if orientation != 1:
+        im = orient(im, orientation)
+    if im.shape[:2] != (dst_h, dst_w):
+        im = bilinear_resize(im, dst_h, dst_w)
+    return im
 
 
 def decode_jpeg_cmyk(data: bytes, path="<bytes>") -> np.ndarray:

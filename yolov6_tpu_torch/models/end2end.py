@@ -114,7 +114,7 @@ def export_program(serve_module: nn.Module, batch: int, img_size: Tuple[int, int
 
     Not ported, each raising: ``platforms`` (a program runs where it was
     exported and ``load_serving`` moves it), ``shard_devices`` (GSPMD
-    serving, ROADMAP queue 1 item 9) and ``weights`` (the weights-as-arguments
+    serving, on ROADMAP's do-not-port list) and ``weights`` (the weights-as-arguments
     form exists for a TPU remote-compile size limit; ROADMAP do-not-port
     list)."""
     if platforms:
@@ -122,8 +122,8 @@ def export_program(serve_module: nn.Module, batch: int, img_size: Tuple[int, int
                                   "on and load_serving(path, device) moves it; the multi-platform "
                                   "StableHLO artifact is on ROADMAP's do-not-port list")
     if shard_devices != 1:
-        raise NotImplementedError("shard_devices: GSPMD serving over a device mesh waits for "
-                                  "ROADMAP queue 1 item 9 (multi-card)")
+        raise NotImplementedError("shard_devices: GSPMD serving over a device mesh (the GSPMD "
+                                  "export) is on ROADMAP's do-not-port list")
     if weights is not None:
         raise NotImplementedError("weights as arguments exists for a TPU remote-compile size "
                                   "limit; it is on ROADMAP's do-not-port list")

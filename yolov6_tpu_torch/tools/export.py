@@ -150,8 +150,8 @@ def _refuse(args):
         raise SystemExit("--weights-as-args exists for a TPU remote-compile size limit and is "
                          "on ROADMAP's do-not-port list; a .pt2 holds its weights")
     if args.shard_devices != 1:
-        raise SystemExit("--shard-devices: GSPMD serving over a device mesh waits for the "
-                         "multi-card work (ROADMAP queue 1 item 9)")
+        raise SystemExit("--shard-devices: multi-card GSPMD serving over a device mesh (the "
+                         "GSPMD export) is on ROADMAP's do-not-port list")
     if args.runner_dir:
         raise SystemExit("--runner-dir feeds the JAX package's native PJRT runner, which is "
                          "on ROADMAP's do-not-port list")
